@@ -1,0 +1,8 @@
+"""dot_tpu_torch: the DOT stepper's main path in PyTorch, with hand-written
+CUDA / Triton kernels for NVIDIA Hopper (sm_90a).
+
+A port of dot_tpu (the JAX reference, which stays beside it). It imports
+torch and never jax or dot_tpu; the pure-numpy host modules are copies.
+Entry point: python -m dot_tpu_torch 100 <scene.txt> [tag] [--frames N]
+[--dtype f32|f64].
+"""
