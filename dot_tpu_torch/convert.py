@@ -10,45 +10,58 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .steppers.core import BTDFactor, SimState, System
+from .steppers.core import APPLY_DTYPES, BTDFactor, CRFactor, SimState, System
 
 
 def system_from_plan(mesh, cfg, plan, dtype=torch.float64, device="cpu",
                      use_kernels=True):
     """The port's System on a numpy SubdomainPlan (dot_tpu's or the
-    port's: the fields are the same)."""
+    port's: the fields are the same), with cfg's applyDtype."""
     return System(mesh, cfg, plan, dtype=dtype, device=device,
-                  use_kernels=use_kernels)
+                  use_kernels=use_kernels,
+                  apply_dtype=APPLY_DTYPES[getattr(cfg, "apply_dtype", "")])
+
+
+def factor_from_numpy(chol, device="cpu"):
+    """dot_tpu's H0 factor (dense array, BTDFactor or CRFactor, leaves as
+    numpy) as the port's, each leaf in its own storage dtype (an ml_dtypes
+    bfloat16 leaf goes through its 16-bit pattern)."""
+    def t(a):
+        a = np.array(a)               # a writable C-contiguous copy
+        if a.dtype.name == "bfloat16":
+            bits = torch.from_numpy(a.view(np.uint16).view(np.int16))
+            return bits.view(torch.bfloat16).to(device)
+        return torch.as_tensor(a, device=device)
+
+    if isinstance(chol, np.ndarray):
+        return t(chol)
+    if hasattr(chol, "levels") and hasattr(chol, "root"):
+        return CRFactor(
+            levels=tuple(tuple(t(x) for x in lv) for lv in chol.levels),
+            root=BTDFactor(t(chol.root.linv), t(chol.root.sub)))
+    if hasattr(chol, "linv") and hasattr(chol, "sub"):
+        return BTDFactor(t(chol.linv), t(chol.sub))
+    raise TypeError(f"unknown H0 factor kind {type(chol).__name__}")
 
 
 def state_from_numpy(d, system=None):
     """The port's SimState from a dot_tpu SimState whose leaves went
-    through np.asarray. Tensors go to `system`'s device and dtype (else
-    the CPU, dtype kept). A dense or block-tridiagonal H0 factor is carried
-    over; dot_tpu's cyclic-reduction factor has no counterpart in the port,
-    so then the factor is rebuilt by `system` at d.x."""
+    through np.asarray. Tensors go to `system`'s device; the fields to its
+    dtype (else the CPU, dtype kept), the H0 factor's leaves keep their
+    storage dtype (bf16 leaves of an f32 run stay bf16)."""
     dev = system.device if system is not None else "cpu"
     fdt = system.dtype if system is not None else None
 
     def t(a, dtype=fdt):
         return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
 
-    chol = d.chol
-    if isinstance(chol, np.ndarray):
-        chol = t(chol)
-    elif hasattr(chol, "linv") and hasattr(chol, "sub"):
-        chol = BTDFactor(t(chol.linv), t(chol.sub))
-    else:
-        chol = None
-    st = SimState(
+    chol = factor_from_numpy(d.chol, dev)
+    if isinstance(chol, torch.Tensor) and fdt is not None:
+        chol = chol.to(fdt)
+    return SimState(
         x=t(d.x), x_n=t(d.x_n), v=t(d.v), x_tilta=t(d.x_tilta),
         dx_elastic=t(d.dx_elastic), fixed=t(d.fixed, torch.bool),
         vel_sign=t(d.vel_sign), released=t(d.released, torch.bool),
         elem_h=t(d.elem_h), chol=chol, equil=t(d.equil),
         lb_s=t(d.lb_s), lb_t=t(d.lb_t), lb_rho=t(d.lb_rho),
         lb_valid=t(d.lb_valid))
-    if chol is None:
-        if system is None:
-            raise ValueError("this H0 factor kind needs a system to rebuild")
-        st.elem_h, st.chol, st.equil = system.rebuild_h0(st.x, st.fixed)
-    return st

@@ -1,11 +1,13 @@
-"""Build csrc/elem.cu with nvcc into a shared library with a plain C
-interface, at first use, into dot_tpu_torch/build/ (git-ignored).
+"""Build the CUDA sources of csrc/ with nvcc, one shared library with a plain
+C interface per source, at first use, into dot_tpu_torch/build/
+(git-ignored).
 
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. The build runs
-through a temporary file and a rename; nvcc's -Xptxas -v report (registers,
-spills, shared memory per kernel) is kept beside the library as
-elem_build.log.
+Every missing library is compiled at the same time (one nvcc process per
+source). A library's name carries a hash of its sources and flags, so an
+edited source is rebuilt and a stale library is never loaded. Each build
+runs through a temporary file and a rename; nvcc's -Xptxas -v report
+(registers, spills, shared memory per kernel) is kept beside the library
+as <name>_build.log.
 """
 
 from __future__ import annotations
@@ -18,13 +20,22 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
-SOURCES = ("elem.cu", "elem.cuh")
-# -fmad=false: products and sums round one by one, as the plain PyTorch
-# version's elementwise ops do (see elem.cuh)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# library -> (sources, the first one compiled; extra flags). -fmad=false:
+# products and sums round one by one, as the plain PyTorch versions'
+# elementwise ops do (K1-K3, K5, K8 then agree bit for bit in most outputs);
+# K6 and K7 are sums of products whose order differs from the plain
+# versions' anyway, so they keep the contraction.
+LIBRARIES = {
+    "elem": (("elem.cu", "elem.cuh"), ("-fmad=false",)),
+    "band_asm": (("band_asm.cu",), ("-fmad=false",)),
+    "chol_inv": (("chol_inv.cu",), ()),
+    "block_matvec": (("block_matvec.cu",), ()),
+    "h0": (("h0.cu",), ("-fmad=false",)),
+}
 
-last_build_seconds = None
+last_build_seconds = None   # wall time of the last build() that compiled
 
 
 def nvcc_path():
@@ -38,30 +49,51 @@ def nvcc_path():
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path():
-    h = hashlib.sha256(" ".join(FLAGS).encode())
-    for name in SOURCES:
-        with open(os.path.join(_HERE, name), "rb") as f:
+def _flags(name):
+    return FLAGS + LIBRARIES[name][1]
+
+
+def library_path(name):
+    sources, _ = LIBRARIES[name]
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for src in sources:
+        with open(os.path.join(_HERE, src), "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libdotelem_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libdot{name}_{h.hexdigest()[:16]}.so")
+
+
+def log_path(name):
+    return os.path.join(BUILD_DIR, f"{name}_build.log")
 
 
 def build():
-    """Path of the built library, compiling it if it is not there yet.
-    Raises RuntimeError with nvcc's output if the build fails."""
+    """{library name: path} of every library, compiling the missing ones in
+    parallel. Raises RuntimeError with nvcc's output if a build fails."""
     global last_build_seconds
-    so = library_path()
-    if os.path.exists(so):
-        return so
+    paths = {name: library_path(name) for name in LIBRARIES}
+    todo = [n for n, p in paths.items() if not os.path.exists(p)]
+    if not todo:
+        return paths
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, os.path.join(_HERE, "elem.cu")]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    procs = {}
+    for name in todo:
+        tmp = f"{paths[name]}.{os.getpid()}.tmp"
+        cmd = [nvcc, *_flags(name), "-o", tmp,
+               os.path.join(_HERE, LIBRARIES[name][0][0])]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        out, err = proc.communicate()
+        with open(log_path(name), "w") as f:
+            f.write(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode}):\n{err[-4000:]}")
+        else:
+            os.replace(tmp, paths[name])
     last_build_seconds = time.perf_counter() - t0
-    with open(os.path.join(BUILD_DIR, "elem_build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths

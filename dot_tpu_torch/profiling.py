@@ -6,13 +6,15 @@
 Builds the bar twist scene (bar17 by default: 86,016 tets, DOT 6, f32,
 relTol 1e-5), runs one warm-up frame, then
 1. times `--frames` frames as they run, then `--frames` more with the
-   H0 rebuild, the H0 apply, the line search, the quadratic form and the
-   gradient wrapped in synchronised host timers (the syncs perturb the
-   total a little; the split is what this reads);
+   H0 rebuild (and inside it the element Hessians, the assembly and the
+   factorization), the H0 apply, the line search, the quadratic form and
+   the gradient wrapped in synchronised host timers (the syncs perturb
+   the total a little; the split is what this reads);
 2. profiles `--frames` more frames with torch.profiler and prints the
-   device time by kernel name, the device busy time per frame and the
-   idle share (1 - busy / unwrapped frame time), and writes the chrome
-   trace under --out.
+   device time by kernel name, the device time and launches per frame of
+   each hand-written kernel (K1-K8, with the wrappers' launch counts), the
+   device busy time per frame and the idle share (1 - busy / unwrapped
+   frame time), and writes the chrome trace under --out.
 Needs a CUDA device.
 """
 
@@ -31,8 +33,25 @@ import torch
 from . import io as meshio
 from .config import Config
 from .mesh_gen import bar_mesh
+from .kernels import ops
 from .sim import Simulator
 from .steppers import quasi_newton
+
+# device-kernel name fragments of each wrapper's kernel (the second passes
+# of K1 and K4, which sum block partials, are left out)
+KERNEL_NAMES = {
+    "ls_trial_energy": ("ls_trial_energy_kernel",),
+    "elem_gradient": ("elem_gradient_kernel",),
+    "elem_hessian": ("elem_hessian_kernel",),
+    "direction_pass": ("direction_kernel",),
+    "band_assemble": ("band_assemble_kernel",),
+    "chol_inv": ("chol_inv_kernel",),
+    "block_matvec": ("matvec_kernel", "matvec_t_kernel"),
+    "h0_gather": ("h0_gather_kernel",),
+    "h0_average": ("h0_average_kernel",),
+}
+# spans inside rebuild_h0 (timed, not subtracted from the host rest)
+REBUILD_SPANS = ("element_hessians", "assemble_subdomains", "factorize")
 
 SCENE = """energy FCR
 timeStepper DOT {parts}
@@ -45,7 +64,7 @@ shape input {mesh}
 """
 
 
-def _wrap(obj, name, acc, module=None):
+def wrap_timed(obj, name, acc, module=None):
     """Replace obj.name by a synchronised, timed call accumulating into
     acc[name]."""
     owner = module if module is not None else obj
@@ -73,10 +92,12 @@ def profile_frames(sim, frames, out):
 
     acc = collections.Counter()
     sysm = sim.system
-    names = ("rebuild_h0", "h0_apply", "gradient", "quadratic_form")
+    names = ("rebuild_h0", "h0_apply", "gradient", "quadratic_form") \
+        + REBUILD_SPANS
     for name in names:
-        _wrap(sysm, name, acc)
-    line_search = _wrap(None, "line_search", acc, module=quasi_newton)
+        wrap_timed(sysm, name, acc)
+    line_search = wrap_timed(None, "line_search", acc,
+                             module=quasi_newton)
     n0 = len(sim.frames)
     t0 = time.perf_counter()
     try:
@@ -90,19 +111,27 @@ def profile_frames(sim, frames, out):
     print(f"timed split over {frames} frames ({iters} iterations), "
           f"wall {wall / frames * 1e3:.2f} ms/frame:")
     for k, v in acc.most_common():
-        print(f"  {k:16s} {v / frames * 1e3:9.2f} ms/frame "
+        if k in REBUILD_SPANS:
+            continue
+        print(f"  {k:20s} {v / frames * 1e3:9.2f} ms/frame "
               f"({100 * v / wall:5.1f}%)")
-    print(f"  {'rest (host)':16s} "
-          f"{(wall - sum(acc.values())) / frames * 1e3:9.2f} ms/frame")
+        if k == "rebuild_h0":
+            for j in REBUILD_SPANS:
+                print(f"    {j:18s} {acc[j] / frames * 1e3:9.2f} ms/frame")
+    outer = sum(v for k, v in acc.items() if k not in REBUILD_SPANS)
+    print(f"  {'rest (host)':20s} {(wall - outer) / frames * 1e3:9.2f} "
+          f"ms/frame")
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    ops.reset_launches()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sim.run(frames)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
     # kernels are the events on the device; CPU ops only launch them
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -118,6 +147,14 @@ def profile_frames(sim, frames, out):
               f"{e.key[:90]}")
     print(f"  kernel launches per frame: "
           f"{sum(e.count for e in kernels) / frames:.1f}")
+    print("hand-written kernels (device ms/frame, device launches/frame, "
+          "wrapper calls/frame):")
+    for kname, frags in KERNEL_NAMES.items():
+        mine = [e for e in kernels if any(f in e.key for f in frags)]
+        print(f"  {kname:16s} "
+              f"{sum(e.self_device_time_total for e in mine) / 1e3 / frames:9.3f}"
+              f" {sum(e.count for e in mine) / frames:8.1f}"
+              f" {launches[kname] / frames:8.1f}")
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out, "frame_trace.json"))
     print(f"per-frame iterations {[r['iters'] for r in sim.frames]}")

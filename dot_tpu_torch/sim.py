@@ -31,6 +31,7 @@ from . import partition, scripts
 from .config import Config
 from .mesh import Mesh
 from .steppers import DOTStepper, System
+from .steppers.core import APPLY_DTYPES
 
 DEFAULT_REL_TOL = 1.0e-5   # README: "1e-5 CN ... used in all experiments"
 
@@ -83,7 +84,7 @@ def _unsupported(what):
 class Simulator:
     def __init__(self, cfg: Config, output_dir: str, dtype=None, device=None,
                  search_dirs=(), save_every=1, mute=False, use_kernels=True):
-        """`use_kernels=False` runs the plain PyTorch versions of the four
+        """`use_kernels=False` runs the plain PyTorch versions of the
         kernels instead (a comparison run; the main path keeps the
         default)."""
         if cfg.time_stepper != "DOT":
@@ -122,8 +123,10 @@ class Simulator:
         n_parts = partition.partition_amt_from_config(cfg, self.mesh.n_vert)
         plan = partition.build_plan(self.mesh, n_parts,
                                     scheme=cfg.partition_scheme)
+        # applyDtype -> System.apply_dtype (dot_tpu/sim.py:126-136)
         self.system = System(self.mesh, cfg, plan, dtype=dtype,
-                             device=self.device, use_kernels=use_kernels)
+                             device=self.device, use_kernels=use_kernels,
+                             apply_dtype=APPLY_DTYPES[cfg.apply_dtype])
         self.stepper = DOTStepper(self.system, self.script_data,
                                   warm_start_opt=cfg.warm_start)
         if plan.n_parts > 1:
