@@ -1,38 +1,57 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,scale]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
   probe    device name, `nvidia-smi` name and power limit, nvcc and triton
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
-           chol_inv.cu, K7 block_matvec.cu, K8 h0.cu) with nvcc for sm_90a,
-           one nvcc per source, all at once; K4 with Triton
+           chol_inv.cu, K7 block_matvec.cu, K8 h0.cu, K10-K11 coarse.cu,
+           K12 band_equil.cu) with nvcc for sm_90a, one nvcc per source,
+           all at once; K4 and K9 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
-           tolerances and median times: K1-K4 on random, inverted and
-           near-degenerate deformations of the bar17 mesh (86,016 tets,
-           16,473 vertices) from a seed; K5-K8 on the real bar17 plan (P 6,
-           nb 13, bs 768) and its assembled blocks: the band, the 36
-           odd diagonal blocks of the first cyclic-reduction level (K6
-           symmetrized, and its 6-block root batch lower-only; one
-           indefinite block must come back flagged and NaN), the factor's
-           level blocks (K7 on bf16 and f32 storage in f32 runs), the
-           vertex gather and averaging
+           tolerances, median times, the time of one PyTorch library call
+           computing the same function where there is one, and the bound
+           (the larger of bytes / 3.35 TB/s and operations / the unit's
+           peak): K1-K4 on random, inverted and near-degenerate
+           deformations of the bar17 mesh (86,016 tets, 16,473 vertices)
+           from a seed; K5-K8 on the real bar17 plan (P 6, nb 13, bs 768)
+           and its assembled blocks: the band, the 36 odd diagonal blocks
+           of the first cyclic-reduction level (K6 symmetrized, and its
+           6-block root batch lower-only; one indefinite block must come
+           back flagged and NaN), the factor's level blocks (K7 on bf16 and
+           f32 storage in f32 runs), the vertex gather and averaging
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
            1 warm-up + 10 timed frames; convergence, the H0 factor's kind
            (cyclic reduction, 2 levels, bf16 leaves), kernel launch counts
-           (all nine entry points), output files; 3 more frames with the
-           H0 rebuild and apply timed (synchronised); then 3 frames with
-           the plain versions of the kernels on the same card (sysE rtol
-           1e-3)
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}; the line before them is nvidia-smi's name
-and power limit. Exits non-zero without a result line when no CUDA device
-is present.
+           (K1-K9), output files; 3 more frames with the H0 rebuild and
+           apply timed (synchronised); then 3 frames with the plain
+           versions of the kernels on the same card (sysE rtol 1e-3)
+  scale    bar135 twist (131x31x31 cells, 755,346 tets, 135,168 vertices),
+           `timeStepper DOT -1 1024` (tools/scalability.py's protocol),
+           f32: mesh and plan built once (P 133, nb 8, bs 768; the coarse
+           space and the chunked bf16 rebuild engage). Through
+           sim.Simulator: 1 warm-up + 3 timed frames (P, coarse, chunked
+           BTDFactor with bf16 leaves and kc_chol checked; every frame
+           finite and stopped by tol or rel_dec; K9-K12 and K5's compact
+           entry point launched), 2 more frames with the rebuild (elem H /
+           coarse factor / compact / K12 / scan) and the apply (fine /
+           coarse) timed; K9-K12 and K5's compact entry point against their
+           plain versions on the real plan, owner map, element Hessians and
+           L-BFGS history, and K6 and K7 at this path's own shapes (the
+           (6P)^2 coarse block, the scan's lower-only (133, 768, 768)
+           stage, the two mat-vecs on Lc^{-1}), f64 and f32, timed with
+           library and bound; the first 2 frames again with the plain
+           versions (sysE rtol 1e-3)
+The last three lines are nvidia-smi's name and power limit, the kernels'
+JSON record (per kernel: launches of both paths' runs and
+launches_by_path; times at the bar17 shapes, and under "bar135" K6's and
+K7's at the bar135 shapes) and {"ok": true, "device": {...}}. Exits
+non-zero without a result line when no CUDA device is present.
 """
 
 import argparse
@@ -94,7 +113,47 @@ SOURCES = {
                   "dot_tpu/steppers/core.py:1263"),
     "h0_average": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
                    "dot_tpu/steppers/core.py:1263"),
+    "lbfgs_loop1": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
+                    "dot_tpu/steppers/quasi_newton.py:116"),
+    "lbfgs_loop2": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
+                    "dot_tpu/steppers/quasi_newton.py:116"),
+    "lbfgs_combine": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
+                      "dot_tpu/steppers/quasi_newton.py:116"),
+    "coarse_assemble": ("cuda", "dot_tpu_torch/kernels/csrc/coarse.cu",
+                        "dot_tpu/steppers/core.py:1319"),
+    "coarse_restrict": ("cuda", "dot_tpu_torch/kernels/csrc/coarse.cu",
+                        "dot_tpu/steppers/core.py:1296"),
+    "coarse_prolong": ("cuda", "dot_tpu_torch/kernels/csrc/coarse.cu",
+                       "dot_tpu/steppers/core.py:1296"),
+    "band_compact": ("cuda", "dot_tpu_torch/kernels/csrc/band_asm.cu",
+                     "dot_tpu/steppers/core.py:733"),
+    "band_equil_scatter": ("cuda", "dot_tpu_torch/kernels/csrc/band_equil.cu",
+                           "dot_tpu/steppers/core.py:1465"),
 }
+# the card's peaks (H100 SXM data sheet)
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+# operations per element of K1-K3, counted from kernels/csrc/elem.cuh
+# (the 3x3 SVD's Jacobi sweeps dominate); an estimate: these kernels are
+# bound by their bytes by a wide margin either way
+ELEM_FLOPS = dict(ls_trial_energy=900, elem_gradient=1100,
+                  elem_hessian=4000)
+BAR135 = (131, 31, 31)
+SCALE_SCENE = SCENE_TMPL.replace("timeStepper DOT 6",
+                                 "timeStepper DOT -1 1024")
+# the entry points each path must launch (bar17: no coarse space, no
+# chunked band; bar135 takes the chunked band instead of K5's band)
+MAIN_KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
+                "direction_pass", "band_assemble", "chol_inv",
+                "block_matvec", "h0_gather", "h0_average", "lbfgs_loop1",
+                "lbfgs_loop2", "lbfgs_combine")
+SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
+    "coarse_assemble", "coarse_restrict", "coarse_prolong", "band_compact",
+    "band_equil_scatter")
+# K9-K12 vs plain: f64 1e-12, f32 1e-5 max-rel and 1e-4 norm-wise (sums
+# in another order); K12's bf16 band: at most 1 bf16 ulp apart
+TOL_SCALE = {"float64": dict(elem=1e-12, sum=1e-12),
+             "float32": dict(elem=1e-5, sum=1e-4)}
 # K5-K8 vs plain: f64 1e-12 on K5, K7, K8 and 1e-10 on K6's L and L^{-1}
 # (norm-wise); f32 1e-4 norm-wise (the plain versions' index_add_ and
 # cuBLAS/cuSOLVER sum in other orders)
@@ -138,7 +197,7 @@ def phase_probe(torch):
 
 
 def phase_build(torch):
-    from dot_tpu_torch.kernels import ops, triton_qf
+    from dot_tpu_torch.kernels import ops, triton_lbfgs, triton_qf
     from dot_tpu_torch.kernels.csrc import build
     t0 = time.perf_counter()
     ops._load()
@@ -171,10 +230,18 @@ def phase_build(torch):
         h = torch.zeros((144, 2), dtype=dt, device=dev)
         triton_qf.launch(p, conn, g9, None)
         triton_qf.launch(p, conn, g9, h)
+        # K9: both dot variants, both finishers, both combine signs
+        S = torch.zeros((5, 8), dtype=dt, device=dev)
+        v = torch.zeros(8, dtype=dt, device=dev)
+        rho = torch.ones(5, dtype=dt, device=dev)
+        k, G = triton_lbfgs.launch_loop1(S, S, v, rho, rho)
+        triton_lbfgs.launch_loop2(S, v, k, G, rho, rho)
+        triton_lbfgs.launch_combine(v, k, S, True, True)
+        triton_lbfgs.launch_combine(v, k, S, False, False)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     say(f"build: nvcc {len(build.LIBRARIES)} sources in parallel "
-        f"{t1 - t0:.1f} s (sm_90a), triton K4 {t2 - t1:.1f} s")
+        f"{t1 - t0:.1f} s (sm_90a), triton K4 and K9 {t2 - t1:.1f} s")
 
 
 def _bar17_inputs(torch, dtype, rng):
@@ -239,11 +306,43 @@ def _time_pair(torch, kernel, plain):
 
 
 def _rel_max(a, b):
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
 def _rel_norm(a, b):
-    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+    return float((a - b).norm()) / max(float(b.norm()), 1e-300)
+
+
+def _bound(nbytes, flops, rate=F32_FLOP_S):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the operations over the unit's peak."""
+    tb = nbytes / HBM_BYTES_S * 1e3
+    tf = flops / rate * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _report(torch, tag, kname, checks, fns, cost, bad, record):
+    """Time kernel / plain / library (fns: (kernel, plain, library or
+    None)), print the checks against their limits and the times, and keep
+    the f32 record (max_abs_err, ms, plain_ms, library_ms, bound)."""
+    ms, plain_ms = _time_pair(torch, fns[0], fns[1])
+    lib_ms = _median_ms(torch, fns[2]) if fns[2] is not None else None
+    bound_ms, bound_by = _bound(*cost)
+    parts = []
+    for what, err, lim, _abs in checks:
+        parts.append(f"{what} rel {err:.3e} (tol {lim:g})")
+        if not err <= lim:
+            bad.append(f"{kname} {tag} {what}: {err:.3e} > {lim:g}")
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+    say(f"kernels: {tag} {kname}: " + ", ".join(parts)
+        + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, library {lib}, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, "
+        f"{cost[1] / 1e9:.3f} GFLOP)")
+    if tag == "float32":
+        abs_err = max(a for _, _, _, a in checks if a is not None)
+        record[kname] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=lib_ms)
 
 
 def phase_kernels(torch, record):
@@ -289,34 +388,41 @@ def phase_kernels(torch, record):
             ("pHp", _rel_max(qk, qr), tol["elem"], float((qk - qr).abs()))]
         torch.cuda.synchronize()
 
+        # library yardstick of K2: the scatter of per-corner forces alone
+        n, nv, sz = conn.shape[1], d["x"].shape[0], d["x"].element_size()
+        forces = torch.randn((4 * n, 3), dtype=dtype, device="cuda")
+        cidx = conn.reshape(-1).long()
+        acc = torch.zeros((nv + 1, 3), dtype=dtype, device="cuda")
         times = {
             "ls_trial_energy": (
                 lambda: ops.ls_trial_energy(d["F0"], d["Fp"], d["alpha"], u,
                                             lam, w, mat),
                 lambda: soa.ls_trial_energy_ref(d["F0"], d["Fp"], d["alpha"],
-                                                u, lam, w, mat)),
+                                                u, lam, w, mat), None),
             "elem_gradient": (lambda: ops.elem_gradient(*args),
-                              lambda: soa.elem_gradient_ref(*args)),
+                              lambda: soa.elem_gradient_ref(*args),
+                              lambda: acc.index_add_(0, cidx, forces)),
             "elem_hessian": (lambda: ops.elem_hessian(*hargs),
-                             lambda: soa.elem_hessian_ref(*hargs)),
+                             lambda: soa.elem_hessian_ref(*hargs), None),
             "direction_pass": (
                 lambda: ops.direction_pass(d["p"], conn, g9, hr),
-                lambda: soa.direction_pass_ref(d["p"], conn, g9, hr)),
+                lambda: soa.direction_pass_ref(d["p"], conn, g9, hr), None),
+        }
+        # (bytes each input read once + outputs written once, operations)
+        costs = {
+            "ls_trial_energy": ((21 * n + 2) * sz,
+                                ELEM_FLOPS["ls_trial_energy"] * n),
+            "elem_gradient": ((3 * nv + 12 * n + 3 * (nv + 1)) * sz
+                              + 32 * n, ELEM_FLOPS["elem_gradient"] * n),
+            "elem_hessian": ((3 * nv + 12 * n + 144 * n) * sz + 16 * n,
+                             ELEM_FLOPS["elem_hessian"] * n),
+            "direction_pass": ((3 * nv + 9 * n + 144 * n + 9 * n + 1) * sz
+                               + 16 * n, (144 * 3 + 2 * 27 + 9) * n),
         }
         bad = []
         for kname, checks in res.items():
-            ms, plain_ms = _time_pair(torch, *times[kname])
-            parts = []
-            for what, err, lim, _abs in checks:
-                parts.append(f"{what} rel {err:.3e} (tol {lim:g})")
-                if not err <= lim:
-                    bad.append(f"{kname} {name} {what}: {err:.3e} > {lim:g}")
-            say(f"kernels: {name} {kname}: " + ", ".join(parts)
-                + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-            if dtype == torch.float32:
-                abs_err = max(a for _, _, _, a in checks if a is not None)
-                record[kname] = dict(max_abs_err=abs_err, ms=ms,
-                                     plain_ms=plain_ms)
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record)
         if bad:
             raise Fail("kernel disagrees with its plain version: "
                        + "; ".join(bad))
@@ -349,18 +455,19 @@ def phase_golden(torch):
         raise Fail(f"golden sysE off by {rel.max():.3e}")
 
 
-def _bar17_scene(tmp):
-    """Write the bar17 mesh and the twist DOT6 scene under tmp; return the
-    scene path."""
+def _bar_scene(tmp, cells=BAR17, tmpl=SCENE_TMPL, name="bar17"):
+    """Write a bar mesh and its twist scene under tmp; return the scene
+    path."""
     from dot_tpu_torch import io as meshio
     from dot_tpu_torch.mesh_gen import bar_mesh
-    mesh = bar_mesh(*BAR17, size=(4.0, 1.0, 1.0))
-    mesh_path = os.path.join(tmp, "bar17.msh")
+    mesh = bar_mesh(*cells, size=(4.0, 1.0, 1.0))
+    mesh_path = os.path.join(tmp, f"{name}.msh")
     meshio.save_tet_mesh(mesh_path, mesh.V, mesh.conn, mesh.SF)
-    scene = os.path.join(tmp, "bar17_twist_DOT6.txt")
+    scene = os.path.join(tmp, f"{name}_twist.txt")
     with open(scene, "w") as f:
-        f.write(SCENE_TMPL.format(mesh_path=mesh_path))
+        f.write(tmpl.format(mesh_path=mesh_path))
     return scene
+
 
 
 def _simulator(torch, scene, out_root, suffix="", **kw):
@@ -380,7 +487,7 @@ def phase_h0_kernels(torch, record):
     from dot_tpu_torch.steppers import System
     tmp = tempfile.mkdtemp(prefix="dot_smoke_k_")
     try:
-        sim = _simulator(torch, _bar17_scene(tmp), os.path.join(tmp, "out"))
+        sim = _simulator(torch, _bar_scene(tmp), os.path.join(tmp, "out"))
         mesh, cfg, plan = sim.mesh, sim.cfg, sim.system.plan
         x0 = sim.state.x.detach().cpu().numpy().astype(np.float64)
         fixed = sim.state.fixed
@@ -406,7 +513,14 @@ def phase_h0_kernels(torch, record):
                                      float((fk - fr).abs().max()))]
             times["band_assemble"] = (
                 lambda: ops.band_assemble(eh, freef, sysm.mass_flat, bp),
-                lambda: band.band_assemble_ref(eh, freef, sysm.mass_flat, bp))
+                lambda: band.band_assemble_ref(eh, freef, sysm.mass_flat, bp),
+                None)
+            sz = eh.element_size()
+            n_ub, n_asm = bp.ub_row.shape[0], bp.src_block.shape[0]
+            costs = {"band_assemble": (
+                eh.numel() * sz + 16 * n_asm + 8 * (n_ub + 1) + 16 * n_ub
+                + 2 * freef.numel() * sz + 72 * n_ub
+                + 8 * bp.pad_diag.numel() + bp.total * sz, 9 * n_asm)}
             P, nb, bs = sysm.n_parts, sysm.band_nb, sysm.band_bs
             diag = fk[:P * nb * bs * bs].view(nb, P, bs, bs)
             sub = fk[P * nb * bs * bs:].view(nb - 1, P, bs, bs)
@@ -445,8 +559,16 @@ def phase_h0_kernels(torch, record):
                 f"{bool(torch.isnan(Li_[3]).all())}")
             if not flag_ok:
                 bad.append(f"chol_inv {name}: indefinite block not flagged")
+            eye_b = torch.eye(bs, dtype=dtype, device="cuda")
+
+            def lib_chol():
+                Lq = torch.linalg.cholesky(A_odd)
+                return torch.linalg.solve_triangular(Lq, eye_b, upper=False)
             times["chol_inv"] = (lambda: ops.chol_inv(A_odd, True),
-                                 lambda: band.chol_inv_ref(A_odd, True))
+                                 lambda: band.chol_inv_ref(A_odd, True),
+                                 lib_chol)
+            costs["chol_inv"] = (3 * A_odd.numel() * sz,
+                                 A_odd.shape[0] * 2 * bs ** 3 / 3)
             del Lk, Xk, Lr, Xr, Li_, Xi_, indef
 
             # K7 on the factor's first level (bf16 leaves in f32 runs)
@@ -470,9 +592,13 @@ def phase_h0_kernels(torch, record):
                                    _rel_norm(k_, r_), tol["exact"],
                                    float((k_ - r_).abs().max())))
             res["block_matvec"] = checks
+            A7_up = A7.to(dtype)
             times["block_matvec"] = (
                 lambda: ops.block_matvec(A7, v, c, True),
-                lambda: band.block_matvec_ref(A7, v, c, True))
+                lambda: band.block_matvec_ref(A7, v, c, True),
+                lambda: torch.bmm(A7_up.mT, v[..., None]))
+            costs["block_matvec"] = (A7.numel() * A7.element_size()
+                                     + 3 * v.numel() * sz, 2 * A7.numel())
 
             # K8
             rhs = torch.as_tensor(rng.normal(size=(sysm.n_vert, 3)),
@@ -488,27 +614,25 @@ def phase_h0_kernels(torch, record):
                                  float((gk - gr).abs().max()))]
             res["h0_average"] = [("p", _rel_norm(ak, ar), tol["exact"],
                                   float((ak - ar).abs().max()))]
+            pl = (z / d).reshape(-1, 3)[sysm.gath_perm]
+            acc8 = torch.zeros((sysm.n_vert + 1, 3), dtype=dtype,
+                               device="cuda")
             times["h0_gather"] = (lambda: ops.h0_gather(*g_args),
-                                  lambda: band.h0_gather_ref(*g_args))
-            times["h0_average"] = (lambda: ops.h0_average(*a_args),
-                                   lambda: band.h0_average_ref(*a_args))
+                                  lambda: band.h0_gather_ref(*g_args), None)
+            times["h0_average"] = (
+                lambda: ops.h0_average(*a_args),
+                lambda: band.h0_average_ref(*a_args),
+                lambda: acc8.index_add_(0, sysm.gath_segids, pl))
+            nl = sysm.l2g.numel()
+            costs["h0_gather"] = ((rhs.numel() + 6 * nl) * sz + 9 * nl,
+                                  6 * nl)
+            costs["h0_average"] = ((6 * nl + 4 * sysm.n_vert) * sz + 8 * nl
+                                   + 8 * (sysm.n_vert + 2), 6 * nl)
             torch.cuda.synchronize()
 
             for kname, checks in res.items():
-                ms, plain_ms = _time_pair(torch, *times[kname])
-                parts = []
-                for what, err, lim, _abs in checks:
-                    parts.append(f"{what} rel {err:.3e} (tol {lim:g})")
-                    if not err <= lim:
-                        bad.append(f"{kname} {name} {what}: {err:.3e} > "
-                                   f"{lim:g}")
-                say(f"kernels: {name} {kname}: " + ", ".join(parts)
-                    + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-                if dtype == torch.float32:
-                    abs_err = max(a for _, _, _, a in checks
-                                  if a is not None)
-                    record[kname] = dict(max_abs_err=abs_err, ms=ms,
-                                         plain_ms=plain_ms)
+                _report(torch, name, kname, checks, times[kname],
+                        costs[kname], bad, record)
             say(f"kernels: {name} shapes: band {tuple(diag.shape)} + "
                 f"{tuple(sub.shape)}, K6 batches {tuple(A_odd.shape)} and "
                 f"{tuple(A_root.shape)}, K7 {tuple(A7.shape)} "
@@ -523,13 +647,12 @@ def phase_h0_kernels(torch, record):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _h0_split(sim, frames):
-    """ms/frame of rebuild_h0 and h0_apply over `frames` more frames, each
-    call wrapped in synchronised host timers."""
+def _h0_split(sim, frames, names=("rebuild_h0", "h0_apply")):
+    """ms/frame of each System method in `names` over `frames` more frames,
+    each call wrapped in synchronised host timers."""
     import collections
     from dot_tpu_torch.profiling import wrap_timed
     acc = collections.Counter()
-    names = ("rebuild_h0", "h0_apply")
     for name in names:
         wrap_timed(sim.system, name, acc)
     try:
@@ -545,7 +668,7 @@ def phase_main(torch, launches_out):
     from dot_tpu_torch.steppers.core import CRFactor, factor_leaves
     tmp = tempfile.mkdtemp(prefix="dot_smoke_")
     try:
-        scene = _bar17_scene(tmp)
+        scene = _bar_scene(tmp)
         out_root = os.path.join(tmp, "out")
 
         torch.cuda.reset_peak_memory_stats()
@@ -556,7 +679,7 @@ def phase_main(torch, launches_out):
         wall = time.perf_counter() - t0
         launches = dict(ops.launches)
         peak = torch.cuda.max_memory_allocated()
-        launches_out.update(launches)
+        launches_out["main"] = launches
         fac = sim.state.chol
         kind = type(fac).__name__
         n_levels = len(fac.levels) if isinstance(fac, CRFactor) else 0
@@ -596,8 +719,8 @@ def phase_main(torch, launches_out):
                 problems.append(f"frame {r['frame']} sysE not finite")
             if r["stop"] not in ("tol", "rel_dec"):
                 problems.append(f"frame {r['frame']} stopped by {r['stop']}")
-        for k, v in launches.items():
-            if v <= 0:
+        for k in MAIN_KERNELS:
+            if launches[k] <= 0:
                 problems.append(f"kernel {k} never launched on the main path")
         if kind != "CRFactor" or n_levels != 2 or leaf_dt != ["bfloat16"]:
             problems.append(f"H0 factor {kind} with {n_levels} levels and "
@@ -635,12 +758,353 @@ def phase_main(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
+    """K9-K12 and K5's compact entry point against their plain versions on
+    the bar135 plan (f64 and f32), timed with library call and bound."""
+    from dot_tpu_torch.kernels import band, coarse, lbfgs, ops
+    from dot_tpu_torch.steppers import System
+    mesh, cfg, plan = sysm.mesh, sysm.cfg, sysm.plan
+    bad = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = TOL_SCALE[name]
+        sm = System(mesh, cfg, plan, dtype=dtype, device="cuda")
+        xx = x.to(dtype)
+        eh = sm.element_hessians(xx)
+        sz = eh.element_size()
+        res, times, costs = {}, {}, {}
+
+        # K9 on the run's last L-BFGS history and the gradient at x
+        S, T, rho, valid = (h.to(dtype) for h in hist)
+        m, nv = S.shape[0], sm.n_vert
+        S, T = S.reshape(m, -1).contiguous(), T.reshape(m, -1).contiguous()
+        n = S.shape[1]
+        g = sm.gradient(xx, xx, fixed).reshape(-1).contiguous()
+        r = torch.randn(n, dtype=dtype, device="cuda")
+        k_, G_ = ops.lbfgs_loop1(S, T, g, rho, valid)
+        kr, Gr = lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid)
+        c_ = ops.lbfgs_loop2(T, r, kr, Gr, rho, valid)
+        cr = lbfgs.lbfgs_loop2_ref(T, r, kr, Gr, rho, valid)
+        q_ = ops.lbfgs_combine(g, kr, T, True, True)
+        qr = lbfgs.lbfgs_combine_ref(g, kr, T, True, True)
+        # the scalars to the scale of their sums (|s_i| |t_j| etc.)
+        sn, tn = S.norm(dim=1), T.norm(dim=1)
+        gscale = float((sn[:, None] * tn[None, :]).max())
+        kscale = float((kr.abs().max() + 1e-300))
+        res["lbfgs_loop1"] = [
+            ("G", float((G_ - Gr).abs().max()) / gscale, tol["sum"],
+             float((G_ - Gr).abs().max())),
+            ("k", float((k_ - kr).abs().max()) / kscale, tol["sum"],
+             float((k_ - kr).abs().max()))]
+        res["lbfgs_loop2"] = [("c", _rel_max(c_, cr), tol["sum"],
+                               float((c_ - cr).abs().max()))]
+        res["lbfgs_combine"] = [("q", _rel_max(q_, qr), tol["elem"],
+                                 float((q_ - qr).abs().max()))]
+        stk = torch.cat([g[None], T]).T.contiguous()
+        times["lbfgs_loop1"] = (
+            lambda: ops.lbfgs_loop1(S, T, g, rho, valid),
+            lambda: lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid),
+            lambda: torch.matmul(S, stk))
+        times["lbfgs_loop2"] = (
+            lambda: ops.lbfgs_loop2(T, r, kr, Gr, rho, valid),
+            lambda: lbfgs.lbfgs_loop2_ref(T, r, kr, Gr, rho, valid),
+            lambda: torch.matmul(T, r))
+        times["lbfgs_combine"] = (
+            lambda: ops.lbfgs_combine(g, kr, T, True, True),
+            lambda: lbfgs.lbfgs_combine_ref(g, kr, T, True, True),
+            lambda: torch.addmv(g, T.T, kr))
+        costs["lbfgs_loop1"] = ((2 * m * n + n) * sz,
+                                2 * (m + m * m) * n)
+        costs["lbfgs_loop2"] = ((m * n + n) * sz, 2 * m * n)
+        costs["lbfgs_combine"] = ((m * n + 2 * n) * sz, 2 * m * n + n)
+
+        # K10, K11 on the real owner map and element Hessians
+        cp = sm.coarse_plan
+        freev = torch.logical_not(fixed).to(dtype)
+        kk = ops.coarse_assemble(eh, sm.conn, freev, sm.mass, cp)
+        kr_ = coarse.coarse_assemble_ref(eh, sm.conn, freev, sm.mass, cp)
+        res["coarse_assemble"] = [("Kc", _rel_norm(kk, kr_), tol["sum"],
+                                   float((kk - kr_).abs().max()))]
+        del kr_
+        times["coarse_assemble"] = (
+            lambda: ops.coarse_assemble(eh, sm.conn, freev, sm.mass, cp),
+            lambda: coarse.coarse_assemble_ref(eh, sm.conn, freev, sm.mass,
+                                               cp), None)
+        cnt, P = cp.counts, sm.n_parts
+        n_mixed = cnt["pairs"] // 16
+        costs["coarse_assemble"] = (
+            (cnt["uniform"] * 144 + n_mixed * 90) * sz
+            + 16 * (cnt["uniform"] + n_mixed) + 5 * nv * sz
+            + 8 * cp.items.numel() + P * P * 36 * sz,
+            cnt["uniform"] * 16 * 324 + cnt["pairs"] * 324
+            + cnt["vertices"] * 60)
+        rhs = torch.randn((nv, 3), dtype=dtype, device="cuda")
+        y = torch.randn(6 * P, dtype=dtype, device="cuda")
+        dc = torch.rand(6 * P, dtype=dtype, device="cuda") + 0.5
+        rk = ops.coarse_restrict(rhs, freev, dc, cp)
+        rr = coarse.coarse_restrict_ref(rhs, freev, dc, cp)
+        pk = ops.coarse_prolong(y, dc, freev, cp, rhs)
+        pr = coarse.coarse_prolong_ref(y, dc, freev, cp, rhs)
+        res["coarse_restrict"] = [("rc", _rel_norm(rk, rr), tol["sum"],
+                                   float((rk - rr).abs().max()))]
+        res["coarse_prolong"] = [("p", _rel_max(pk, pr), tol["elem"],
+                                  float((pk - pr).abs().max()))]
+        six = torch.cat([rhs * freev[:, None],
+                         torch.linalg.cross(cp.xc, rhs * freev[:, None])],
+                        1)
+        acc6 = torch.zeros((P, 6), dtype=dtype, device="cuda")
+        times["coarse_restrict"] = (
+            lambda: ops.coarse_restrict(rhs, freev, dc, cp),
+            lambda: coarse.coarse_restrict_ref(rhs, freev, dc, cp),
+            lambda: acc6.index_add_(0, cp.own, six))
+        times["coarse_prolong"] = (
+            lambda: ops.coarse_prolong(y, dc, freev, cp, rhs),
+            lambda: coarse.coarse_prolong_ref(y, dc, freev, cp, rhs), None)
+        costs["coarse_restrict"] = ((7 * nv + 12 * P) * sz + 8 * nv,
+                                    18 * nv)
+        costs["coarse_prolong"] = ((12 * P + 10 * nv) * sz + 8 * nv,
+                                   30 * nv)
+
+        # K5 (compact) and K12 on the real band tables
+        freef = sm._free(fixed).to(dtype).reshape(-1)
+        bp = sm.band_plan
+        ck = ops.band_compact(eh, freef, sm.mass_flat, bp)
+        cr_ = band.band_compact_ref(eh, freef, sm.mass_flat, bp)
+        res["band_compact"] = [("compact", _rel_norm(ck, cr_), tol["sum"],
+                                float((ck - cr_).abs().max()))]
+        n_ub, n_asm = bp.ub_row.shape[0], bp.src_block.shape[0]
+        rows = eh.t().reshape(-1, 9)[bp.src_block]
+        acc9 = torch.zeros((n_ub, 9), dtype=dtype, device="cuda")
+        times["band_compact"] = (
+            lambda: ops.band_compact(eh, freef, sm.mass_flat, bp),
+            lambda: band.band_compact_ref(eh, freef, sm.mass_flat, bp),
+            lambda: acc9.index_add_(0, bp.stage1, rows))
+        costs["band_compact"] = (
+            eh.numel() * sz + 8 * n_asm + 8 * (n_ub + 1) + 16 * n_ub
+            + 2 * freef.numel() * sz + 9 * n_ub * sz, 9 * n_asm)
+        lp = band.low_plan(plan, bp, "cuda")
+        bdt = torch.bfloat16 if dtype == torch.float32 else dtype
+        fk, dk = ops.band_equil_scatter(cr_, lp, bdt)
+        # the scan's first stage: the P diagonal blocks of the band's first
+        # row, upcast as _btd_scan_equilibrated does (upper half zero)
+        P, bs = sm.n_parts, sm.band_bs
+        A0 = fk[:P * bs * bs].view(P, bs, bs).to(dtype).clone()
+        fr, dr = band.band_equil_scatter_ref(cr_, lp, bdt)
+        if bdt == torch.bfloat16:
+            # ulps apart: bf16 bit patterns of same-sign values
+            ik = fk.view(torch.int16).to(torch.int32)
+            ir = fr.view(torch.int16).to(torch.int32)
+            same = (fk == fr) | ((ik - ir).abs() <= 1) & (
+                torch.sign(fk) == torch.sign(fr))
+            n_off = int((fk != fr).sum())
+            band_err = 0.0 if bool(same.all()) else 1.0
+        else:
+            n_off = int((fk != fr).sum())
+            band_err = _rel_max(fk, fr)
+        del fr
+        res["band_equil_scatter"] = [
+            (f"band ({n_off} entries differ; ulp rule)", band_err,
+             0.0 if bdt == torch.bfloat16 else tol["elem"], band_err),
+            ("d", _rel_max(dk, dr), tol["elem"],
+             float((dk - dr).abs().max()))]
+        n_low = lp.sel.shape[0]
+        times["band_equil_scatter"] = (
+            lambda: ops.band_equil_scatter(cr_, lp, bdt),
+            lambda: band.band_equil_scatter_ref(cr_, lp, bdt), None)
+        costs["band_equil_scatter"] = (
+            9 * n_ub * sz + 8 * lp.diag_slot.numel() + 16 * n_ub
+            + 80 * n_low + 8 * lp.pad_diag.numel()
+            + lp.total * fk.element_size() + 3 * lp.diag_slot.numel() * sz,
+            3 * 9 * n_low)
+        del fk
+
+        # K6 and K7 at this path's shapes: the coarse factor (one (6P)^2
+        # block of the run's Kn + 1e-4 I, symmetrized; 0.05 where the plain
+        # version flags it, as the path's tier), the scan's first stage
+        # (lower triangle read), and the coarse solve's two mat-vecs on
+        # Lc^{-1} (op A, then A^T)
+        ch = TOL_H0[name]
+        Kn, _ = sm._coarse_matrix(eh, fixed)
+        n6 = Kn.shape[0]
+        eye6 = torch.eye(n6, dtype=dtype, device="cuda")
+        Ac = (Kn + 1e-4 * eye6)[None].contiguous()
+        if bool(band.chol_inv_ref(Ac, True)[2].any()):
+            Ac = (Kn + 0.05 * eye6)[None].contiguous()
+        eye_b = torch.eye(bs, dtype=dtype, device="cuda")
+        plain_inv = {}
+        for kname, A, sym, eye_n in (("chol_inv@coarse", Ac, True, eye6),
+                                     ("chol_inv@scan", A0, False, eye_b)):
+            Lk, Xk, bk = ops.chol_inv(A, sym)
+            Lr, Xr, br = band.chol_inv_ref(A, sym)
+            plain_inv[kname] = Xr
+            if bool(bk.any()) or bool(br.any()):
+                bad.append(f"{kname} {name}: an SPD block was flagged")
+            res[kname] = [("L", _rel_norm(Lk, Lr), ch["chol"],
+                           float((Lk - Lr).abs().max())),
+                          ("Linv", _rel_norm(Xk, Xr), ch["chol"],
+                           float((Xk - Xr).abs().max()))]
+
+            def lib_chol(A=A, eye_n=eye_n):
+                Lq = torch.linalg.cholesky(A)
+                return torch.linalg.solve_triangular(Lq, eye_n, upper=False)
+            times[kname] = (lambda A=A, sym=sym: ops.chol_inv(A, sym),
+                            lambda A=A, sym=sym: band.chol_inv_ref(A, sym),
+                            lib_chol)
+            costs[kname] = (3 * A.numel() * sz,
+                            A.shape[0] * 2 * A.shape[-1] ** 3 / 3)
+        li = plain_inv["chol_inv@coarse"].contiguous()
+        v6 = torch.randn((1, n6), dtype=dtype, device="cuda")
+        checks = []
+        for trans in (False, True):
+            k_ = ops.block_matvec(li, v6, None, trans)
+            r_ = band.block_matvec_ref(li, v6, None, trans)
+            checks.append(("A^T" if trans else "A", _rel_norm(k_, r_),
+                           ch["exact"], float((k_ - r_).abs().max())))
+        res["block_matvec@coarse"] = checks
+        li0 = li[0]
+        times["block_matvec@coarse"] = (
+            lambda: ops.block_matvec(li, ops.block_matvec(li, v6), None,
+                                     True),
+            lambda: band.block_matvec_ref(
+                li, band.block_matvec_ref(li, v6), None, True),
+            lambda: torch.mv(li0.T, torch.mv(li0, v6[0])))
+        costs["block_matvec@coarse"] = (2 * (n6 * n6 + 2 * n6) * sz,
+                                        4 * n6 * n6)
+        torch.cuda.synchronize()
+        for kname, checks in res.items():
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record)
+        say(f"kernels: {name} bar135 shapes: S, T {tuple(S.shape)}, elem_h "
+            f"{tuple(eh.shape)}, Kc ({P * P}, 36) from {cp.items.numel()} "
+            f"items ({cnt}), compact ({n_ub}, 9), {n_low} lower blocks, band "
+            f"{lp.total} x {bdt}; K6 {tuple(Ac.shape)} (shift "
+            f"{float(Ac[0, 0, 0] - Kn[0, 0]):.2g}) and {tuple(A0.shape)} "
+            f"lower-only, K7 {tuple(li.shape)} x {tuple(v6.shape)}")
+        del sm, eh, cr_, rows, stk, six, A0, Ac, Kn, li, Lk, Xk, Lr, Xr
+        del plain_inv
+        torch.cuda.empty_cache()
+    if bad:
+        raise Fail("kernel disagrees with its plain version: "
+                   + "; ".join(bad))
+
+
+def phase_scale(torch, record, launches_out):
+    """bar135 DOT -1 1024 f32: the main path, K9-K12 against their plain
+    versions on its plan, and the plain path's first 2 frames."""
+    from dot_tpu_torch.kernels import ops
+    from dot_tpu_torch.steppers.core import BTDFactor, CoarseFactor
+    tmp = tempfile.mkdtemp(prefix="dot_scale_")
+    try:
+        t0 = time.perf_counter()
+        scene = _bar_scene(tmp, BAR135, SCALE_SCENE, "bar135")
+        t1 = time.perf_counter()
+        out_root = os.path.join(tmp, "out")
+        torch.cuda.reset_peak_memory_stats()
+        sim = _simulator(torch, scene, out_root, save_every=10 ** 9)
+        sysm = sim.system
+        t2 = time.perf_counter()
+        say(f"scale: bar135 {sim.mesh.n_elem} tets, {sim.mesh.n_vert} "
+            f"verts; P {sysm.n_parts}, n3 {sysm.n3}, nb {sysm.band_nb}, bs "
+            f"{sysm.band_bs}, f32 band "
+            f"{(2 * sysm.band_nb - 1) * sysm.band_bs ** 2 * 4 * sysm.n_parts / 2**30:.2f}"
+            f" GiB; coarse {sysm.use_coarse}, chunked {sysm._chunk}; mesh "
+            f"{t1 - t0:.1f} s, Simulator (load, partition, System, first "
+            f"rebuild) {t2 - t1:.1f} s")
+        ops.reset_launches()
+        sim.run(4)
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated()
+        launches_out["scale"] = launches
+        fac, kc = sim.state.chol, sim.state.kc_chol
+        split = _h0_split(sim, 2, (
+            "rebuild_h0", "element_hessians", "_band_compact",
+            "_equil_scatter", "_btd_scan_equilibrated", "_coarse_factor",
+            "h0_apply", "_coarse_apply"))
+        fr = sim.frames
+        timed = fr[1:4]
+        spf = float(np.mean([r["seconds"] for r in timed]))
+        say(f"scale: s/frame {spf:.5f} (3 timed frames after 1 warm-up; "
+            f"warm-up {fr[0]['seconds']:.3f} s); iters/frame "
+            f"{np.mean([r['iters'] for r in timed]):.2f}; LS halvings/frame "
+            f"{np.mean([r['halvings'] for r in timed]):.2f}; syncs/frame "
+            f"{np.mean([r['syncs'] for r in timed]):.2f}; peak device memory "
+            f"{peak / 2**20:.1f} MiB")
+        say(f"scale: synchronised split over 2 more frames (iters "
+            f"{[r['iters'] for r in fr[4:]]}), ms/frame: rebuild_h0 "
+            f"{split['rebuild_h0']:.2f} (elem H {split['element_hessians']:.2f}"
+            f", coarse factor {split['_coarse_factor']:.2f}, compact "
+            f"{split['_band_compact']:.2f}, K12 {split['_equil_scatter']:.2f}"
+            f", scan {split['_btd_scan_equilibrated']:.2f}); h0_apply "
+            f"{split['h0_apply']:.2f} (fine "
+            f"{split['h0_apply'] - split['_coarse_apply']:.2f}, coarse "
+            f"{split['_coarse_apply']:.2f})")
+        say("scale: per frame (iters, halvings, syncs, stop, s): "
+            + "; ".join(f"{r['iters']},{r['halvings']},{r['syncs']},"
+                        f"{r['stop']},{r['seconds']:.3f}" for r in fr))
+        say("scale: sysE " + " ".join("%.10e" % r["sys_e"] for r in fr))
+        say(f"scale: kernel launches {launches}")
+        problems = []
+        if sysm.n_parts != 133 or not sysm.use_coarse:
+            problems.append(f"P {sysm.n_parts}, coarse {sysm.use_coarse}")
+        leaf_dt = {str(t.dtype) for t in fac} if isinstance(
+            fac, BTDFactor) else set()
+        if (sysm._chunk is not True or not isinstance(fac, BTDFactor)
+                or fac.linv.shape[0] != 8 or fac.linv.shape[-1] != 768
+                or leaf_dt != {"torch.bfloat16"}
+                or not isinstance(kc, CoarseFactor)):
+            problems.append(f"chunked rebuild not engaged: {type(fac)}, "
+                            f"{leaf_dt}, kc {type(kc)}")
+        for r in fr:
+            if not np.isfinite(r["sys_e"]):
+                problems.append(f"frame {r['frame']} sysE not finite")
+            if r["stop"] not in ("tol", "rel_dec"):
+                problems.append(f"frame {r['frame']} stopped by {r['stop']}")
+        for k in SCALE_KERNELS:
+            if launches[k] <= 0:
+                problems.append(f"kernel {k} never launched on the bar135 "
+                                "path")
+        if problems:
+            raise Fail("scale path: " + "; ".join(problems))
+
+        x = sim.state.x.detach().clone()
+        fixed = sim.state.fixed.clone()
+        hist = (sim.state.lb_s, sim.state.lb_t, sim.state.lb_rho,
+                sim.state.lb_valid)
+        sim.finalize()
+        plan = sysm.plan
+        del sim, fac, kc
+        torch.cuda.empty_cache()
+        _check_scale_kernels(torch, sysm, x, fixed, hist, record)
+        del sysm, hist
+        torch.cuda.empty_cache()
+
+        ref = _simulator(torch, scene, out_root, suffix="plain",
+                         use_kernels=False, plan=plan, save_every=10 ** 9)
+        ref.run(2)
+        ref.finalize()
+        a = np.asarray([r["sys_e"] for r in fr[:2]])
+        b = np.asarray([r["sys_e"] for r in ref.frames])
+        rel = np.abs(a / b - 1.0)
+        say(f"scale: plain-path sysE {' '.join('%.10e' % v for v in b)}; "
+            f"max rel vs kernels {rel.max():.3e} (tol 1e-3); plain "
+            f"s/frame {np.mean([r['seconds'] for r in ref.frames]):.5f}; "
+            f"plain iters {[r['iters'] for r in ref.frames]}")
+        if not rel.max() <= 1e-3:
+            raise Fail(f"bar135 kernel path and plain path disagree: "
+                       f"{rel.max():.3e}")
+        return spf
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="probe,build,kernels,golden,main")
+    ap.add_argument("--phases",
+                    default="probe,build,kernels,golden,main,scale")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         say("FAIL: no CUDA device (torch.cuda.is_available() is False)")
@@ -667,20 +1131,31 @@ def main(argv=None):
             phase_golden(torch)
         if "main" in phases:
             phase_main(torch, launches)
+        if "scale" in phases:
+            phase_scale(torch, record, launches)
     except Exception as exc:  # report the phase's failure and exit non-zero
         import traceback
         traceback.print_exc()
         say(f"FAIL: {type(exc).__name__}: {exc}")
         return 1
-    if set(phases) != {"probe", "build", "kernels", "golden", "main"}:
+    if set(phases) != {"probe", "build", "kernels", "golden", "main",
+                       "scale"}:
         say(f"partial run ({args.phases}): no result line")
         return 0
 
+    # launches: both paths' runs together, and each path's own count;
+    # the times are at the bar17 shapes, K6 and K7 also at bar135's own
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
+        by_path = {path: launches[path][name] for path in ("main", "scale")}
+        at_scale = {k.split("@")[1]: v for k, v in record.items()
+                    if k.startswith(name + "@")}
         kernels.append(dict(name=name, route=route, source=source,
-                            replaces=replaces, launches=launches[name],
-                            **record[name]))
+                            replaces=replaces,
+                            launches=sum(by_path.values()),
+                            launches_by_path=by_path, **record[name],
+                            **({"bar135": at_scale} if at_scale else {})))
+    say(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(nvidia_smi())
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

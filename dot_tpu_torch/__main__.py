@@ -5,7 +5,8 @@ viewer is not ported). Modes 1 and 2 of dot_tpu (diagnostics, mesh
 processing) are queue 1 of ROADMAP.md.
 
 Flags: --frames N, --dtype {f32,f64}, --save-every K, --output-root DIR,
---device {cuda,cpu} (default: cuda when a GPU is present).
+--device {cuda,cpu} (default: cuda; without a GPU the run stops with an
+error unless --device cpu is given).
 """
 
 from __future__ import annotations

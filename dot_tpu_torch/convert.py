@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .steppers.core import APPLY_DTYPES, BTDFactor, CRFactor, SimState, System
+from .steppers.core import (APPLY_DTYPES, BTDFactor, CoarseFactor, CRFactor,
+                            SimState, System)
 
 
 def system_from_plan(mesh, cfg, plan, dtype=torch.float64, device="cpu",
@@ -44,6 +45,18 @@ def factor_from_numpy(chol, device="cpu"):
     raise TypeError(f"unknown H0 factor kind {type(chol).__name__}")
 
 
+def coarse_from_numpy(kc, device="cpu", dtype=None):
+    """dot_tpu's coarse factor (Lc, dc) (or None) as the port's
+    CoarseFactor, with Lc^{-1} from one triangular solve."""
+    if kc is None:
+        return None
+    lc = torch.as_tensor(np.asarray(kc[0]), device=device, dtype=dtype)
+    dc = torch.as_tensor(np.asarray(kc[1]), device=device, dtype=dtype)
+    eye = torch.eye(lc.shape[0], dtype=lc.dtype, device=device)
+    li = torch.linalg.solve_triangular(lc, eye, upper=False)
+    return CoarseFactor(lc, li.contiguous(), dc)
+
+
 def state_from_numpy(d, system=None):
     """The port's SimState from a dot_tpu SimState whose leaves went
     through np.asarray. Tensors go to `system`'s device; the fields to its
@@ -64,4 +77,5 @@ def state_from_numpy(d, system=None):
         vel_sign=t(d.vel_sign), released=t(d.released, torch.bool),
         elem_h=t(d.elem_h), chol=chol, equil=t(d.equil),
         lb_s=t(d.lb_s), lb_t=t(d.lb_t), lb_rho=t(d.lb_rho),
-        lb_valid=t(d.lb_valid))
+        lb_valid=t(d.lb_valid),
+        kc_chol=coarse_from_numpy(getattr(d, "kc_chol", None), dev, fdt))

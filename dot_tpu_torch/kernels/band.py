@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the four H0 kernels (K5-K8), and the host-side
-CSR offsets their CUDA versions walk.
+"""Plain PyTorch versions of the H0 kernels K5-K8 and K12, and the
+host-side tables their CUDA versions walk.
 
 K5 band_assemble   block-tridiagonal H0 assembly (dot_tpu/steppers/core.py
                    676-706 _assembly_compact, 733-774 _band_compact /
@@ -10,6 +10,12 @@ K7 block_matvec    out = c - op(A) v over a batch of blocks (core.py
                    1061-1135 _cr_solve, 1219-1261 _btd_solve)
 K8 h0_gather /     the vertex gather and duplicate-averaging segment sum of
    h0_average      h0_apply (core.py 1263-1280)
+K5 band_compact    K5's other entry point: the finished compact unique-block
+                   values (core.py 733-748 _band_compact), for
+K12 band_equil_    the chunked rebuild's band (core.py 1465-1499
+    scatter        _rebuild_banded_chunked): the Jacobi scale d from the
+                   compact diagonal blocks, the equilibrated lower blocks
+                   rounded to the band's dtype and scattered, pads 1
 
 These are what the port ran before the kernels existed. The CPU tests use
 them, and System(use_kernels=False) takes them on any device for
@@ -37,6 +43,40 @@ class BandPlan(NamedTuple):
     total: int                # band length (diag + sub)
 
 
+class LowPlan(NamedTuple):
+    """Static tables of the chunked rebuild's lower-only band scatter
+    (dot_tpu core.py:614-623, 667-674: a vertex block with local row <
+    local column is never read by the scan, so it is not scattered)."""
+    n_parts: int
+    diag_slot: torch.Tensor   # (P*N,) int64 diagonal unique block, or -1
+    ub_row: torch.Tensor      # (nUB,) int64 as BandPlan
+    ub_col: torch.Tensor      # (nUB,) int64
+    sel: torch.Tensor         # (nLow,) int64 unique blocks kept
+    dest: torch.Tensor        # (nLow*9,) int64 band slots; `total` dropped
+    pad_diag: torch.Tensor    # (nPad,) int64 band slots of pad diagonals
+    total: int                # band length (diag + sub)
+
+
+def low_plan(plan, band_plan, device):
+    """LowPlan from a banded SubdomainPlan (numpy) and its BandPlan."""
+    n_loc = plan.n3 // 3
+    ub_row = np.asarray(plan.band_ub_row, np.int64)
+    ub_col = np.asarray(plan.band_ub_col, np.int64)
+    low = (ub_row % n_loc) >= (ub_col % n_loc)
+    diag_ub = np.asarray(plan.band_diag_ub, np.int64)
+    slot = np.full(plan.n_parts * n_loc, -1, np.int64)
+    slot[ub_row[diag_ub]] = diag_ub
+    dest = np.asarray(plan.band_dest, np.int64).reshape(-1, 9)[low]
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+                               device=device)
+    return LowPlan(n_parts=int(plan.n_parts), diag_slot=t(slot),
+                   ub_row=band_plan.ub_row, ub_col=band_plan.ub_col,
+                   sel=t(np.flatnonzero(low)), dest=t(dest.reshape(-1)),
+                   pad_diag=band_plan.pad_diag, total=band_plan.total)
+
+
 def csr_offsets(sorted_ids, n_segments):
     """(n_segments + 1,) int64 run offsets of a sorted id array (numpy)."""
     ids = np.asarray(sorted_ids, np.int64)
@@ -45,10 +85,11 @@ def csr_offsets(sorted_ids, n_segments):
     return np.searchsorted(ids, np.arange(n_segments + 1)).astype(np.int64)
 
 
-def band_assemble_ref(elem_h, freef, mass_flat, plan):
-    """K5 plain: the flat [diag | sub] band (plan.total,) from the (144, nEp)
-    block-major element Hessians. freef: (P*N,) 0/1 free-vertex mask;
-    mass_flat: (P*N,) lumped mass per local vertex."""
+def band_compact_ref(elem_h, freef, mass_flat, plan):
+    """K5 plain (compact): the finished (nUB, 9) unique-block values: the
+    element blocks summed, fixed vertices masked, the lumped mass (free)
+    or 1 (fixed) on the vertex diagonals. freef: (P*N,) 0/1 free-vertex
+    mask; mass_flat: (P*N,) lumped mass per local vertex."""
     eh_rows = elem_h.t().reshape(-1, 9)                  # (nEp*16, 9)
     rows = eh_rows[plan.src_block]                       # (nAsm, 9)
     compact = torch.zeros((plan.ub_row.shape[0], 9), dtype=elem_h.dtype,
@@ -61,6 +102,14 @@ def band_assemble_ref(elem_h, freef, mass_flat, plan):
     cols = torch.tensor([0, 4, 8], device=elem_h.device)
     compact.index_put_((plan.diag_ub[:, None], cols[None, :]),
                        dvals[:, None].expand(-1, 3), accumulate=True)
+    return compact
+
+
+def band_assemble_ref(elem_h, freef, mass_flat, plan):
+    """K5 plain: the flat [diag | sub] band (plan.total,) from the (144, nEp)
+    block-major element Hessians (the compact above, scattered; padding
+    rows get a unit diagonal)."""
+    compact = band_compact_ref(elem_h, freef, mass_flat, plan)
     flat = torch.zeros(plan.total + 1, dtype=elem_h.dtype,
                        device=elem_h.device)
     flat[plan.dest] = compact.reshape(-1)
@@ -117,3 +166,29 @@ def h0_average_ref(z, d, perm, segids, seg_off, dup):
     acc = torch.zeros((n_vert + 1, 3), dtype=z.dtype, device=z.device)
     acc.index_add_(0, segids, p_l[perm])
     return acc[:n_vert] / dup[:, None]
+
+
+def band_equilibrate_ref(compact, lp):
+    """The first half of K12 plain: (the compact scaled by dinv[row]
+    dinv[col], d (P, 3N)) with d the square root of the compact diagonal
+    blocks' diagonals, 1 at padding slots."""
+    has = lp.diag_slot >= 0
+    d2 = torch.ones((lp.diag_slot.shape[0], 3), dtype=compact.dtype,
+                    device=compact.device)
+    d2[has] = compact[lp.diag_slot[has]][:, [0, 4, 8]]
+    d = torch.sqrt(d2)
+    dinv = 1.0 / d
+    sr = dinv[lp.ub_row]
+    sc = dinv[lp.ub_col]
+    eq = compact * (sr[:, :, None] * sc[:, None, :]).reshape(-1, 9)
+    return eq, d.reshape(lp.n_parts, -1)
+
+
+def band_equil_scatter_ref(compact, lp, bdt):
+    """K12 plain: (the flat [diag | sub] band (lp.total,) in `bdt` holding
+    the equilibrated lower blocks and unit pad diagonals, d (P, 3N))."""
+    eq, d = band_equilibrate_ref(compact, lp)
+    flat = torch.zeros(lp.total + 1, dtype=bdt, device=compact.device)
+    flat[lp.dest] = eq[lp.sel].to(bdt).reshape(-1)
+    flat[lp.pad_diag] = 1.0
+    return flat[:lp.total], d

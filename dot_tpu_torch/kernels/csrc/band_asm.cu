@@ -19,6 +19,10 @@
 // the scatter are applied in registers: no compact buffer is written.
 // Threads below n_pad also set the unit diagonals of padding rows (disjoint
 // from every block slot).
+//
+// Second entry point, dot_band_compact: the same values written to the
+// (nUB, 9) compact instead of the band (core.py:733-748 _band_compact), for
+// the chunked rebuild, whose band K12 (band_equil.cu) writes.
 
 #include <cuda_runtime.h>
 
@@ -27,6 +31,34 @@
 namespace dotk5 {
 
 constexpr int kThreads = 256;
+
+// The finished value of entry t = u * 9 + q of the compact.
+template <typename T>
+__device__ __forceinline__ T block_value(
+    int64_t t, const T* __restrict__ eh, int64_t n_ep,
+    const int64_t* __restrict__ src_block,
+    const int64_t* __restrict__ seg_off, const int64_t* __restrict__ ub_row,
+    const int64_t* __restrict__ ub_col, const T* __restrict__ freef,
+    const T* __restrict__ mass) {
+  const int64_t u = t / 9;
+  const int q = static_cast<int>(t - u * 9);
+  T s = T(0);
+  const int64_t end = seg_off[u + 1];
+  for (int64_t k = seg_off[u]; k < end; ++k) {
+    const int64_t sb = src_block[k];            // elem * 16 + a * 4 + b
+    const int64_t e = sb >> 4;
+    const int ab = static_cast<int>(sb & 15);
+    s += eh[static_cast<int64_t>(ab * 9 + q) * n_ep + e];
+  }
+  const int64_t r = ub_row[u];
+  const int64_t c = ub_col[u];
+  const T fr = freef[r];
+  T v = s * (fr * freef[c]);
+  if (r == c && (q == 0 || q == 4 || q == 8)) {
+    v = v + (mass[r] * fr + (T(1) - fr));
+  }
+  return v;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -41,27 +73,27 @@ band_assemble_kernel(const T* __restrict__ eh, int64_t n_ep,
                      int64_t total, T* __restrict__ band) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (t < n_ub * 9) {
-    const int64_t u = t / 9;
-    const int q = static_cast<int>(t - u * 9);
-    T s = T(0);
-    const int64_t end = seg_off[u + 1];
-    for (int64_t k = seg_off[u]; k < end; ++k) {
-      const int64_t sb = src_block[k];          // elem * 16 + a * 4 + b
-      const int64_t e = sb >> 4;
-      const int ab = static_cast<int>(sb & 15);
-      s += eh[static_cast<int64_t>(ab * 9 + q) * n_ep + e];
-    }
-    const int64_t r = ub_row[u];
-    const int64_t c = ub_col[u];
-    const T fr = freef[r];
-    T v = s * (fr * freef[c]);
-    if (r == c && (q == 0 || q == 4 || q == 8)) {
-      v = v + (mass[r] * fr + (T(1) - fr));
-    }
+    const T v = block_value(t, eh, n_ep, src_block, seg_off, ub_row, ub_col,
+                            freef, mass);
     const int64_t dd = dest[t];
     if (dd < total) band[dd] = v;
   }
   if (t < n_pad) band[pad_diag[t]] = T(1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_compact_kernel(const T* __restrict__ eh, int64_t n_ep,
+                    const int64_t* __restrict__ src_block,
+                    const int64_t* __restrict__ seg_off,
+                    const int64_t* __restrict__ ub_row,
+                    const int64_t* __restrict__ ub_col,
+                    const T* __restrict__ freef, const T* __restrict__ mass,
+                    int64_t n_ub, T* __restrict__ compact) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (t < n_ub * 9)
+    compact[t] = block_value(t, eh, n_ep, src_block, seg_off, ub_row, ub_col,
+                             freef, mass);
 }
 
 template <typename T>
@@ -101,4 +133,27 @@ extern "C" int dot_band_assemble(int dtype, const void* eh, long long n_ep,
                                i64(ub_row), i64(ub_col), freef, mass,
                                i64(dest), n_ub, i64(pad_diag), n_pad, total,
                                band, s);
+}
+
+extern "C" int dot_band_compact(int dtype, const void* eh, long long n_ep,
+                                const void* src_block, const void* seg_off,
+                                const void* ub_row, const void* ub_col,
+                                const void* freef, const void* mass,
+                                long long n_ub, void* compact, void* stream) {
+  if (n_ub == 0) return 0;
+  auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
+  auto s = static_cast<cudaStream_t>(stream);
+  const unsigned nb =
+      static_cast<unsigned>((n_ub * 9 + dotk5::kThreads - 1) / dotk5::kThreads);
+  if (dtype == 0)
+    dotk5::band_compact_kernel<float><<<nb, dotk5::kThreads, 0, s>>>(
+        static_cast<const float*>(eh), n_ep, i64(src_block), i64(seg_off),
+        i64(ub_row), i64(ub_col), static_cast<const float*>(freef),
+        static_cast<const float*>(mass), n_ub, static_cast<float*>(compact));
+  else
+    dotk5::band_compact_kernel<double><<<nb, dotk5::kThreads, 0, s>>>(
+        static_cast<const double*>(eh), n_ep, i64(src_block), i64(seg_off),
+        i64(ub_row), i64(ub_col), static_cast<const double*>(freef),
+        static_cast<const double*>(mass), n_ub, static_cast<double*>(compact));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -26,13 +26,16 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # products and sums round one by one, as the plain PyTorch versions'
 # elementwise ops do (K1-K3, K5, K8 then agree bit for bit in most outputs);
 # K6 and K7 are sums of products whose order differs from the plain
-# versions' anyway, so they keep the contraction.
+# versions' anyway, so they keep the contraction. K9 is Triton
+# (triton_lbfgs.py) and is compiled at its first launch.
 LIBRARIES = {
     "elem": (("elem.cu", "elem.cuh"), ("-fmad=false",)),
     "band_asm": (("band_asm.cu",), ("-fmad=false",)),
     "chol_inv": (("chol_inv.cu",), ()),
     "block_matvec": (("block_matvec.cu",), ()),
     "h0": (("h0.cu",), ("-fmad=false",)),
+    "coarse": (("coarse.cu",), ("-fmad=false",)),
+    "band_equil": (("band_equil.cu",), ("-fmad=false",)),
 }
 
 last_build_seconds = None   # wall time of the last build() that compiled

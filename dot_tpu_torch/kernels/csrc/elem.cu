@@ -23,9 +23,12 @@
 //   element, memory time ~4 us; the SVD's registers again set the pace.
 //   Design: gather, F, SVD, P and D (w P) all stay in registers (D is
 //   derived from restTriInv, not stored); atomicAdd into an (nV+1, 3)
-//   accumulator whose last row takes the padding elements. The atomics
-//   make the f32 sum order vary from run to run: compare norm-wise at
-//   rtol 1e-4 in f32 (1e-10 in f64).
+//   accumulator whose last row is the padding elements' dump. A padding
+//   element (all four scatter ids the dump row; its weight is 0, so its
+//   forces are 0) returns at once: at bar135 the 198K pads' 2.4M atomics
+//   on that one row serialised to ~4 ms a launch. The atomics make the
+//   f32 sum order vary from run to run: compare norm-wise at rtol 1e-4 in
+//   f32 (1e-10 in f64).
 // K3 elem_hessian -- replaces element_hessian_soa (kernels/soa.py:458) and
 //   System.element_hessians (steppers/core.py:590-597). Bound: it writes
 //   144 values per element (576 B f32, 50 MB at bar17: 15 us at 3.35 TB/s)
@@ -140,7 +143,7 @@ elem_gradient_kernel(const T* __restrict__ x, const int* __restrict__ conn,
                      const T* __restrict__ u, const T* __restrict__ lam,
                      const T* __restrict__ w, int n, T* __restrict__ acc) {
   const int e = blockIdx.x * kElemThreads + threadIdx.x;
-  if (e >= n) return;
+  if (e >= n || conn_s[e] == conn_s[n + e]) return;   // padding element
   T f[9], g[9], U[9], s[3], V[9], P[9], D[4][3];
   gather_defgrad(x, conn, g9, n, e, f, g);
   svd3_flip(f, U, s, V);

@@ -1,12 +1,14 @@
-"""Wrappers of the eight hand-written kernels of the DOT main path.
+"""Wrappers of the twelve hand-written kernels of the DOT paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
-  kernels/band.py for K5-K8) for CPU tensors;
+  kernels/band.py for K5-K8 and K12, kernels/lbfgs.py for K9,
+  kernels/coarse.py for K10-K11) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7: csrc/block_matvec.cu, K8:
-  csrc/h0.cu, all through ctypes; K4: triton_qf.py), checks the launch's
-  cudaGetLastError and adds one to its count in `launches`;
+  csrc/h0.cu, K10-K11: csrc/coarse.cu, K12: csrc/band_equil.cu, all
+  through ctypes; K4: triton_qf.py, K9: triton_lbfgs.py), checks the
+  launch's cudaGetLastError and adds one to its count in `launches`;
 - raises for any other device.
 There is no fallback: a kernel that does not build or launch raises.
 
@@ -22,11 +24,13 @@ import types
 
 import torch
 
-from . import band, soa
+from . import band, coarse, lbfgs, soa
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
-           "h0_gather", "h0_average")
+           "h0_gather", "h0_average", "lbfgs_loop1", "lbfgs_loop2",
+           "lbfgs_combine", "coarse_assemble", "coarse_restrict",
+           "coarse_prolong", "band_compact", "band_equil_scatter")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -38,7 +42,15 @@ plain = types.SimpleNamespace(
     chol_inv=band.chol_inv_ref,
     block_matvec=band.block_matvec_ref,
     h0_gather=band.h0_gather_ref,
-    h0_average=band.h0_average_ref)
+    h0_average=band.h0_average_ref,
+    lbfgs_loop1=lbfgs.lbfgs_loop1_ref,
+    lbfgs_loop2=lbfgs.lbfgs_loop2_ref,
+    lbfgs_combine=lbfgs.lbfgs_combine_ref,
+    coarse_assemble=coarse.coarse_assemble_ref,
+    coarse_restrict=coarse.coarse_restrict_ref,
+    coarse_prolong=coarse.coarse_prolong_ref,
+    band_compact=band.band_compact_ref,
+    band_equil_scatter=band.band_equil_scatter_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -72,6 +84,16 @@ def _load():
             + [LL, I, I, P],
             ("h0", "dot_h0_gather"): [I] + [P] * 4 + [LL, P, P],
             ("h0", "dot_h0_average"): [I] + [P] * 5 + [LL, P, P],
+            ("band_asm", "dot_band_compact"): ([I, P, LL] + [P] * 6
+                                               + [LL, P, P]),
+            ("band_equil", "dot_band_equil_scatter"): ([I, I, P, P, LL]
+                                                       + [P] * 4
+                                                       + [LL, P, LL, LL]
+                                                       + [P] * 3),
+            ("coarse", "dot_coarse_assemble"): ([I, P, LL] + [P] * 6
+                                                + [LL, P, P, LL, P, P, P]),
+            ("coarse", "dot_coarse_restrict"): [I] + [P] * 6 + [LL, P, P],
+            ("coarse", "dot_coarse_prolong"): [I] + [P] * 6 + [LL, P, P],
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -368,3 +390,209 @@ def h0_average(z, d, perm, segids, seg_off, dup):
                          _stream(z))
     _ok(name, err)
     return out
+
+
+# ----------------------------------------------------------------------
+# K9: the L-BFGS two-loop's vector passes (Triton)
+# ----------------------------------------------------------------------
+def _history(name, S, T, v, rho, valid):
+    dt = _float(name, v)
+    m, n = S.shape
+    dev = v.device
+    _need(name, "S", S, dev, dt, (m, n))
+    if T is not None:
+        _need(name, "T", T, dev, dt, (m, n))
+    _need(name, "v", v, dev, dt, (n,))
+    _need(name, "rho", rho, dev, dt, (m,))
+    _need(name, "valid", valid, dev, dt, (m,))
+
+
+def lbfgs_loop1(S, T, g, rho, valid):
+    """K9 (loop 1): (k (m,), G (m, m)) from S, T (m, n), the gradient g
+    (n,), rho and valid (m,); see kernels/lbfgs.py."""
+    name = "lbfgs_loop1"
+    _history(name, S, T, g, rho, valid)
+    if not _route(name, g):
+        return lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid)
+    from . import triton_lbfgs
+    out = triton_lbfgs.launch_loop1(S, T, g, rho, valid)
+    launches[name] += 1
+    return out
+
+
+def lbfgs_loop2(T, r, k, G, rho, valid):
+    """K9 (loop 2): c (m,) from T (m, n), the H0-applied r (n,), loop 1's k
+    (m,) and G (m, m), rho and valid (m,)."""
+    name = "lbfgs_loop2"
+    _history(name, T, None, r, rho, valid)
+    m = T.shape[0]
+    _need(name, "k", k, r.device, r.dtype, (m,))
+    _need(name, "G", G, r.device, r.dtype, (m, m))
+    if not _route(name, r):
+        return lbfgs.lbfgs_loop2_ref(T, r, k, G, rho, valid)
+    from . import triton_lbfgs
+    out = triton_lbfgs.launch_loop2(T, r, k, G, rho, valid)
+    launches[name] += 1
+    return out
+
+
+def lbfgs_combine(x, c, V, neg_x=False, neg_c=False):
+    """K9 (combine): (+-x) + (+-(c^T V)) for x (n,), c (m,), V (m, n)."""
+    name = "lbfgs_combine"
+    dt = _float(name, x)
+    m, n = V.shape
+    _need(name, "x", x, x.device, dt, (n,))
+    _need(name, "c", c, x.device, dt, (m,))
+    _need(name, "V", V, x.device, dt, (m, n))
+    if not _route(name, x):
+        return lbfgs.lbfgs_combine_ref(x, c, V, neg_x, neg_c)
+    from . import triton_lbfgs
+    out = triton_lbfgs.launch_combine(x, c, V, neg_x, neg_c)
+    launches[name] += 1
+    return out
+
+
+# ----------------------------------------------------------------------
+# K10-K11: the coarse space; K5 (compact) and K12: the chunked rebuild
+# ----------------------------------------------------------------------
+def _coarse_fields(name, dt, dev, cp, freev):
+    nv = cp.own.shape[0]
+    _need(name, "freev", freev, dev, dt, (nv,))
+    _need(name, "xc", cp.xc, dev, dt, (nv, 3))
+    _need(name, "own", cp.own, dev, torch.int64, (nv,))
+
+
+def coarse_assemble(elem_h, conn, freev, mass, cp):
+    """K10: the (P*P, 36) blocks of Kc = Z^T (dt^2 K + M) Z from the
+    (144, nEp) element Hessians; conn (4, nEp) int32 gather ids; freev,
+    mass (nV,); cp: coarse.CoarsePlan."""
+    name, dev = "coarse_assemble", elem_h.device
+    dt = _float(name, elem_h)
+    n_ep = elem_h.shape[1]
+    _need(name, "elem_h", elem_h, dev, dt, (144, n_ep))
+    _need(name, "conn", conn, dev, torch.int32, (4, n_ep))
+    _coarse_fields(name, dt, dev, cp, freev)
+    _need(name, "mass", mass, dev, dt, freev.shape)
+    i64 = torch.int64
+    _need(name, "items", cp.items, dev, i64, (None,))
+    _need(name, "chunk_off", cp.chunk_off, dev, i64, (None,))
+    _need(name, "pair_off", cp.pair_off, dev, i64, (None,))
+    _need(name, "pair_dest", cp.pair_dest, dev, i64,
+          (cp.pair_off.shape[0] - 1,))
+    if not _route(name, elem_h):
+        return coarse.coarse_assemble_ref(elem_h, conn, freev, mass, cp)
+    lib = _load()
+    n_chunk = cp.chunk_off.shape[0] - 1
+    n_pair = cp.pair_dest.shape[0]
+    P = cp.n_parts
+    part = torch.empty((n_chunk, 36), dtype=dt, device=dev)
+    kc = torch.zeros((P * P, 36), dtype=dt, device=dev)
+    err = lib.coarse_assemble(
+        _DTYPES[dt], _ptr(elem_h), n_ep, _ptr(conn), _ptr(cp.xc),
+        _ptr(freev), _ptr(mass), _ptr(cp.items), _ptr(cp.chunk_off),
+        n_chunk, _ptr(cp.pair_off), _ptr(cp.pair_dest), n_pair, _ptr(part),
+        _ptr(kc), _stream(elem_h))
+    _ok(name, err)
+    return kc
+
+
+def coarse_restrict(rhs, freev, dc, cp):
+    """K11 (restrict): (6P,) [sum free r, sum xc x free r] per owner part,
+    divided by dc (6P,). rhs: (nV, 3)."""
+    name, dev = "coarse_restrict", rhs.device
+    dt = _float(name, rhs)
+    P = cp.n_parts
+    _need(name, "rhs", rhs, dev, dt, (cp.own.shape[0], 3))
+    _coarse_fields(name, dt, dev, cp, freev)
+    _need(name, "dc", dc, dev, dt, (6 * P,))
+    _need(name, "vperm", cp.vperm, dev, torch.int64, cp.own.shape)
+    _need(name, "voff", cp.voff, dev, torch.int64, (P + 1,))
+    if not _route(name, rhs):
+        return coarse.coarse_restrict_ref(rhs, freev, dc, cp)
+    lib = _load()
+    rc = torch.empty(6 * P, dtype=dt, device=dev)
+    err = lib.coarse_restrict(_DTYPES[dt], _ptr(rhs), _ptr(freev),
+                              _ptr(cp.xc), _ptr(cp.vperm), _ptr(cp.voff),
+                              _ptr(dc), P, _ptr(rc), _stream(rhs))
+    _ok(name, err)
+    return rc
+
+
+def coarse_prolong(y, dc, freev, cp, base=None):
+    """K11 (prolong): (nV, 3) (yt + yr x xc) free, (yt, yr) = (y / dc) of
+    each vertex's owner part, plus `base` (nV, 3) if given. y, dc: (6P,)."""
+    name, dev = "coarse_prolong", y.device
+    dt = _float(name, y)
+    P, nv = cp.n_parts, cp.own.shape[0]
+    _need(name, "y", y, dev, dt, (6 * P,))
+    _need(name, "dc", dc, dev, dt, (6 * P,))
+    _coarse_fields(name, dt, dev, cp, freev)
+    if base is not None:
+        _need(name, "base", base, dev, dt, (nv, 3))
+    if not _route(name, y):
+        return coarse.coarse_prolong_ref(y, dc, freev, cp, base)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.coarse_prolong(_DTYPES[dt], _ptr(y), _ptr(dc), _ptr(freev),
+                             _ptr(cp.xc), _ptr(cp.own), _ptr(base), nv,
+                             _ptr(out), _stream(y))
+    _ok(name, err)
+    return out
+
+
+def band_compact(elem_h, freef, mass_flat, plan):
+    """K5 (compact): the finished (nUB, 9) unique-block values that
+    band_assemble scatters; same arguments."""
+    name, dev = "band_compact", elem_h.device
+    dt = _float(name, elem_h)
+    n_ub = plan.ub_row.shape[0]
+    _need(name, "elem_h", elem_h, dev, dt, (144, None))
+    _need(name, "freef", freef, dev, dt, (None,))
+    _need(name, "mass_flat", mass_flat, dev, dt, freef.shape)
+    i64 = torch.int64
+    _need(name, "src_block", plan.src_block, dev, i64, (None,))
+    _need(name, "seg_off", plan.seg_off, dev, i64, (n_ub + 1,))
+    _need(name, "ub_row", plan.ub_row, dev, i64, (n_ub,))
+    _need(name, "ub_col", plan.ub_col, dev, i64, (n_ub,))
+    if not _route(name, elem_h):
+        return band.band_compact_ref(elem_h, freef, mass_flat, plan)
+    lib = _load()
+    out = torch.empty((n_ub, 9), dtype=dt, device=dev)
+    err = lib.band_compact(
+        _DTYPES[dt], _ptr(elem_h), elem_h.shape[1], _ptr(plan.src_block),
+        _ptr(plan.seg_off), _ptr(plan.ub_row), _ptr(plan.ub_col),
+        _ptr(freef), _ptr(mass_flat), n_ub, _ptr(out), _stream(elem_h))
+    _ok(name, err)
+    return out
+
+
+def band_equil_scatter(compact, lp, bdt):
+    """K12: (the flat [diag | sub] band (lp.total,) in `bdt` (bf16, f32 or
+    f64) holding the equilibrated lower blocks of the (nUB, 9) compact,
+    d (P, 3N)); lp: band.LowPlan."""
+    name, dev = "band_equil_scatter", compact.device
+    dt = _float(name, compact)
+    n_ub = lp.ub_row.shape[0]
+    _need(name, "compact", compact, dev, dt, (n_ub, 9))
+    i64 = torch.int64
+    for key in ("diag_slot", "sel", "pad_diag"):
+        _need(name, key, getattr(lp, key), dev, i64, (None,))
+    _need(name, "ub_row", lp.ub_row, dev, i64, (n_ub,))
+    _need(name, "ub_col", lp.ub_col, dev, i64, (n_ub,))
+    _need(name, "dest", lp.dest, dev, i64, (lp.sel.shape[0] * 9,))
+    if bdt not in _A_DTYPES:
+        raise TypeError(f"{name}: band dtype {bdt}")
+    if not _route(name, compact):
+        return band.band_equil_scatter_ref(compact, lp, bdt)
+    lib = _load()
+    n_slot = lp.diag_slot.shape[0]
+    flat = torch.zeros(lp.total, dtype=bdt, device=dev)
+    d = torch.empty(n_slot * 3, dtype=dt, device=dev)
+    err = lib.band_equil_scatter(
+        _DTYPES[dt], _A_DTYPES[bdt], _ptr(compact), _ptr(lp.diag_slot),
+        n_slot, _ptr(lp.ub_row), _ptr(lp.ub_col), _ptr(lp.sel),
+        _ptr(lp.dest), lp.sel.shape[0], _ptr(lp.pad_diag),
+        lp.pad_diag.shape[0], lp.total, _ptr(flat), _ptr(d),
+        _stream(compact))
+    _ok(name, err)
+    return flat, d.view(lp.n_parts, -1)

@@ -1,20 +1,25 @@
 """Where a frame of the dot_tpu_torch port goes on the GPU.
 
-    python -m dot_tpu_torch.profiling [--cells 56 16 16] [--parts 6]
-                                      [--frames 3] [--out output/profile]
+    python -m dot_tpu_torch.profiling [--scene bar17|bar135] [--frames 3]
+                                      [--out output/profile]
 
-Builds the bar twist scene (bar17 by default: 86,016 tets, DOT 6, f32,
-relTol 1e-5), runs one warm-up frame, then
+Builds a bar twist scene (tools/scalability.py's template, f32, relTol
+1e-5): `--scene bar17` (the default: 56x16x16 cells, 86,016 tets,
+DOT 6) or `--scene bar135` (131x31x31 cells, 755,346 tets, DOT -1 1024:
+133 parts, the coarse space and the chunked bf16 rebuild). It runs one
+warm-up frame, then
 1. times `--frames` frames as they run, then `--frames` more with the
-   H0 rebuild (and inside it the element Hessians, the assembly and the
-   factorization), the H0 apply, the line search, the quadratic form and
-   the gradient wrapped in synchronised host timers (the syncs perturb
-   the total a little; the split is what this reads);
+   H0 rebuild (and inside it the element Hessians, the coarse factor, the
+   assembly and the factorization, or on the chunked path the compact,
+   the K12 scatter and the scan), the H0 apply (and inside it the coarse
+   apply), the line search, the quadratic form and the gradient wrapped
+   in synchronised host timers (the syncs perturb the total a little;
+   the split is what this reads);
 2. profiles `--frames` more frames with torch.profiler and prints the
    device time by kernel name, the device time and launches per frame of
-   each hand-written kernel (K1-K8, with the wrappers' launch counts), the
-   device busy time per frame and the idle share (1 - busy / unwrapped
-   frame time), and writes the chrome trace under --out.
+   each hand-written kernel (K1-K12, with the wrappers' launch counts),
+   the device busy time per frame and the idle share (1 - busy /
+   unwrapped frame time), and writes the chrome trace under --out.
 Needs a CUDA device.
 """
 
@@ -38,7 +43,8 @@ from .sim import Simulator
 from .steppers import quasi_newton
 
 # device-kernel name fragments of each wrapper's kernel (the second passes
-# of K1 and K4, which sum block partials, are left out)
+# of K1 and K4, which sum block partials, are left out; K9's dots_kernel
+# serves both loops and is counted under lbfgs_loop1)
 KERNEL_NAMES = {
     "ls_trial_energy": ("ls_trial_energy_kernel",),
     "elem_gradient": ("elem_gradient_kernel",),
@@ -49,12 +55,27 @@ KERNEL_NAMES = {
     "block_matvec": ("matvec_kernel", "matvec_t_kernel"),
     "h0_gather": ("h0_gather_kernel",),
     "h0_average": ("h0_average_kernel",),
+    "lbfgs_loop1": ("dots_kernel", "loop1_kernel"),
+    "lbfgs_loop2": ("loop2_kernel",),
+    "lbfgs_combine": ("combine_kernel",),
+    "coarse_assemble": ("dotk10::assemble_kernel", "dotk10::reduce_kernel"),
+    "coarse_restrict": ("dotk10::restrict_kernel",),
+    "coarse_prolong": ("dotk10::prolong_kernel",),
+    "band_compact": ("dotk5::band_compact_kernel",),
+    "band_equil_scatter": ("dotk12::d_kernel", "dotk12::scatter_kernel"),
 }
-# spans inside rebuild_h0 (timed, not subtracted from the host rest)
-REBUILD_SPANS = ("element_hessians", "assemble_subdomains", "factorize")
+# spans inside rebuild_h0 and h0_apply (timed, not subtracted from the
+# host rest): the unchunked path assembles and factorizes, the chunked one
+# builds the compact, scatters it (K12) and scans
+REBUILD_SPANS = ("element_hessians", "_coarse_factor", "assemble_subdomains",
+                 "factorize", "_band_compact", "_equil_scatter",
+                 "_btd_scan_equilibrated")
+APPLY_SPANS = ("_coarse_apply",)
+SCENES = {"bar17": ((56, 16, 16), "DOT 6"),
+          "bar135": ((131, 31, 31), "DOT -1 1024")}
 
 SCENE = """energy FCR
-timeStepper DOT {parts}
+timeStepper {stepper}
 warmStart 2
 time 5 0.025
 density 1000
@@ -93,7 +114,7 @@ def profile_frames(sim, frames, out):
     acc = collections.Counter()
     sysm = sim.system
     names = ("rebuild_h0", "h0_apply", "gradient", "quadratic_form") \
-        + REBUILD_SPANS
+        + REBUILD_SPANS + APPLY_SPANS
     for name in names:
         wrap_timed(sysm, name, acc)
     line_search = wrap_timed(None, "line_search", acc,
@@ -110,15 +131,17 @@ def profile_frames(sim, frames, out):
     iters = sum(r["iters"] for r in sim.frames[n0:])
     print(f"timed split over {frames} frames ({iters} iterations), "
           f"wall {wall / frames * 1e3:.2f} ms/frame:")
+    inner = {"rebuild_h0": REBUILD_SPANS, "h0_apply": APPLY_SPANS}
     for k, v in acc.most_common():
-        if k in REBUILD_SPANS:
+        if k in REBUILD_SPANS + APPLY_SPANS:
             continue
         print(f"  {k:20s} {v / frames * 1e3:9.2f} ms/frame "
               f"({100 * v / wall:5.1f}%)")
-        if k == "rebuild_h0":
-            for j in REBUILD_SPANS:
-                print(f"    {j:18s} {acc[j] / frames * 1e3:9.2f} ms/frame")
-    outer = sum(v for k, v in acc.items() if k not in REBUILD_SPANS)
+        for j in inner.get(k, ()):
+            if j in acc:
+                print(f"    {j:22s} {acc[j] / frames * 1e3:9.2f} ms/frame")
+    outer = sum(v for k, v in acc.items()
+                if k not in REBUILD_SPANS + APPLY_SPANS)
     print(f"  {'rest (host)':20s} {(wall - outer) / frames * 1e3:9.2f} "
           f"ms/frame")
 
@@ -162,29 +185,32 @@ def profile_frames(sim, frames, out):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m dot_tpu_torch.profiling")
-    ap.add_argument("--cells", type=int, nargs=3, default=(56, 16, 16))
-    ap.add_argument("--parts", type=int, default=6)
+    ap.add_argument("--scene", choices=sorted(SCENES), default="bar17")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", default="output/profile")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("needs a CUDA device")
-        return 1
+        raise RuntimeError("profiling needs a CUDA device (none found)")
+    cells, stepper = SCENES[args.scene]
     tmp = tempfile.mkdtemp(prefix="dot_prof_")
     try:
-        mesh = bar_mesh(*args.cells, size=(4.0, 1.0, 1.0))
+        mesh = bar_mesh(*cells, size=(4.0, 1.0, 1.0))
         mp = os.path.join(tmp, "bar.msh")
         meshio.save_tet_mesh(mp, mesh.V, mesh.conn, mesh.SF)
         sp = os.path.join(tmp, "scene.txt")
         with open(sp, "w") as f:
-            f.write(SCENE.format(parts=args.parts, mesh=mp))
+            f.write(SCENE.format(stepper=stepper, mesh=mp))
+        t0 = time.perf_counter()
         sim = Simulator(Config.load(sp), os.path.join(tmp, "out"),
                         dtype=torch.float32, device="cuda", mute=True,
                         save_every=10 ** 9)
-        print(f"cells {args.cells}: {sim.mesh.n_elem} tets, "
-              f"{sim.mesh.n_vert} verts, P {sim.system.n_parts}, n3 "
-              f"{sim.system.n3}, banded {sim.system.banded} (nb "
-              f"{sim.system.band_nb}, bs {sim.system.band_bs}); "
+        sysm = sim.system
+        print(f"cells {cells} {stepper}: {sim.mesh.n_elem} tets, "
+              f"{sim.mesh.n_vert} verts, P {sysm.n_parts}, n3 {sysm.n3}, "
+              f"banded {sysm.banded} (nb {sysm.band_nb}, bs "
+              f"{sysm.band_bs}), coarse {sysm.use_coarse}, chunked "
+              f"{sysm._chunk is not None}; Simulator built in "
+              f"{time.perf_counter() - t0:.1f} s; "
               f"{torch.cuda.get_device_name(0)}")
         sim.run(1)
         profile_frames(sim, args.frames, args.out)

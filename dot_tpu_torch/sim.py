@@ -63,7 +63,19 @@ class Timer:
 
 
 def default_device():
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    """The port runs on the card unless the caller asks for the CPU."""
+    return "cuda"
+
+
+def resolve_device(device=None):
+    """torch.device for `device` (None: the card); raises when it names
+    CUDA and no CUDA device is present, instead of falling back."""
+    dev = torch.device(device or default_device())
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: dot_tpu_torch runs on an NVIDIA GPU by "
+            "default; pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
 
 
 def pick_dtype(name=None, device="cpu"):
@@ -83,10 +95,15 @@ def _unsupported(what):
 
 class Simulator:
     def __init__(self, cfg: Config, output_dir: str, dtype=None, device=None,
-                 search_dirs=(), save_every=1, mute=False, use_kernels=True):
-        """`use_kernels=False` runs the plain PyTorch versions of the
-        kernels instead (a comparison run; the main path keeps the
-        default)."""
+                 search_dirs=(), save_every=1, mute=False, use_kernels=True,
+                 plan=None):
+        """`device`: None runs on the card (and raises without one);
+        "cpu" runs on the CPU. `use_kernels=False` runs the plain PyTorch
+        versions of the kernels instead (a comparison run; the main path
+        keeps the default). `plan`: a SubdomainPlan already built for this
+        scene's mesh and partition count (reused instead of partitioning
+        again)."""
+        device = resolve_device(device)
         if cfg.time_stepper != "DOT":
             raise _unsupported(f"timeStepper {cfg.time_stepper}")
         if cfg.h0_refresh != 1:
@@ -99,7 +116,7 @@ class Simulator:
         self.save_every = save_every
         self.mute = mute
         self.timer = Timer()
-        self.device = torch.device(device or default_device())
+        self.device = device
         # the two-loop's scalars drive convergence decisions: float32
         # matrix products must not drop to TF32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -121,8 +138,12 @@ class Simulator:
         self.timer.start("partition+build")
         dtype = dtype if dtype is not None else pick_dtype(None, self.device)
         n_parts = partition.partition_amt_from_config(cfg, self.mesh.n_vert)
-        plan = partition.build_plan(self.mesh, n_parts,
-                                    scheme=cfg.partition_scheme)
+        if plan is None:
+            plan = partition.build_plan(self.mesh, n_parts,
+                                        scheme=cfg.partition_scheme)
+        elif plan.n_parts != n_parts:
+            raise ValueError(f"plan has {plan.n_parts} parts; the scene "
+                             f"asks for {n_parts}")
         # applyDtype -> System.apply_dtype (dot_tpu/sim.py:126-136)
         self.system = System(self.mesh, cfg, plan, dtype=dtype,
                              device=self.device, use_kernels=use_kernels,
@@ -279,13 +300,13 @@ def run_script(script_path, suffix="", frames=None, output_root="output",
                mute=False):
     """Load a scene script, simulate `frames` frames, write the output
     contract. `dtype` is "f32", "f64" or None (f64 on the CPU, f32 on a
-    GPU)."""
+    GPU); `device` None runs on the card and raises without one."""
+    device = resolve_device(device)
     cfg = Config.load(script_path)
     name = cfg.output_folder_name()
     if suffix:
         name += "_" + suffix
     out = os.path.join(output_root, name)
-    device = device or default_device()
     sim = Simulator(cfg, out, dtype=pick_dtype(dtype, device), device=device,
                     save_every=save_every, use_kernels=use_kernels, mute=mute,
                     search_dirs=(os.path.dirname(script_path),

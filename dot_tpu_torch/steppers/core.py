@@ -6,17 +6,32 @@ on an explicit device and offers the functions the DOT stepper composes:
 incremental-potential energy, gradient, element Hessians, subdomain
 assembly (dense or RCM-banded block-tridiagonal), the Jacobi-equilibrated
 H0 factorization (block cyclic reduction on deep bands, the block scan
-otherwise, blocked or plain Cholesky on dense plans) and the H0 apply
-(solve + duplicate averaging).
+otherwise, blocked or plain Cholesky on dense plans), the H0 apply
+(solve + duplicate averaging) and, as dot_tpu has them:
+- the two-level coarse space (P >= 16, or `coarse 1`): a Galerkin matrix
+  Kc = Z^T (dt^2 K + M) Z over 6 rigid modes per part, factored with the
+  fine H0 and added to its apply (core.py:289-352, 1296-1449);
+- the chunked low-memory rebuild (`_chunk`: f32, P > 1, an f32 band over
+  2 GiB): the compact unique blocks equilibrated, rounded to bf16 and
+  scattered once into a bf16 band, factored by one lower-triangle block
+  scan with bf16 SYRKs (core.py:277-282, 1465-1559). The gate is
+  dot_tpu's, so the port builds the preconditioner dot_tpu builds for
+  the same plan.
 
 The per-element passes go through the hand-written kernels K1-K4 of
 kernels/ops.py; the banded H0 rebuild and apply through K5-K8 (band
 assembly, diagonal-block Cholesky + inverse, block mat-vecs, the vertex
-gather / averaging). The large GEMMs of the factorizations stay
+gather / averaging); the coarse space through K10 (Kc assembly) and K11
+(restriction, prolongation), with its (6P)^2 factor on K6 and its solves
+on K7; the chunked band through K5's compact entry point and K12
+(equilibrate + bf16 scatter). The large GEMMs of the factorizations stay
 torch.matmul, as dot_tpu leaves them to XLA. `use_kernels=False` swaps in
 the kernels' plain PyTorch versions on any device, for comparison runs.
 The dense-plan assembly and the dense triangular solves are plain torch
-(dense plans are not the main path).
+(dense plans are not the main path). dot_tpu's per-subdomain packing of
+the scan assembly (core.py:602-666) and its uniform/mixed element split
+of the coarse build are TPU layout and are not ported: K5 and K10 reduce
+the same sums in a fixed order.
 
 Precision, as dot_tpu (core.py:180-195, 776-788, 853-1203): fields and
 reductions in `dtype`; the system energy diagnostic in float64. In f32 the
@@ -34,7 +49,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..kernels import band, ops, soa
+from ..kernels import band, coarse, ops, soa
 
 # Reference constants (dot_tpu/steppers/core.py:112-117)
 GRAVITY_Y = -9.80665           # Optimizer.cpp:109
@@ -66,6 +81,15 @@ class CRFactor(NamedTuple):
     root: BTDFactor   # factor of the final reduced system (nb_root <= 4)
 
 
+class CoarseFactor(NamedTuple):
+    """Factor of the equilibrated coarse matrix (dot_tpu's kc_chol (Lc, dc)
+    plus Lc^{-1}, which the apply multiplies with instead of two
+    triangular solves)."""
+    lc: torch.Tensor     # (6P, 6P) Cholesky factor of Kn + shift I
+    linv: torch.Tensor   # (6P, 6P) Lc^{-1}
+    dc: torch.Tensor     # (6P,) Jacobi scale
+
+
 def factor_leaves(fac):
     """The tensors of an H0 factor (dense, BTDFactor or CRFactor)."""
     if isinstance(fac, CRFactor):
@@ -93,8 +117,7 @@ def _mm(a, b, bf16):
 
 @dataclasses.dataclass
 class SimState:
-    """Dynamic simulation state (dot_tpu.steppers.core.SimState without
-    the coarse factor)."""
+    """Dynamic simulation state (dot_tpu.steppers.core.SimState)."""
     x: torch.Tensor           # (nV, 3) positions
     x_n: torch.Tensor         # (nV, 3) previous step positions
     v: torch.Tensor           # (nV, 3) velocities
@@ -110,6 +133,7 @@ class SimState:
     lb_t: torch.Tensor        # (m, nV, 3) L-BFGS t history
     lb_rho: torch.Tensor      # (m,) t.s
     lb_valid: torch.Tensor    # (m,) 0/1
+    kc_chol: object = None    # CoarseFactor, None when the coarse space is off
 
 
 @dataclasses.dataclass
@@ -156,25 +180,23 @@ class System:
         self.n_syncs = 0
         p = plan
 
-        cw = int(getattr(cfg, "coarse", -1))
-        if p.part is not None and (cw == 1 or (cw == -1 and p.n_parts >= 16)):
-            raise NotImplementedError(
-                "the two-level coarse space (P >= 16 or 'coarse 1') is not "
-                "ported yet; see ROADMAP.md queue 1")
         self.band_bs = int(getattr(p, "band_bs", 0) or 0)
         self.band_nb = int(getattr(p, "band_nb", 0) or 0)
         self.banded = self.band_nb >= 3
+        self._chunk = None
+        self._low = None
         if self.banded:
-            # dot_tpu switches to its bf16 low-memory rebuild when two f32
-            # copies of the band would not fit (core.py:277-282)
+            # dot_tpu's gate of its bf16 low-memory rebuild: two f32
+            # copies of the band would not fit comfortably (core.py:277-282)
             band_f32 = ((2 * self.band_nb - 1) * self.band_bs * self.band_bs
                         * 4 * self.n_parts)
             if (band_f32 > 2 << 30 and self.n_parts > 1
                     and self.factor_dtype == torch.float32):
-                raise NotImplementedError(
-                    f"an f32 band of {band_f32 / 2**30:.2f} GiB takes "
-                    "dot_tpu's chunked bf16 H0 rebuild, which is not ported "
-                    "yet; see ROADMAP.md queue 1 item 3")
+                self._chunk = True
+        # two-level coarse space: auto at P >= 16 (core.py:300-302)
+        cw = int(getattr(cfg, "coarse", -1))
+        self.use_coarse = (p.part is not None
+                           and (cw == 1 or (cw == -1 and p.n_parts >= 16)))
 
         def t(a, dt=None):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -237,6 +259,8 @@ class System:
                 dest=t(p.band_dest, torch.int64),
                 pad_diag=t(p.band_pad_diag, torch.int64),
                 total=P * nb * bs * bs + P * (nb - 1) * bs * bs)
+        self.coarse_plan = (coarse.build_plan(mesh, p, dtype, self.device)
+                            if self.use_coarse else None)
 
         # characteristic tolerance pieces (Optimizer.cpp:612-651)
         self._sqnorm_H_rest = self._compute_sqnorm_h_rest()
@@ -498,7 +522,7 @@ class System:
                 return self._cr_build(dg, sb, out_dt, bf16)
             if lowmem:
                 dg, sb = dg.to(torch.bfloat16), sb.to(torch.bfloat16)
-            return self._btd_scan(dg, sb, fdt, out_dt, bf16)
+            return self._btd_scan_equilibrated(dg, sb, 0.0, bf16, out_dt)
 
         fac = build(0.0, use_bf16)
         if fast and self.host(_any_nan(fac))[0]:
@@ -508,15 +532,28 @@ class System:
                 fac = build(1.0e-4, False)
         return fac, d.transpose(0, 1).reshape(P, nb * bs)
 
-    def _btd_scan(self, dg, sb, fdt, out_dt, bf16_syrk):
+    def _btd_scan_equilibrated(self, dg, sb, shift, bf16_syrk, out_dt=None):
         """Sequential block Cholesky over scan-major equilibrated blocks
-        (possibly stored bf16, upcast per block):
+        (possibly stored bf16, upcast per block to the solve dtype, `shift`
+        I added to each upcast diagonal block):
           L_k L_k^T = D_k - S_{k-1} S_{k-1}^T,  S_k = A_{k+1,k} L_k^{-T},
-        with L_k and Li_k = L_k^{-1} from K6 (lower triangle read) and
-        S_k = A_{k+1,k} Li_k^T as a matmul instead of a triangular solve."""
-        nb = dg.shape[0]
+        with L_k and Li_k = L_k^{-1} from K6 (lower triangle read),
+        S_k = A_{k+1,k} Li_k^T as a matmul instead of a triangular solve,
+        and the SYRK bf16-input with an f32 result under `bf16_syrk`.
+        Leaves are stored in `out_dt` (default: apply_dtype, else the solve
+        dtype)."""
+        fdt = self._solve_dtype
+        out_dt = out_dt or self.apply_dtype or fdt
+        nb, bs = dg.shape[0], dg.shape[-1]
+        sh = (shift * torch.eye(bs, dtype=fdt, device=self.device)
+              if shift else None)
+
+        def diag_block(k):
+            D = dg[k].to(fdt)
+            return D + sh if sh is not None else D
+
         lis, lss = [], []
-        Dk = dg[0].to(fdt)
+        Dk = diag_block(0)
         for k in range(nb):
             _, Li, _ = self.k.chol_inv(Dk.contiguous(), False)
             lis.append(Li.to(out_dt))
@@ -524,7 +561,7 @@ class System:
                 break
             Ls = sb[k].to(fdt) @ Li.mT
             lss.append(Ls.to(out_dt))
-            Dk = dg[k + 1].to(fdt) - _mm(Ls, Ls.mT, bf16_syrk).to(fdt)
+            Dk = diag_block(k + 1) - _mm(Ls, Ls.mT, bf16_syrk).to(fdt)
         sub = (torch.stack(lss) if lss else
                torch.zeros((0,) + tuple(dg.shape[1:]), dtype=out_dt,
                            device=self.device))
@@ -670,22 +707,114 @@ class System:
             xT = full
         return xT.transpose(0, 1).reshape(P, nb * bs)
 
-    def h0_apply(self, L, d, rhs):
+    def h0_apply(self, L, d, rhs, kc=None, fixed=None):
         """Per-subdomain backsolve + duplicate averaging (reference:
         DOTTimeStepper::solve_oneStep, DOTTimeStepper.cpp:406-450): K8's
-        gather, the solve, K8's averaging."""
-        r = self.k.h0_gather(rhs.contiguous(), self.l2g, self.local_valid, d)
+        gather, the solve, K8's averaging; plus the additive coarse
+        correction Z Kc^{-1} Z^T rhs when a coarse factor `kc` is given
+        (dot_tpu core.py:1263-1280)."""
+        rhs = rhs.contiguous()
+        r = self.k.h0_gather(rhs, self.l2g, self.local_valid, d)
         z = self.solve_local(L, r).to(self.dtype).contiguous()
-        return self.k.h0_average(z, d, self.gath_perm, self.gath_segids,
+        fine = self.k.h0_average(z, d, self.gath_perm, self.gath_segids,
                                  self.gath_off, self.dup)
+        if kc is None:
+            return fine
+        return self._coarse_apply(kc, rhs, fixed, fine)
 
     def rebuild_h0(self, x, fixed):
-        """Element Hessians at x + assemble + factorize. Returns
-        (elem_h, L, d)."""
+        """Element Hessians at x, the coarse factor (or None), and the fine
+        factor: the chunked rebuild when `_chunk` is set, else assemble +
+        factorize (dot_tpu core.py:1451-1463). Returns (elem_h, L, d, kc)."""
         elem_h = self.element_hessians(x)
-        L, d = self.factorize(self.assemble_subdomains(elem_h, fixed),
-                              fast=True)
-        return elem_h, L, d
+        kc = self._coarse_factor(elem_h, fixed) if self.use_coarse else None
+        if self._chunk is not None:
+            L, d = self._rebuild_banded_chunked(elem_h, fixed)
+        else:
+            L, d = self.factorize(self.assemble_subdomains(elem_h, fixed),
+                                  fast=True)
+        return elem_h, L, d, kc
+
+    # ------------------------------------------------------------------
+    # the two-level coarse space (dot_tpu core.py:289-352, 1296-1449)
+    # ------------------------------------------------------------------
+    def _coarse_matrix(self, elem_h, fixed):
+        """(Kn, dc): Kc = Z^T (dt^2 K + M) Z (K10), symmetrized and
+        Jacobi-equilibrated with a 1e-12 max floor, Kn = Kc / dc dc^T in
+        the solve dtype (6P, 6P)."""
+        P = self.n_parts
+        freev = torch.logical_not(fixed).to(self.dtype)
+        kc = self.k.coarse_assemble(elem_h, self.conn, freev, self.mass,
+                                    self.coarse_plan)
+        K = kc.view(P, P, 6, 6).permute(0, 2, 1, 3).reshape(6 * P, 6 * P)
+        K = 0.5 * (K + K.T)
+        diag = torch.diagonal(K)
+        dc = torch.sqrt(torch.maximum(diag, 1e-12 * torch.max(diag)))
+        return (K / dc[:, None] / dc[None, :]).to(self._solve_dtype), dc
+
+    def _coarse_factor(self, elem_h, fixed):
+        """The coarse matrix (`_coarse_matrix`) factored with a 1e-4 shift
+        by K6 (a failed factor is redone with a 0.05 shift: dot_tpu's NaN
+        tier, one host read). Returns a CoarseFactor."""
+        Kn, dc = self._coarse_matrix(elem_h, fixed)
+        eye = torch.eye(Kn.shape[0], dtype=Kn.dtype, device=self.device)
+        Lc, Li, bad = self.k.chol_inv((Kn + 1e-4 * eye)[None].contiguous(),
+                                      True)
+        if self.host(bad.any())[0]:
+            Lc, Li, _ = self.k.chol_inv((Kn + 0.05 * eye)[None].contiguous(),
+                                        True)
+        return CoarseFactor(Lc[0].contiguous(), Li[0].contiguous(), dc)
+
+    def _coarse_apply(self, kc, rhs, fixed, fine=None):
+        """fine + Z Kc^{-1} Z^T rhs: K11's restriction to the 6P coarse
+        dofs (owner sums, / dc), Lc^{-T} Lc^{-1} as two K7 launches on
+        Lc^{-1}, K11's prolongation (/ dc, zero at fixed vertices) added to
+        `fine`."""
+        freev = torch.logical_not(fixed).to(self.dtype)
+        rc = self.k.coarse_restrict(rhs, freev, kc.dc, self.coarse_plan)
+        li = kc.linv[None]
+        y = self._mv(li, rc.to(self._solve_dtype)[None])
+        y = self._mv(li, y, trans=True)[0].to(self.dtype)
+        return self.k.coarse_prolong(y.contiguous(), kc.dc, freev,
+                                     self.coarse_plan, fine)
+
+    # ------------------------------------------------------------------
+    # the chunked low-memory rebuild (dot_tpu core.py:1465-1559)
+    # ------------------------------------------------------------------
+    def _band_compact(self, elem_h, fixed):
+        """The finished (nUB, 9) compact unique-block values (K5's compact
+        entry point)."""
+        freef = self._free(fixed).to(self.dtype).reshape(-1)
+        return self.k.band_compact(elem_h, freef, self.mass_flat,
+                                   self.band_plan)
+
+    def _equil_scatter(self, compact):
+        """(the bf16 (or solve-dtype) band holding the equilibrated lower
+        blocks, d (P, n3)): K12 on the lower-only tables, built at first
+        use."""
+        if self._low is None:
+            self._low = band.low_plan(self.plan, self.band_plan, self.device)
+        bdt = (torch.bfloat16 if self.apply_dtype == torch.bfloat16
+               else self._solve_dtype)
+        return self.k.band_equil_scatter(compact, self._low, bdt)
+
+    def _rebuild_banded_chunked(self, elem_h, fixed):
+        """The compact -> d from its diagonal blocks -> equilibrated by
+        dinv[row] dinv[col] -> rounded to bf16 -> one lower-only scatter
+        into the band, then one block scan over all P subdomains. Tiers:
+        the bf16-SYRK scan, then an exact scan on the same band, then a
+        1e-4 shift (one host read each). Returns (BTDFactor, d)."""
+        P, bs, nb = self.n_parts, self.band_bs, self.band_nb
+        flat, d = self._equil_scatter(self._band_compact(elem_h, fixed))
+        diag_sz = P * nb * bs * bs
+        dg = flat[:diag_sz].view(nb, P, bs, bs)
+        sb = flat[diag_sz:].view(nb - 1, P, bs, bs)
+        fac = self._btd_scan_equilibrated(dg, sb, 0.0, True)
+        if self.host(_any_nan(fac))[0]:
+            fac = self._btd_scan_equilibrated(dg, sb, 0.0, False)
+            if self.host(_any_nan(fac))[0]:
+                fac = self._btd_scan_equilibrated(dg, sb, 1.0e-4, False)
+        return fac, d
 
     # ------------------------------------------------------------------
     # warm start (Optimizer::initX, Optimizer.cpp:441-582)
@@ -714,7 +843,7 @@ class System:
         x = torch.as_tensor(script_data.x0, dtype=dtype, device=dev)
         fixed = torch.as_tensor(script_data.fixed0, device=dev)
         v = torch.zeros((self.n_vert, 3), dtype=dtype, device=dev)
-        elem_h, L, d = self.rebuild_h0(x, fixed)
+        elem_h, L, d, kc = self.rebuild_h0(x, fixed)
         m = LBFGS_HISTORY
         return SimState(
             x=x, x_n=x.clone(), v=v,
@@ -726,7 +855,7 @@ class System:
             lb_s=torch.zeros((m, self.n_vert, 3), dtype=dtype, device=dev),
             lb_t=torch.zeros((m, self.n_vert, 3), dtype=dtype, device=dev),
             lb_rho=torch.ones(m, dtype=dtype, device=dev),
-            lb_valid=torch.zeros(m, dtype=dtype, device=dev))
+            lb_valid=torch.zeros(m, dtype=dtype, device=dev), kc_chol=kc)
 
     def compute_x_tilta(self, x_n, v, fixed):
         """x~ = x^n + dt v + dt^2 g (free), x^n (fixed)

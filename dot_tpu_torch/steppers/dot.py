@@ -18,10 +18,12 @@ class DOTStepper(QuasiNewtonStepper):
     name = "DOT"
 
     def h0_apply(self, state, q):
-        return self.system.h0_apply(state.chol, state.equil, q)
+        return self.system.h0_apply(state.chol, state.equil, q,
+                                    kc=state.kc_chol, fixed=state.fixed)
 
     def end_of_step(self, sys, x, fixed, state):
-        state.elem_h, state.chol, state.equil = sys.rebuild_h0(x, fixed)
+        (state.elem_h, state.chol, state.equil,
+         state.kc_chol) = sys.rebuild_h0(x, fixed)
         return state
 
     def alpha0_and_fp(self, sys, state, g, p):

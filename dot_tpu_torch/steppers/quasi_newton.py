@@ -6,6 +6,9 @@ and the Backward-Euler update.
 dot_tpu's lax.while_loops become host loops: each line-search trial and
 each inner iteration reads its decision scalars back once (System.host,
 counted per step in StepStats.syncs). All other work stays on the device.
+The two-loop's vector passes and scalar recurrences are K9
+(kernels/triton_lbfgs.py; plain versions in kernels/lbfgs.py): 5 launches
+per iteration around the H0 apply instead of ~70 0-d torch ops.
 """
 
 from __future__ import annotations
@@ -72,37 +75,23 @@ class QuasiNewtonStepper:
         """Two-loop recursion around the implicit H0 apply
         (reference: DOTTimeStepper.cpp:386-467), with every inner product
         derived from three contractions -- sq = S q0, G = S T^T,
-        tr = T (H0 q) -- plus O(m^2) scalar recurrences, as dot_tpu does.
-        The float32 matmuls run in full float32 (TF32 off, set by the
-        simulator)."""
+        tr = T (H0 q) -- plus O(m^2) scalar recurrences, as dot_tpu does,
+        in the field dtype with exact f32 accumulation (dot_tpu's
+        Precision.HIGHEST). K9 runs them as 5 launches around the H0 apply:
+        loop 1 (contractions + recurrence -> k, G), q = -g - k^T T, loop 2
+        (T r + recurrence -> c), r + c^T S."""
         lb_s, lb_t, lb_rho, lb_valid = bufs
+        kern = self.system.k
         m = LBFGS_HISTORY
         n = lb_s.shape[1] * lb_s.shape[2]
         S = lb_s.reshape(m, n)
         T = lb_t.reshape(m, n)
-        q0 = -g.reshape(n)
-        sq = S @ q0                                     # (m,) s_i . q0
-        G = S @ T.T                                     # (m, m) s_i . t_j
-        inv_rho = torch.where(lb_valid > 0, 1.0 / lb_rho, 0.0) * lb_valid
-        # loop 1 (newest -> oldest): s_i . q_i = sq_i - sum_{j>i} k_j G[i, j]
-        ks = [None] * m
-        for i in reversed(range(m)):
-            si_q = sq[i]
-            for j in range(i + 1, m):
-                si_q = si_q - ks[j] * G[i, j]
-            ks[i] = si_q * inv_rho[i]
-        q = q0 - torch.stack(ks) @ T
+        gf = g.reshape(n)
+        k, G = kern.lbfgs_loop1(S, T, gf, lb_rho, lb_valid)
+        q = kern.lbfgs_combine(gf, k, T, neg_x=True, neg_c=True)
         r = self.h0_apply(state, q.reshape(g.shape)).reshape(n)
-        tr = T @ r                                      # (m,) t_i . (H0 q)
-        # loop 2 (oldest -> newest): t_i . r_i = tr_i + sum_{j<i} c_j G[j, i]
-        cs = [None] * m
-        for i in range(m):
-            ti_r = tr[i]
-            for j in range(i):
-                ti_r = ti_r + cs[j] * G[j, i]
-            cs[i] = ks[i] - ti_r * inv_rho[i]
-        r = r + torch.stack(cs) @ S
-        return r.reshape(g.shape)
+        c = kern.lbfgs_loop2(T, r, k, G, lb_rho, lb_valid)
+        return kern.lbfgs_combine(r, c, S).reshape(g.shape)
 
     @staticmethod
     def _push_history(bufs, s_new, t_new, rho_new):

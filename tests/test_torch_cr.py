@@ -1,7 +1,7 @@
 """The port's quasi-Newton H0 preconditioner against dot_tpu's on the CPU:
 block cyclic reduction (CRFactor) with bf16 factor leaves in f32, the
-robustness tiers, applyDtype, the chunked-rebuild gate and the dense f32
-factorize_fast.
+robustness tiers, applyDtype, the chunked-rebuild gate (the same decision
+as dot_tpu's) and the dense f32 factorize_fast.
 
 Plans (built once with dot_tpu.partition, handed to both packages): the
 cyclic-reduction recipe of tests/test_banded.py:140-149 (bar 40x3x3,
@@ -79,7 +79,7 @@ def _factors(dtype):
         x, fixed = _x()
         _, jL, jd, _ = jsys.rebuild_h0(jnp.asarray(x, _JDT[dtype]),
                                        jnp.asarray(fixed))
-        _, tL, td = tsys.rebuild_h0(torch.as_tensor(x, dtype=dtype),
+        _, tL, td, _ = tsys.rebuild_h0(torch.as_tensor(x, dtype=dtype),
                                     torch.as_tensor(fixed))
         _CACHE[key] = ((jL, jd), (tL, td))
     return _CACHE[key]
@@ -260,7 +260,7 @@ def test_apply_dtype_honoured(tmp_path):
         c = dataclasses.replace(cfg, apply_dtype=name)
         tsys = convert.system_from_plan(mesh, c, plan, dtype=torch.float32)
         x, fixed = _x()
-        _, L, _ = tsys.rebuild_h0(torch.as_tensor(x, dtype=torch.float32),
+        _, L, _, _ = tsys.rebuild_h0(torch.as_tensor(x, dtype=torch.float32),
                                   torch.as_tensor(fixed))
         assert {t.dtype for t in factor_leaves(L)} == {want}, name
     # the scene-file key reaches the Simulator's System
@@ -277,13 +277,19 @@ def test_apply_dtype_honoured(tmp_path):
 
 
 def test_chunk_gate_raises():
-    """Where dot_tpu would take its chunked bf16 rebuild (f32 band over
-    2 GiB, P > 1) the port raises; f64 does not engage it."""
+    """The port takes its chunked bf16 rebuild exactly where dot_tpu takes
+    its own (f32 band over 2 GiB, P > 1): the `_chunk` decision is the
+    same for a small and a huge band, and f64 engages it in neither."""
     mesh, cfg, _, plan = _scene()
     big = dataclasses.replace(plan, band_bs=8192)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        convert.system_from_plan(mesh, cfg, big, dtype=torch.float32)
-    convert.system_from_plan(mesh, cfg, big, dtype=torch.float64)
+    for p in (plan, big):
+        for dtype in (torch.float32, torch.float64):
+            j = JSystem(mesh, cfg, p, dtype=_JDT[dtype])
+            t = convert.system_from_plan(mesh, cfg, p, dtype=dtype)
+            assert t._chunk == getattr(j, "_chunk", None), (p.band_bs, dtype)
+    assert convert.system_from_plan(mesh, cfg, big)._chunk is None
+    assert convert.system_from_plan(mesh, cfg, big,
+                                    dtype=torch.float32)._chunk is True
 
 
 def test_dense_factorize_fast_matches_dot_tpu():
@@ -309,7 +315,7 @@ def test_dense_factorize_fast_matches_dot_tpu():
     orig = tsys._factorize_dense_fast
     tsys._factorize_dense_fast = lambda H, blk: calls.append(blk) or \
         orig(H, blk)
-    _, tL, td = tsys.rebuild_h0(torch.as_tensor(x, dtype=torch.float32),
+    _, tL, td, _ = tsys.rebuild_h0(torch.as_tensor(x, dtype=torch.float32),
                                 torch.as_tensor(sd.fixed0))
     assert calls == [384]
     assert tL.dtype == torch.float32 and not torch.isnan(tL).any()

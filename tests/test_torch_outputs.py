@@ -1,6 +1,7 @@
 """The port's Simulator and CLI on the CPU: a 2-frame run writes the full
-per-run output contract of dot_tpu/sim.py, and what the port does not
-cover yet refuses clearly."""
+per-run output contract of dot_tpu/sim.py, what the port does not cover
+yet refuses clearly, and without a card the entry points run only when
+the caller asks for the CPU."""
 
 import os
 
@@ -89,3 +90,23 @@ def test_unported_configurations_raise(tmp_path, stepper, extra):
     cfg = Config.load(_scene(tmp_path, stepper, extra))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(cfg, str(tmp_path / "out"), device="cpu", mute=True)
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """With no CUDA device, Simulator, run_script and the CLI raise a clear
+    error naming CUDA instead of falling back to the CPU; device="cpu"
+    (--device cpu) runs."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = _scene(tmp_path)
+    cfg = Config.load(scene)
+    out = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Simulator(cfg, out, mute=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_script(scene, frames=1, output_root=out, mute=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_main(["100", scene, "--frames", "1", "--output-root", out])
+    sim = Simulator(cfg, out, device="cpu", mute=True)
+    assert sim.device.type == "cpu" and sim.system.dtype == torch.float64
+    cli_main(["100", scene, "cpu", "--frames", "1", "--device", "cpu",
+              "--output-root", out])

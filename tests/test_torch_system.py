@@ -130,7 +130,7 @@ def test_h0_factor_and_apply_match(kind):
     _, _, _, _, jsys, tsys = _scene(kind)
     x, _, fixed, _ = _state(kind, seed=2)
     _, jL, jd, _ = jsys.rebuild_h0(jnp.asarray(x), jnp.asarray(fixed))
-    _, tL, td = tsys.rebuild_h0(_t(x), _t(fixed))
+    _, tL, td, _ = tsys.rebuild_h0(_t(x), _t(fixed))
     _close(td, jd)
     assert isinstance(tL, BTDFactor) == (kind == "banded")
     if isinstance(jL, JBTD):          # same scan factor: compare it too
