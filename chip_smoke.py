@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,scale]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,scale]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
   probe    device name, `nvidia-smi` name and power limit, nvcc and triton
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
-           chol_inv.cu, K7 block_matvec.cu, K8 h0.cu, K10-K11 coarse.cu,
-           K12 band_equil.cu) with nvcc for sm_90a, one nvcc per source,
-           all at once; K4 and K9 with Triton
+           chol_inv.cu, K7 and K15 block_matvec.cu, K8 and K16 h0.cu,
+           K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
+           K15's permute passes pd.cu) with nvcc for sm_90a, one nvcc per
+           source, all at once; K4 and K9 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
            tolerances, median times, the time of one PyTorch library call
@@ -22,7 +23,12 @@ result line):
            of the first cyclic-reduction level (K6 symmetrized, and its
            6-block root batch lower-only; one indefinite block must come
            back flagged and NaN), the factor's level blocks (K7 on bf16 and
-           f32 storage in f32 runs), the vertex gather and averaging
+           f32 storage in f32 runs; one subdomain's strided blocks read in
+           place), the vertex gather and averaging; K13 on the same element
+           Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
+           (bs 512, nb 33): the assembled band, the solve's block products
+           with 3 right-hand sides (each column equal to K7's) and its
+           permute / scale passes
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -31,6 +37,17 @@ result line):
            (K1-K9), output files; 3 more frames with the H0 rebuild and
            apply timed (synchronised); then 3 frames with the plain
            versions of the kernels on the same card (sysE rtol 1e-3)
+  steppers bar17 twist, f32, relTol 1e-5, through sim.Simulator, 3 frames
+           each (Newton 2): DOT 6 (the yardstick), LBFGS (LBFGS-PD: exact
+           f32 P = 1 BTDFactor of the PD band; K14, K15), GSDD 6 (K16 and K7
+           on one subdomain's blocks: 2 launches of K16 per subdomain per
+           sweep), DOT 6 with warmStart 5 (K13 once a frame), Newton (one
+           exact P = 1 banded factorization per inner iteration), LBFGSH,
+           LBFGSHI (factor from a matrix rounded through bf16), LBFGSJH 6
+           (node plan, dense blocks). Each run: finite sysE, stopped by tol
+           or rel_dec, the factor's kind, its kernels launched, sysE against
+           the plain-path run of the same frames (rtol 1e-3) and against
+           DOT's (rtol 1e-3; LBFGSJH and GSDD 5e-3)
   scale    bar135 twist (131x31x31 cells, 755,346 tets, 135,168 vertices),
            `timeStepper DOT -1 1024` (tools/scalability.py's protocol),
            f32: mesh and plan built once (P 133, nb 8, bs 768; the coarse
@@ -48,9 +65,9 @@ result line):
            library and bound; the first 2 frames again with the plain
            versions (sysE rtol 1e-3)
 The last three lines are nvidia-smi's name and power limit, the kernels'
-JSON record (per kernel: launches of both paths' runs and
-launches_by_path; times at the bar17 shapes, and under "bar135" K6's and
-K7's at the bar135 shapes) and {"ok": true, "device": {...}}. Exits
+JSON record (per kernel: launches of all paths' runs and
+launches_by_path {main, steppers, scale}; times at the bar17 shapes, and
+under "bar135" K6's and K7's at the bar135 shapes) and {"ok": true, "device": {...}}. Exits
 non-zero without a result line when no CUDA device is present.
 """
 
@@ -129,6 +146,20 @@ SOURCES = {
                      "dot_tpu/steppers/core.py:733"),
     "band_equil_scatter": ("cuda", "dot_tpu_torch/kernels/csrc/band_equil.cu",
                            "dot_tpu/steppers/core.py:1465"),
+    "hessian_diag": ("cuda", "dot_tpu_torch/kernels/csrc/hdiag.cu",
+                     "dot_tpu/steppers/core.py:1587"),
+    "pd_assemble": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
+                    "dot_tpu/steppers/core.py:1656"),
+    "block_matvec_k": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
+                       "dot_tpu/steppers/core.py:1224"),
+    "pd_gather": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
+                  "dot_tpu/steppers/core.py:1704"),
+    "pd_scatter": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
+                   "dot_tpu/steppers/core.py:1704"),
+    "local_gather_one": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
+                         "dot_tpu/steppers/core.py:1282"),
+    "local_scatter_one": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
+                          "dot_tpu/steppers/core.py:1287"),
 }
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
@@ -150,7 +181,33 @@ MAIN_KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
 SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
     "coarse_assemble", "coarse_restrict", "coarse_prolong", "band_compact",
     "band_equil_scatter")
-# K9-K12 vs plain: f64 1e-12, f32 1e-5 max-rel and 1e-4 norm-wise (sums
+# the steppers phase: (scene's timeStepper line, warmStart, frames, sysE rtol
+# against DOT, the kernels the run must launch beyond the shared per-element
+# passes). sysE against DOT: 1e-3 as tests/test_lbfgs_variants.py, 5e-3 for
+# the block-Jacobi LBFGS-JH (there too) and for GSDD, whose sweeps meet the
+# same gradient tolerance with more low-frequency error left (dot_tpu's own
+# tests/test_admm.py:63 holds it at 3e-3 after 2 frames; it grows by frame)
+_QN = ("lbfgs_loop1", "lbfgs_loop2", "lbfgs_combine")
+_H0 = ("elem_hessian", "chol_inv", "block_matvec", "h0_gather", "h0_average")
+STEPPER_RUNS = {
+    "LBFGS": ("LBFGS", 2, 3, 1e-3, _QN + (
+        "pd_assemble", "chol_inv", "block_matvec_k", "pd_gather",
+        "pd_scatter")),
+    "GSDD6": ("GSDD 6", 2, 3, 5e-3, (
+        "elem_hessian", "band_assemble", "chol_inv", "block_matvec",
+        "local_gather_one", "local_scatter_one")),
+    "DOT6ws5": ("DOT 6", 5, 3, 1e-3, _QN + _H0 + ("band_assemble",
+                                                  "hessian_diag")),
+    "Newton": ("Newton", 2, 2, 1e-3, _H0 + ("band_assemble",)),
+    "LBFGSH": ("LBFGSH", 2, 3, 1e-3, _QN + _H0 + ("band_assemble",)),
+    "LBFGSHI": ("LBFGSHI", 2, 3, 1e-3, _QN + _H0 + ("band_assemble",)),
+    "LBFGSJH6": ("LBFGSJH 6", 2, 3, 5e-3, _QN + (
+        "elem_hessian", "chol_inv", "h0_gather", "h0_average")),
+}
+STEPPER_KERNELS = ("hessian_diag", "pd_assemble", "block_matvec_k",
+                   "pd_gather", "pd_scatter", "local_gather_one",
+                   "local_scatter_one")
+# K9-K16 vs plain: f64 1e-12, f32 1e-5 max-rel and 1e-4 norm-wise (sums
 # in another order); K12's bf16 band: at most 1 bf16 ulp apart
 TOL_SCALE = {"float64": dict(elem=1e-12, sum=1e-12),
              "float32": dict(elem=1e-5, sum=1e-4)}
@@ -482,8 +539,9 @@ def _simulator(torch, scene, out_root, suffix="", **kw):
 
 
 def phase_h0_kernels(torch, record):
-    """K5-K8 against their plain versions on the bar17 plan and blocks."""
-    from dot_tpu_torch.kernels import band, ops
+    """K5-K8, K13 and K16 against their plain versions on the bar17 plan
+    and blocks."""
+    from dot_tpu_torch.kernels import band, ops, pd
     from dot_tpu_torch.steppers import System
     tmp = tempfile.mkdtemp(prefix="dot_smoke_k_")
     try:
@@ -498,7 +556,7 @@ def phase_h0_kernels(torch, record):
         bad = []
         for dtype in (torch.float64, torch.float32):
             name = str(dtype).split(".")[-1]
-            tol = TOL_H0[name]
+            tol, ts = TOL_H0[name], TOL_SCALE[name]
             sysm = System(mesh, cfg, plan, dtype=dtype, device="cuda")
             x = torch.as_tensor(x_np, dtype=dtype, device="cuda")
             eh = sysm.element_hessians(x)
@@ -591,6 +649,22 @@ def phase_h0_kernels(torch, record):
                                    f"{'^T' if trans else ''}",
                                    _rel_norm(k_, r_), tol["exact"],
                                    float((k_ - r_).abs().max())))
+            # one subdomain's blocks of the scan-major leaf, read in place
+            # (the GSDD sweep): equal to K7 on a contiguous copy of them
+            part_i = P - 2
+            A_s = G_lo[:, part_i]
+            v_s, c_s = v[:n_odd].contiguous(), c[:n_odd].contiguous()
+            for trans in (False, True):
+                k_ = ops.block_matvec(A_s, v_s, c_s, trans)
+                r_ = ops.block_matvec(A_s.contiguous(), v_s, c_s, trans)
+                checks.append((f"strided{'^T' if trans else ''} "
+                               f"(batch stride {A_s.stride(0)})",
+                               _rel_max(k_, r_), 0.0,
+                               float((k_ - r_).abs().max())))
+            if A_s.is_contiguous() or A_s.data_ptr() != (
+                    G_lo.data_ptr() + part_i * bs * bs * G_lo.element_size()):
+                bad.append(f"block_matvec {name}: the subdomain slice is "
+                           "not a view of the leaf")
             res["block_matvec"] = checks
             A7_up = A7.to(dtype)
             times["block_matvec"] = (
@@ -628,6 +702,52 @@ def phase_h0_kernels(torch, record):
                                   6 * nl)
             costs["h0_average"] = ((6 * nl + 4 * sysm.n_vert) * sz + 8 * nl
                                    + 8 * (sysm.n_vert + 2), 6 * nl)
+
+            # K13 on the same element Hessians
+            h_args = (eh, sysm.scat_perm, sysm.scat_segids, sysm.scat_off,
+                      sysm.mass)
+            hk, hr = ops.hessian_diag(*h_args), pd.hessian_diag_ref(*h_args)
+            res["hessian_diag"] = [("diag", _rel_max(hk, hr), ts["elem"],
+                                    float((hk - hr).abs().max()))]
+            n_ep, nv = eh.shape[1], sysm.n_vert
+            rows12 = torch.stack([eh[(cc * 4 + cc) * 9 + 4 * i]
+                                  for cc in range(4) for i in range(3)]
+                                 ).view(4, 3, n_ep).permute(2, 0, 1) \
+                .reshape(-1, 3).contiguous()
+            cidx = sysm.conn_s.t().reshape(-1).long()
+            acc13 = torch.zeros((nv + 1, 3), dtype=dtype, device="cuda")
+            times["hessian_diag"] = (
+                lambda: ops.hessian_diag(*h_args),
+                lambda: pd.hessian_diag_ref(*h_args),
+                lambda: acc13.index_add_(0, cidx, rows12))
+            costs["hessian_diag"] = (
+                12 * n_ep * sz + 8 * 4 * n_ep + 8 * (nv + 2) + 4 * nv * sz,
+                12 * n_ep + 3 * nv)
+
+            # K16 on one subdomain of the same plan
+            nloc = sysm.n3 // 3
+            z1 = z[part_i].contiguous()
+            lg_args = (rhs, sysm.l2g, sysm.local_valid, d, part_i)
+            ls_args = (z1, d, sysm.l2g, sysm.local_valid, part_i, nv)
+            gk1 = ops.local_gather_one(*lg_args)
+            gr1 = pd.local_gather_one_ref(*lg_args)
+            sk1 = ops.local_scatter_one(*ls_args)
+            sr1 = pd.local_scatter_one_ref(*ls_args)
+            res["local_gather_one"] = [
+                ("r", _rel_max(gk1, gr1), ts["elem"],
+                 float((gk1 - gr1).abs().max())),
+                ("row of K8's gather", _rel_max(gk1, gk[part_i]), 0.0, None)]
+            res["local_scatter_one"] = [("p", _rel_max(sk1, sr1), ts["elem"],
+                                         float((sk1 - sr1).abs().max()))]
+            times["local_gather_one"] = (
+                lambda: ops.local_gather_one(*lg_args),
+                lambda: pd.local_gather_one_ref(*lg_args), None)
+            times["local_scatter_one"] = (
+                lambda: ops.local_scatter_one(*ls_args),
+                lambda: pd.local_scatter_one_ref(*ls_args), None)
+            costs["local_gather_one"] = (9 * nloc * sz + 9 * nloc, 6 * nloc)
+            costs["local_scatter_one"] = ((6 * nloc + 3 * nv) * sz + 9 * nloc,
+                                          3 * nloc)
             torch.cuda.synchronize()
 
             for kname, checks in res.items():
@@ -754,6 +874,299 @@ def phase_main(torch, launches_out):
         if not rel.max() <= 1e-3:
             raise Fail(f"kernel path and plain path disagree: {rel.max():.3e}")
         return spf
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _scene_variant(scene, name, stepper, warm=2):
+    """A copy of the DOT 6 scene file with another timeStepper line and
+    warmStart; returns its path."""
+    with open(scene) as f:
+        text = f.read()
+    text = text.replace("timeStepper DOT 6", f"timeStepper {stepper}") \
+        .replace("warmStart 2", f"warmStart {warm}")
+    path = os.path.join(os.path.dirname(scene), f"{name}.txt")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_pd_kernels(torch, record):
+    """K14 and K15 against their plain versions on the bar17 PD band."""
+    from dot_tpu_torch.kernels import ops, pd
+    from dot_tpu_torch.steppers import System
+    from dot_tpu_torch.steppers.core import BTDFactor
+    tmp = tempfile.mkdtemp(prefix="dot_smoke_pd_")
+    try:
+        sim = _simulator(torch, _scene_variant(_bar_scene(tmp), "pd", "LBFGS"),
+                         os.path.join(tmp, "out"))
+        mesh, cfg, fixed = sim.mesh, sim.cfg, sim.state.fixed
+        sim.finalize()
+        del sim
+        rng = np.random.default_rng(20261018)
+        bad = []
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            tol = TOL_SCALE[name]
+            sysm = System(mesh, cfg, None, dtype=dtype, device="cuda")
+            bp = sysm.pd_band_plan
+            w = sysm._pd_weights()
+            free = torch.logical_not(fixed).to(dtype)
+            sz = w.element_size()
+            res, times, costs = {}, {}, {}
+
+            a_args = (sysm.g9, sysm.conn, w, free, sysm.mass, bp)
+            fk, fr = ops.pd_assemble(*a_args), pd.pd_assemble_ref(*a_args)
+            res["pd_assemble"] = [
+                ("band", _rel_norm(fk, fr), tol["sum"],
+                 float((fk - fr).abs().max())),
+                ("band max", _rel_max(fk, fr), tol["elem"], None)]
+            vals = pd.pd_pair_vals_ref(sysm.g9, sysm.conn, w, free
+                                       ).reshape(-1)
+            acc = torch.zeros(bp.total + 1, dtype=dtype, device="cuda")
+            times["pd_assemble"] = (
+                lambda: ops.pd_assemble(*a_args),
+                lambda: pd.pd_assemble_ref(*a_args),
+                lambda: acc.index_add_(0, bp.dest, vals))
+            n_ep, nv, n_it = sysm.n_elem_p, sysm.n_vert, bp.items.numel()
+            # the kept items once (8 B), each element's g9, w and conn once,
+            # free and mass, the run tables, and the band written once
+            costs["pd_assemble"] = (
+                8 * n_it + (10 * sz + 16) * n_ep + 2 * nv * sz
+                + 16 * bp.udest.numel() + 8 * nv + 8 * bp.pad_dest.numel()
+                + bp.total * sz, 20 * n_it)
+            del fr
+
+            L, d = sysm.build_pd_factor(fixed)
+            if not isinstance(L, BTDFactor) or L.linv.shape[1] != 1 \
+                    or L.linv.dtype != dtype:
+                bad.append(f"pd factor {name}: {type(L).__name__}")
+            nb, bs = L.linv.shape[0], L.linv.shape[2]
+            # K15 at the solve's shape: one block, 3 right-hand sides
+            A1 = L.linv[nb // 2]                                 # (1, bs, bs)
+            v3 = torch.as_tensor(rng.normal(size=(1, bs, 3)), dtype=dtype,
+                                 device="cuda")
+            c3 = torch.as_tensor(rng.normal(size=(1, bs, 3)), dtype=dtype,
+                                 device="cuda")
+            checks = []
+            Aall = L.linv.view(nb, bs, bs)
+            vall = torch.as_tensor(rng.normal(size=(nb, bs, 3)), dtype=dtype,
+                                   device="cuda")
+            for trans in (False, True):
+                k_ = ops.block_matvec_k(Aall, vall, vall, trans)
+                r_ = pd.block_matvec_k_ref(Aall, vall, vall, trans)
+                checks.append(("A^T" if trans else "A", _rel_norm(k_, r_),
+                               tol["sum"], float((k_ - r_).abs().max())))
+                k1 = ops.block_matvec_k(A1, v3, c3, trans)
+                worst = 0.0
+                for j in range(3):
+                    col = ops.block_matvec(A1, v3[..., j].contiguous(),
+                                           c3[..., j].contiguous(), trans)
+                    worst = max(worst, float((k1[..., j] - col).abs().max()))
+                checks.append((f"columns vs K7{'^T' if trans else ''}",
+                               worst, 0.0, None))
+            if dtype == torch.float32:
+                Ab = Aall.to(torch.bfloat16)
+                k_ = ops.block_matvec_k(Ab, vall, None, True)
+                r_ = pd.block_matvec_k_ref(Ab, vall, None, True)
+                checks.append(("bf16^T", _rel_norm(k_, r_), tol["sum"], None))
+            res["block_matvec_k"] = checks
+            times["block_matvec_k"] = (
+                lambda: ops.block_matvec_k(A1, v3, c3, True),
+                lambda: pd.block_matvec_k_ref(A1, v3, c3, True),
+                lambda: torch.bmm(A1.mT, v3))
+            costs["block_matvec_k"] = ((bs * bs + 9 * bs) * sz, 6 * bs * bs)
+
+            rhs = torch.as_tensor(rng.normal(size=(nv, 3)), dtype=dtype,
+                                  device="cuda")
+            zz = torch.as_tensor(rng.normal(size=(bp.nv_p, 3)), dtype=dtype,
+                                 device="cuda")
+            gk, gr = ops.pd_gather(rhs, bp.inv, d[0]), \
+                pd.pd_gather_ref(rhs, bp.inv, d[0])
+            sk, sr = ops.pd_scatter(zz, bp.perm, d[0]), \
+                pd.pd_scatter_ref(zz, bp.perm, d[0])
+            res["pd_gather"] = [("r", _rel_max(gk, gr), tol["elem"],
+                                 float((gk - gr).abs().max()))]
+            res["pd_scatter"] = [("p", _rel_max(sk, sr), tol["elem"],
+                                  float((sk - sr).abs().max()))]
+            times["pd_gather"] = (lambda: ops.pd_gather(rhs, bp.inv, d[0]),
+                                  lambda: pd.pd_gather_ref(rhs, bp.inv, d[0]),
+                                  None)
+            times["pd_scatter"] = (
+                lambda: ops.pd_scatter(zz, bp.perm, d[0]),
+                lambda: pd.pd_scatter_ref(zz, bp.perm, d[0]), None)
+            costs["pd_gather"] = ((3 * nv + 4 * bp.nv_p) * sz + 8 * bp.nv_p,
+                                  3 * bp.nv_p)
+            costs["pd_scatter"] = ((3 * nv + 4 * bp.nv_p) * sz + 8 * nv,
+                                   3 * nv)
+
+            # the whole solve: kernels against the plain versions
+            plain = System(mesh, cfg, None, dtype=dtype, device="cuda",
+                           use_kernels=False)
+            plain._pd_plan = bp
+            zk = sysm.pd_solve(L, d, rhs)
+            zr = plain.pd_solve(L, d, rhs)
+            solve_err = _rel_norm(zk, zr)
+            if not solve_err <= tol["sum"]:
+                bad.append(f"pd_solve {name}: {solve_err:.3e}")
+            torch.cuda.synchronize()
+            for kname, checks in res.items():
+                _report(torch, name, kname, checks, times[kname],
+                        costs[kname], bad, record)
+            say(f"kernels: {name} PD band: bs {bs}, nb {nb}, nv_p {bp.nv_p}, "
+                f"{n_it} items into {bp.udest.numel()} slots of "
+                f"{bp.total}; factor {type(L).__name__} {L.linv.dtype}; "
+                f"pd_solve kernels vs plain rel {solve_err:.3e}")
+            del sysm, plain, L, fk, Aall, vals, acc
+            torch.cuda.empty_cache()
+        if bad:
+            raise Fail("kernel disagrees with its plain version: "
+                       + "; ".join(bad))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _factor_kind(fac):
+    from dot_tpu_torch.steppers.core import factor_leaves
+    dts = sorted({str(t.dtype).split(".")[-1] for t in factor_leaves(fac)})
+    shape = tuple(factor_leaves(fac)[0].shape)
+    return type(fac).__name__, dts, shape
+
+
+def phase_steppers(torch, launches_out):
+    """The non-ADMM steppers and warmStart 5 at bar17 through Simulator."""
+    from dot_tpu_torch.kernels import ops
+    tmp = tempfile.mkdtemp(prefix="dot_steppers_")
+    try:
+        base = _bar_scene(tmp)
+        out_root = os.path.join(tmp, "out")
+        dot = _simulator(torch, base, out_root, suffix="ref",
+                         save_every=10 ** 9)
+        dot.run(3)
+        dot.finalize()
+        e_dot = np.asarray([r["sys_e"] for r in dot.frames])
+        say(f"steppers: DOT6 warmStart 2 yardstick: iters "
+            f"{[r['iters'] for r in dot.frames]}, sysE "
+            + " ".join("%.10e" % v for v in e_dot))
+        del dot
+        torch.cuda.empty_cache()
+        total = dict.fromkeys(ops.KERNELS, 0)
+        problems = []
+        for tag, (stepper, warm, frames, e_tol, need) in STEPPER_RUNS.items():
+            scene = _scene_variant(base, tag, stepper, warm)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            sim = _simulator(torch, scene, out_root, save_every=10 ** 9)
+            t1 = time.perf_counter()
+            sim.run(frames)
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated()
+            for k, v in launches.items():
+                total[k] += v
+            sysm, fr = sim.system, sim.frames
+            fac = sim.state.chol
+            if tag == "Newton":   # its per-iteration factor, built once more
+                fac = sim.stepper.factor(sim.state.x, sim.state.fixed)[0]
+            kind, leaf_dt, shape = _factor_kind(fac)
+            del fac
+            sim.finalize()
+            timed = fr[1:] or fr
+            say(f"steppers: {tag}: {type(sim.stepper).__name__}, P "
+                f"{sysm.n_parts}, n3 {sysm.n3}, banded {sysm.banded} (nb "
+                f"{sysm.band_nb}, bs {sysm.band_bs}), factor {kind} "
+                f"{leaf_dt} {shape}; Simulator {t1 - t0:.2f} s; s/frame "
+                f"{np.mean([r['seconds'] for r in timed]):.5f} "
+                f"({len(timed)} frames after 1 warm-up of "
+                f"{fr[0]['seconds']:.3f} s); peak {peak / 2**20:.1f} MiB")
+            say(f"steppers: {tag}: per frame (iters, halvings, syncs, stop, "
+                "s): " + "; ".join(
+                    f"{r['iters']},{r['halvings']},{r['syncs']},{r['stop']},"
+                    f"{r['seconds']:.3f}" for r in fr))
+            say(f"steppers: {tag}: launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            for r in fr:
+                if not np.isfinite(r["sys_e"]):
+                    problems.append(f"{tag} frame {r['frame']} sysE not "
+                                    "finite")
+                if r["stop"] not in ("tol", "rel_dec"):
+                    problems.append(f"{tag} frame {r['frame']} stopped by "
+                                    f"{r['stop']}")
+            for k in need + ("ls_trial_energy", "elem_gradient",
+                             "direction_pass"):
+                if launches[k] <= 0:
+                    problems.append(f"{tag}: kernel {k} never launched")
+            iters = sum(r["iters"] for r in fr)
+            if tag == "LBFGS":
+                bp = sysm.pd_band_plan
+                say(f"steppers: LBFGS: PD band bs {bp.bs}, nb {bp.nb}; "
+                    f"K14 {launches['pd_assemble']} launch, K15 "
+                    f"{launches['block_matvec_k'] / max(iters, 1):.1f} "
+                    f"products and {launches['pd_gather'] / max(iters, 1):.1f}"
+                    " gather per iteration")
+                if (kind != "BTDFactor" or leaf_dt != ["float32"]
+                        or shape[1] != 1 or launches["pd_assemble"] != 1
+                        or launches["pd_gather"] != iters):
+                    problems.append(f"LBFGS: factor {kind} {leaf_dt} "
+                                    f"{shape}, launches {launches}")
+            if tag == "GSDD6":
+                want = 2 * sysm.n_parts * iters
+                got = launches["local_gather_one"] \
+                    + launches["local_scatter_one"]
+                say(f"steppers: GSDD6: {iters} sweeps, K16 launches {got} "
+                    f"(2 P per sweep: {want})")
+                if got != want:
+                    problems.append(f"GSDD6: K16 launches {got} != {want}")
+            if tag == "DOT6ws5":
+                if launches["hessian_diag"] != frames:
+                    problems.append(f"DOT6ws5: K13 launched "
+                                    f"{launches['hessian_diag']} times in "
+                                    f"{frames} frames")
+            if tag == "Newton":
+                # the exact factorization: f32 scan factor of the P = 1 band
+                if (kind != "BTDFactor" or shape[1] != 1
+                        or leaf_dt != ["float32"]):
+                    problems.append(f"Newton: factor {kind} {leaf_dt} "
+                                    f"{shape}")
+            if tag == "LBFGSHI" and (
+                    sysm.factor_dtype != torch.bfloat16
+                    or sysm._solve_dtype != torch.float32):
+                problems.append("LBFGSHI: factor dtype "
+                                f"{sysm.factor_dtype}")
+            if tag == "LBFGSJH6" and (sysm.banded or sysm.plan.part
+                                      is not None):
+                problems.append("LBFGSJH6: not a dense node plan")
+            a = np.asarray([r["sys_e"] for r in fr])
+            rel_dot = np.abs(a / e_dot[:len(a)] - 1.0).max()
+            del sim, sysm
+            torch.cuda.empty_cache()
+
+            ref = _simulator(torch, scene, out_root, suffix="plain",
+                             use_kernels=False, save_every=10 ** 9)
+            ref.run(frames)
+            ref.finalize()
+            b = np.asarray([r["sys_e"] for r in ref.frames])
+            rel = np.abs(a / b - 1.0).max()
+            say(f"steppers: {tag}: sysE "
+                + " ".join("%.10e" % v for v in a)
+                + f"; vs plain path max rel {rel:.3e} (tol 1e-3; plain "
+                f"iters {[r['iters'] for r in ref.frames]}, s/frame "
+                f"{np.mean([r['seconds'] for r in ref.frames]):.5f}); vs "
+                f"DOT6 max rel {rel_dot:.3e} (tol {e_tol:g})")
+            if not rel <= 1e-3:
+                problems.append(f"{tag}: kernel and plain paths disagree: "
+                                f"{rel:.3e}")
+            if not rel_dot <= e_tol:
+                problems.append(f"{tag}: sysE off DOT's by {rel_dot:.3e}")
+            del ref
+            torch.cuda.empty_cache()
+        launches_out["steppers"] = total
+        for k in STEPPER_KERNELS:
+            if total[k] <= 0:
+                problems.append(f"kernel {k} never launched on the steppers "
+                                "path")
+        if problems:
+            raise Fail("steppers path: " + "; ".join(problems))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1100,7 +1513,8 @@ def phase_scale(torch, record, launches_out):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
-                    default="probe,build,kernels,golden,main,scale")
+                    default="probe,build,kernels,golden,main,steppers,"
+                            "scale")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1127,10 +1541,13 @@ def main(argv=None):
         if "kernels" in phases:
             phase_kernels(torch, record)
             phase_h0_kernels(torch, record)
+            phase_pd_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)
         if "main" in phases:
             phase_main(torch, launches)
+        if "steppers" in phases:
+            phase_steppers(torch, launches)
         if "scale" in phases:
             phase_scale(torch, record, launches)
     except Exception as exc:  # report the phase's failure and exit non-zero
@@ -1139,15 +1556,16 @@ def main(argv=None):
         say(f"FAIL: {type(exc).__name__}: {exc}")
         return 1
     if set(phases) != {"probe", "build", "kernels", "golden", "main",
-                       "scale"}:
+                       "steppers", "scale"}:
         say(f"partial run ({args.phases}): no result line")
         return 0
 
-    # launches: both paths' runs together, and each path's own count;
+    # launches: all paths' runs together, and each path's own count;
     # the times are at the bar17 shapes, K6 and K7 also at bar135's own
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
-        by_path = {path: launches[path][name] for path in ("main", "scale")}
+        by_path = {path: launches[path][name]
+                   for path in ("main", "steppers", "scale")}
         at_scale = {k.split("@")[1]: v for k, v in record.items()
                     if k.startswith(name + "@")}
         kernels.append(dict(name=name, route=route, source=source,

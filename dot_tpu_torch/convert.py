@@ -15,12 +15,15 @@ from .steppers.core import (APPLY_DTYPES, BTDFactor, CoarseFactor, CRFactor,
 
 
 def system_from_plan(mesh, cfg, plan, dtype=torch.float64, device="cpu",
-                     use_kernels=True):
+                     use_kernels=True, factor_dtype=None, use_coarse=None):
     """The port's System on a numpy SubdomainPlan (dot_tpu's or the
-    port's: the fields are the same), with cfg's applyDtype."""
+    port's: the fields are the same; an element plan, a node plan, or None
+    for LBFGS-PD), with cfg's applyDtype. `factor_dtype`:
+    torch.bfloat16 for LBFGS-HI."""
     return System(mesh, cfg, plan, dtype=dtype, device=device,
                   use_kernels=use_kernels,
-                  apply_dtype=APPLY_DTYPES[getattr(cfg, "apply_dtype", "")])
+                  apply_dtype=APPLY_DTYPES[getattr(cfg, "apply_dtype", "")],
+                  factor_dtype=factor_dtype, use_coarse=use_coarse)
 
 
 def factor_from_numpy(chol, device="cpu"):
@@ -61,7 +64,10 @@ def state_from_numpy(d, system=None):
     """The port's SimState from a dot_tpu SimState whose leaves went
     through np.asarray. Tensors go to `system`'s device; the fields to its
     dtype (else the CPU, dtype kept), the H0 factor's leaves keep their
-    storage dtype (bf16 leaves of an f32 run stay bf16)."""
+    storage dtype (bf16 leaves of an f32 run stay bf16; the f32 factor of
+    an LBFGS-HI run stays f32). LBFGS-PD's state carries over as it is: its
+    P = 1 BTDFactor or dense (nV, nV) factor, its d and the (1, 1)
+    elem_h."""
     dev = system.device if system is not None else "cpu"
     fdt = system.dtype if system is not None else None
 
@@ -69,8 +75,8 @@ def state_from_numpy(d, system=None):
         return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
 
     chol = factor_from_numpy(d.chol, dev)
-    if isinstance(chol, torch.Tensor) and fdt is not None:
-        chol = chol.to(fdt)
+    if isinstance(chol, torch.Tensor) and system is not None:
+        chol = chol.to(system._solve_dtype)
     return SimState(
         x=t(d.x), x_n=t(d.x_n), v=t(d.v), x_tilta=t(d.x_tilta),
         dx_elastic=t(d.dx_elastic), fixed=t(d.fixed, torch.bool),

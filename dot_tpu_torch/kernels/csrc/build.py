@@ -24,9 +24,9 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library -> (sources, the first one compiled; extra flags). -fmad=false:
 # products and sums round one by one, as the plain PyTorch versions'
-# elementwise ops do (K1-K3, K5, K8 then agree bit for bit in most outputs);
-# K6 and K7 are sums of products whose order differs from the plain
-# versions' anyway, so they keep the contraction. K9 is Triton
+# elementwise ops do (K1-K3, K5, K8, K13, K14, K16 then agree bit for bit in
+# most outputs); K6, K7 and K15 are sums of products whose order differs
+# from the plain versions' anyway, so they keep the contraction. K9 is Triton
 # (triton_lbfgs.py) and is compiled at its first launch.
 LIBRARIES = {
     "elem": (("elem.cu", "elem.cuh"), ("-fmad=false",)),
@@ -36,6 +36,8 @@ LIBRARIES = {
     "h0": (("h0.cu",), ("-fmad=false",)),
     "coarse": (("coarse.cu",), ("-fmad=false",)),
     "band_equil": (("band_equil.cu",), ("-fmad=false",)),
+    "hdiag": (("hdiag.cu",), ("-fmad=false",)),
+    "pd": (("pd.cu",), ("-fmad=false",)),
 }
 
 last_build_seconds = None   # wall time of the last build() that compiled

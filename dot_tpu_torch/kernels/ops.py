@@ -1,14 +1,17 @@
-"""Wrappers of the twelve hand-written kernels of the DOT paths.
+"""Wrappers of the sixteen hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
   kernels/band.py for K5-K8 and K12, kernels/lbfgs.py for K9,
-  kernels/coarse.py for K10-K11) for CPU tensors;
+  kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16) for CPU
+  tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
-  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7: csrc/block_matvec.cu, K8:
-  csrc/h0.cu, K10-K11: csrc/coarse.cu, K12: csrc/band_equil.cu, all
-  through ctypes; K4: triton_qf.py, K9: triton_lbfgs.py), checks the
-  launch's cudaGetLastError and adds one to its count in `launches`;
+  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
+  csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
+  K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
+  passes: csrc/pd.cu, all through ctypes; K4: triton_qf.py, K9:
+  triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
+  its count in `launches`;
 - raises for any other device.
 There is no fallback: a kernel that does not build or launch raises.
 
@@ -24,13 +27,15 @@ import types
 
 import torch
 
-from . import band, coarse, lbfgs, soa
+from . import band, coarse, lbfgs, pd, soa
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
            "h0_gather", "h0_average", "lbfgs_loop1", "lbfgs_loop2",
            "lbfgs_combine", "coarse_assemble", "coarse_restrict",
-           "coarse_prolong", "band_compact", "band_equil_scatter")
+           "coarse_prolong", "band_compact", "band_equil_scatter",
+           "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
+           "pd_scatter", "local_gather_one", "local_scatter_one")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -50,7 +55,14 @@ plain = types.SimpleNamespace(
     coarse_restrict=coarse.coarse_restrict_ref,
     coarse_prolong=coarse.coarse_prolong_ref,
     band_compact=band.band_compact_ref,
-    band_equil_scatter=band.band_equil_scatter_ref)
+    band_equil_scatter=band.band_equil_scatter_ref,
+    hessian_diag=pd.hessian_diag_ref,
+    pd_assemble=pd.pd_assemble_ref,
+    block_matvec_k=pd.block_matvec_k_ref,
+    pd_gather=pd.pd_gather_ref,
+    pd_scatter=pd.pd_scatter_ref,
+    local_gather_one=pd.local_gather_one_ref,
+    local_scatter_one=pd.local_scatter_one_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -81,7 +93,17 @@ def _load():
             ("chol_inv", "dot_chol_inv"): [I, P, I, LL, I, P, P, P, P],
             ("chol_inv", "dot_chol_inv_max_n"): [I],
             ("block_matvec", "dot_block_matvec"): [I, I] + [P] * 4
-            + [LL, I, I, P],
+            + [LL, I, I, LL, P],
+            ("block_matvec", "dot_block_matvec_k"): [I, I] + [P] * 4
+            + [LL, I, I, I, P],
+            ("h0", "dot_local_gather_one"): [I] + [P] * 4 + [LL, LL, P, P],
+            ("h0", "dot_local_scatter_one"): [I] + [P] * 4
+            + [LL, LL, LL, P, P],
+            ("hdiag", "dot_hessian_diag"): [I, P, LL, P, P, P, LL, P, P],
+            ("pd", "dot_pd_assemble"): ([I] + [P] * 5 + [LL] + [P] * 3
+                                        + [LL, P, LL, P, LL, P, P]),
+            ("pd", "dot_pd_gather"): [I, P, P, P, LL, P, P],
+            ("pd", "dot_pd_scatter"): [I, P, P, P, LL, P, P],
             ("h0", "dot_h0_gather"): [I] + [P] * 4 + [LL, P, P],
             ("h0", "dot_h0_average"): [I] + [P] * 5 + [LL, P, P],
             ("band_asm", "dot_band_compact"): ([I, P, LL] + [P] * 6
@@ -303,8 +325,11 @@ def chol_inv(A, symmetrize):
     if dt not in _chol_max_n:
         _chol_max_n[dt] = lib.chol_inv_max_n(_DTYPES[dt])
     if n > _chol_max_n[dt]:
-        raise ValueError(f"{name}: blocks of {n} exceed the kernel's panel "
-                         f"limit ({_chol_max_n[dt]} for {dt})")
+        raise ValueError(
+            f"{name}: blocks of {n} exceed the kernel's panel limit "
+            f"({_chol_max_n[dt]} for {dt}): a band this wide (a P = 1 plan "
+            "or the PD matrix of a mesh with a wide graph bandwidth) needs "
+            "a factorization that spans several thread blocks")
     L = torch.empty_like(A)
     Li = torch.empty_like(A)
     info = torch.empty(B, dtype=torch.int32, device=A.device)
@@ -320,15 +345,36 @@ def _overlap(a, b):
             and b0 < a0 + a.numel() * a.element_size())
 
 
+def _block_stride(name, A, B, n):
+    """Entries between the (n, n) row-major blocks of A (B, n, n), which
+    may be a strided view of a larger stack (one subdomain's blocks of a
+    scan-major factor leaf); nothing is copied, anything else raises."""
+    if A.dim() != 3 or tuple(A.shape) != (B, n, n):
+        raise ValueError(f"{name}: A has shape {tuple(A.shape)}, not "
+                         f"{(B, n, n)}")
+    if n > 1 and (A.stride(2) != 1 or A.stride(1) != n):
+        raise ValueError(f"{name}: the blocks of A are not row-major "
+                         f"(strides {A.stride()})")
+    stride = A.stride(0) if B > 1 else n * n
+    if stride < n * n:
+        raise ValueError(f"{name}: the blocks of A overlap (batch stride "
+                         f"{stride})")
+    return stride
+
+
 def block_matvec(A, v, c=None, trans=False, out=None):
     """K7: op(A) v, or c - op(A) v, over a batch: A (B, n, n) in bf16, f32
     or f64, taken to v's dtype; v, c, out (B, n) in f32 or f64. `out`
-    (may be c, must not overlap v) receives the result."""
+    (may be c, must not overlap v) receives the result. A's blocks may lie
+    any fixed distance apart (a view [:, i] of an (m, P, n, n) stack): they
+    are read in place, never copied."""
     name = "block_matvec"
     dt = _float(name, v)
     B, n = v.shape[0], v.shape[-1]
     _need(name, "v", v, v.device, dt, (B, n))
-    _need(name, "A", A, v.device, tuple(_A_DTYPES), (B, n, n))
+    if A.device != v.device or A.dtype not in _A_DTYPES:
+        raise TypeError(f"{name}: A is {A.dtype} on {A.device}")
+    stride = _block_stride(name, A, B, n)
     if c is not None:
         _need(name, "c", c, v.device, dt, (B, n))
     if out is not None:
@@ -342,7 +388,7 @@ def block_matvec(A, v, c=None, trans=False, out=None):
         out = torch.empty_like(v)
     err = lib.block_matvec(_A_DTYPES[A.dtype], _DTYPES[dt], _ptr(A), _ptr(v),
                            _ptr(c), _ptr(out), B, n, int(bool(trans)),
-                           _stream(v))
+                           stride, _stream(v))
     _ok(name, err)
     return out
 
@@ -596,3 +642,183 @@ def band_equil_scatter(compact, lp, bdt):
         _stream(compact))
     _ok(name, err)
     return flat, d.view(lp.n_parts, -1)
+
+
+# ----------------------------------------------------------------------
+# K13-K16: warmStart 5, the LBFGS-PD factor and solve, the GSDD sweep
+# ----------------------------------------------------------------------
+def hessian_diag(elem_h, perm, segids, seg_off, mass):
+    """K13: (nV, 3) diagonal of M + dt^2 H: the (corner, coordinate)
+    diagonal entries of the (144, nEp) element Hessians summed over each
+    vertex's incidences (perm: e*4+c sorted by vertex, segids their sorted
+    vertex ids, seg_off (nV+2,) the CSR offsets; id nV is the dump), plus
+    mass (nV,)."""
+    name, dev = "hessian_diag", elem_h.device
+    dt = _float(name, elem_h)
+    n_ep, nv = elem_h.shape[1], mass.shape[0]
+    _need(name, "elem_h", elem_h, dev, dt, (144, n_ep))
+    _need(name, "perm", perm, dev, torch.int64, (4 * n_ep,))
+    _need(name, "segids", segids, dev, torch.int64, (4 * n_ep,))
+    _need(name, "seg_off", seg_off, dev, torch.int64, (nv + 2,))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    if not _route(name, elem_h):
+        return pd.hessian_diag_ref(elem_h, perm, segids, seg_off, mass)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.hessian_diag(_DTYPES[dt], _ptr(elem_h), n_ep, _ptr(perm),
+                           _ptr(seg_off), _ptr(mass), nv, _ptr(out),
+                           _stream(elem_h))
+    _ok(name, err)
+    return out
+
+
+def pd_assemble(g9, conn, w, freev, mass, plan):
+    """K14: the flat [diag | sub] band (plan.total,) of M + dt^2 D^T W D.
+    g9 (9, nEp) restTriInv; conn (4, nEp) int32 gather ids; w (nEp,)
+    element weights; freev, mass (nV,); plan: pd.PDPlan."""
+    name, dev = "pd_assemble", g9.device
+    dt = _float(name, g9)
+    n_ep, nv = g9.shape[1], mass.shape[0]
+    _need(name, "g9", g9, dev, dt, (9, n_ep))
+    _need(name, "conn", conn, dev, torch.int32, (4, n_ep))
+    _need(name, "w", w, dev, dt, (n_ep,))
+    _need(name, "freev", freev, dev, dt, (nv,))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    i64 = torch.int64
+    n_dest = plan.udest.shape[0]
+    _need(name, "dest", plan.dest, dev, i64, (16 * n_ep,))
+    _need(name, "items", plan.items, dev, i64, (None,))
+    _need(name, "seg_off", plan.seg_off, dev, i64, (n_dest + 1,))
+    _need(name, "udest", plan.udest, dev, i64, (n_dest,))
+    _need(name, "diag_dest", plan.diag_dest, dev, i64, (nv,))
+    _need(name, "pad_dest", plan.pad_dest, dev, i64, (None,))
+    if not _route(name, g9):
+        return pd.pd_assemble_ref(g9, conn, w, freev, mass, plan)
+    lib = _load()
+    flat = torch.zeros(plan.total, dtype=dt, device=dev)
+    err = lib.pd_assemble(
+        _DTYPES[dt], _ptr(g9), _ptr(conn), _ptr(w), _ptr(freev), _ptr(mass),
+        n_ep, _ptr(plan.items), _ptr(plan.seg_off), _ptr(plan.udest), n_dest,
+        _ptr(plan.diag_dest), nv, _ptr(plan.pad_dest),
+        plan.pad_dest.shape[0], _ptr(flat), _stream(g9))
+    _ok(name, err)
+    return flat
+
+
+def block_matvec_k(A, v, c=None, trans=False, out=None):
+    """K15: op(A) v, or c - op(A) v, with k = 3 right-hand sides in one
+    pass over A: A (B, n, n) contiguous in bf16, f32 or f64, taken to v's
+    dtype; v, c, out (B, n, 3). `out` (may be c) must not overlap v."""
+    name = "block_matvec_k"
+    dt = _float(name, v)
+    if v.dim() != 3:
+        raise ValueError(f"{name}: v has shape {tuple(v.shape)}, not "
+                         "(B, n, k)")
+    B, n, k = v.shape
+    _need(name, "v", v, v.device, dt, (B, n, k))
+    _need(name, "A", A, v.device, tuple(_A_DTYPES), (B, n, n))
+    if c is not None:
+        _need(name, "c", c, v.device, dt, (B, n, k))
+    if out is not None:
+        _need(name, "out", out, v.device, dt, (B, n, k))
+        if _overlap(out, v):
+            raise ValueError(f"{name}: out overlaps v")
+    if not _route(name, v):
+        return pd.block_matvec_k_ref(A, v, c, trans, out)
+    if k != 3:
+        raise ValueError(f"{name}: the kernel takes 3 right-hand sides, "
+                         f"not {k}")
+    lib = _load()
+    if out is None:
+        out = torch.empty_like(v)
+    err = lib.block_matvec_k(_A_DTYPES[A.dtype], _DTYPES[dt], _ptr(A),
+                             _ptr(v), _ptr(c), _ptr(out), B, n, k,
+                             int(bool(trans)), _stream(v))
+    _ok(name, err)
+    return out
+
+
+def pd_gather(rhs, inv, d):
+    """K15 (gather): (nv_p, 3) rows of rhs (nV, 3) permuted (inv (nv_p,):
+    the vertex of each row, -1 at padding rows, which are zero) and divided
+    by d (nv_p,)."""
+    name, dev = "pd_gather", rhs.device
+    dt = _float(name, rhs)
+    nv_p = inv.shape[0]
+    _need(name, "rhs", rhs, dev, dt, (None, 3))
+    _need(name, "inv", inv, dev, torch.int64, (nv_p,))
+    _need(name, "d", d, dev, dt, (nv_p,))
+    if not _route(name, rhs):
+        return pd.pd_gather_ref(rhs, inv, d)
+    lib = _load()
+    out = torch.empty((nv_p, 3), dtype=dt, device=dev)
+    err = lib.pd_gather(_DTYPES[dt], _ptr(rhs), _ptr(inv), _ptr(d), nv_p,
+                        _ptr(out), _stream(rhs))
+    _ok(name, err)
+    return out
+
+
+def pd_scatter(z, perm, d):
+    """K15 (scatter): (nV, 3) (z / d)[perm]; z (nv_p, 3), d (nv_p,), perm
+    (nV,) the permuted row of each vertex."""
+    name, dev = "pd_scatter", z.device
+    dt = _float(name, z)
+    nv_p, nv = z.shape[0], perm.shape[0]
+    _need(name, "z", z, dev, dt, (nv_p, 3))
+    _need(name, "perm", perm, dev, torch.int64, (nv,))
+    _need(name, "d", d, dev, dt, (nv_p,))
+    if not _route(name, z):
+        return pd.pd_scatter_ref(z, perm, d)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.pd_scatter(_DTYPES[dt], _ptr(z), _ptr(perm), _ptr(d), nv,
+                         _ptr(out), _stream(z))
+    _ok(name, err)
+    return out
+
+
+def _local_tables(name, ref, l2g, valid, d, part):
+    P, N = l2g.shape
+    _need(name, "l2g", l2g, ref.device, torch.int64, (P, N))
+    _need(name, "valid", valid, ref.device, torch.bool, (P, N))
+    _need(name, "d", d, ref.device, ref.dtype, (P, 3 * N))
+    if not 0 <= part < P:
+        raise ValueError(f"{name}: subdomain {part} of {P}")
+    return N
+
+
+def local_gather_one(rhs, l2g, valid, d, part):
+    """K16 (gather): subdomain `part`'s r = rhs[l2g] * valid / d, (3N,).
+    rhs (nV, 3); l2g (P, N) int64; valid (P, N) bool; d (P, 3N)."""
+    name = "local_gather_one"
+    dt = _float(name, rhs)
+    _need(name, "rhs", rhs, rhs.device, dt, (None, 3))
+    N = _local_tables(name, rhs, l2g, valid, d, part)
+    if not _route(name, rhs):
+        return pd.local_gather_one_ref(rhs, l2g, valid, d, part)
+    lib = _load()
+    r = torch.empty(3 * N, dtype=dt, device=rhs.device)
+    err = lib.local_gather_one(_DTYPES[dt], _ptr(rhs), _ptr(l2g),
+                               _ptr(valid), _ptr(d), part, N, _ptr(r),
+                               _stream(rhs))
+    _ok(name, err)
+    return r
+
+
+def local_scatter_one(z, d, l2g, valid, part, n_vert):
+    """K16 (scatter): the zero-extended (nV, 3) direction holding
+    subdomain `part`'s z / d (z (3N,)) at its valid local vertices; padded
+    slots write nothing."""
+    name = "local_scatter_one"
+    dt = _float(name, z)
+    N = _local_tables(name, z, l2g, valid, d, part)
+    _need(name, "z", z, z.device, dt, (3 * N,))
+    if not _route(name, z):
+        return pd.local_scatter_one_ref(z, d, l2g, valid, part, n_vert)
+    lib = _load()
+    out = torch.empty((n_vert, 3), dtype=dt, device=z.device)
+    err = lib.local_scatter_one(_DTYPES[dt], _ptr(z), _ptr(d), _ptr(l2g),
+                                _ptr(valid), part, N, n_vert, _ptr(out),
+                                _stream(z))
+    _ok(name, err)
+    return out

@@ -1,23 +1,29 @@
 """Where a frame of the dot_tpu_torch port goes on the GPU.
 
-    python -m dot_tpu_torch.profiling [--scene bar17|bar135] [--frames 3]
-                                      [--out output/profile]
+    python -m dot_tpu_torch.profiling [--scene bar17|bar135|bar17-lbfgs|
+                                       bar17-gsdd|bar17-ws5|bar17-newton|
+                                       bar17-lbfgsh|bar17-lbfgsjh]
+                                      [--frames 3] [--out output/profile]
 
 Builds a bar twist scene (tools/scalability.py's template, f32, relTol
 1e-5): `--scene bar17` (the default: 56x16x16 cells, 86,016 tets,
 DOT 6) or `--scene bar135` (131x31x31 cells, 755,346 tets, DOT -1 1024:
-133 parts, the coarse space and the chunked bf16 rebuild). It runs one
+133 parts, the coarse space and the chunked bf16 rebuild); the other
+scenes are bar17 under `timeStepper LBFGS` (LBFGS-PD), `GSDD 6`, `DOT 6`
+with `warmStart 5`, `Newton`, `LBFGSH` and `LBFGSJH 6`. It runs one
 warm-up frame, then
 1. times `--frames` frames as they run, then `--frames` more with the
    H0 rebuild (and inside it the element Hessians, the coarse factor, the
    assembly and the factorization, or on the chunked path the compact,
    the K12 scatter and the scan), the H0 apply (and inside it the coarse
-   apply), the line search, the quadratic form and the gradient wrapped
-   in synchronised host timers (the syncs perturb the total a little;
+   apply), the line search, the quadratic form and the gradient, and the
+   other steppers' spans (`pd_factor` = build_pd_factor, `pd_solve`,
+   `gsdd_sweep` = GSDDStepper.sweep, `newton_factor` =
+   NewtonStepper.factor, `hessian_diag`) wrapped in synchronised host timers (the syncs perturb the total a little;
    the split is what this reads);
 2. profiles `--frames` more frames with torch.profiler and prints the
    device time by kernel name, the device time and launches per frame of
-   each hand-written kernel (K1-K12, with the wrappers' launch counts),
+   each hand-written kernel (K1-K16, with the wrappers' launch counts),
    the device busy time per frame and the idle share (1 - busy /
    unwrapped frame time), and writes the chrome trace under --out.
 Needs a CUDA device.
@@ -40,7 +46,7 @@ from .config import Config
 from .mesh_gen import bar_mesh
 from .kernels import ops
 from .sim import Simulator
-from .steppers import quasi_newton
+from .steppers import gsdd, newton, quasi_newton
 
 # device-kernel name fragments of each wrapper's kernel (the second passes
 # of K1 and K4, which sum block partials, are left out; K9's dots_kernel
@@ -63,6 +69,13 @@ KERNEL_NAMES = {
     "coarse_prolong": ("dotk10::prolong_kernel",),
     "band_compact": ("dotk5::band_compact_kernel",),
     "band_equil_scatter": ("dotk12::d_kernel", "dotk12::scatter_kernel"),
+    "hessian_diag": ("hessian_diag_kernel",),
+    "pd_assemble": ("pd_reduce_kernel", "pd_diag_kernel"),
+    "block_matvec_k": ("matvec_k_kernel", "matvec_kt_kernel"),
+    "pd_gather": ("pd_gather_kernel",),
+    "pd_scatter": ("pd_scatter_kernel",),
+    "local_gather_one": (),     # K8's h0_gather_kernel on one row
+    "local_scatter_one": ("local_scatter_kernel",),
 }
 # spans inside rebuild_h0 and h0_apply (timed, not subtracted from the
 # host rest): the unchunked path assembles and factorizes, the chunked one
@@ -71,12 +84,26 @@ REBUILD_SPANS = ("element_hessians", "_coarse_factor", "assemble_subdomains",
                  "factorize", "_band_compact", "_equil_scatter",
                  "_btd_scan_equilibrated")
 APPLY_SPANS = ("_coarse_apply",)
-SCENES = {"bar17": ((56, 16, 16), "DOT 6"),
-          "bar135": ((131, 31, 31), "DOT -1 1024")}
+# spans of the other steppers: System methods, and (name, method) of the
+# stepper object
+SYSTEM_SPANS = {"pd_factor": "build_pd_factor", "pd_solve": "pd_solve",
+                "hessian_diag": "hessian_diag",
+                "subdomain_solve": "subdomain_solve"}
+STEPPER_SPANS = {"gsdd_sweep": "sweep", "newton_factor": "factor"}
+_B17 = (56, 16, 16)
+# scene -> (cells, timeStepper line, warmStart)
+SCENES = {"bar17": (_B17, "DOT 6", 2),
+          "bar135": ((131, 31, 31), "DOT -1 1024", 2),
+          "bar17-lbfgs": (_B17, "LBFGS", 2),
+          "bar17-gsdd": (_B17, "GSDD 6", 2),
+          "bar17-ws5": (_B17, "DOT 6", 5),
+          "bar17-newton": (_B17, "Newton", 2),
+          "bar17-lbfgsh": (_B17, "LBFGSH", 2),
+          "bar17-lbfgsjh": (_B17, "LBFGSJH 6", 2)}
 
 SCENE = """energy FCR
 timeStepper {stepper}
-warmStart 2
+warmStart {warm}
 time 5 0.025
 density 1000
 stiffness 100000 0.4
@@ -85,18 +112,19 @@ shape input {mesh}
 """
 
 
-def wrap_timed(obj, name, acc, module=None):
+def wrap_timed(obj, name, acc, module=None, label=None):
     """Replace obj.name by a synchronised, timed call accumulating into
-    acc[name]."""
+    acc[label or name]."""
     owner = module if module is not None else obj
     fn = getattr(owner, name)
+    label = label or name
 
     def timed(*a, **k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = fn(*a, **k)
         torch.cuda.synchronize()
-        acc[name] += time.perf_counter() - t0
+        acc[label] += time.perf_counter() - t0
         return r
     setattr(owner, name, timed)
     return fn
@@ -117,31 +145,51 @@ def profile_frames(sim, frames, out):
         + REBUILD_SPANS + APPLY_SPANS
     for name in names:
         wrap_timed(sysm, name, acc)
-    line_search = wrap_timed(None, "line_search", acc,
-                             module=quasi_newton)
+    for label, name in SYSTEM_SPANS.items():
+        wrap_timed(sysm, name, acc, label=label)
+    spans = {label: name for label, name in STEPPER_SPANS.items()
+             if hasattr(sim.stepper, name)}
+    for label, name in spans.items():
+        wrap_timed(sim.stepper, name, acc, label=label)
+    # every module that took line_search by name
+    mods = (quasi_newton, gsdd, newton)
+    line_search = wrap_timed(None, "line_search", acc, module=quasi_newton)
+    for m in mods[1:]:
+        m.line_search = quasi_newton.line_search
     n0 = len(sim.frames)
     t0 = time.perf_counter()
     try:
         sim.run(frames)
     finally:
-        for name in names:
+        for name in names + tuple(SYSTEM_SPANS.values()):
             delattr(sysm, name)
-        quasi_newton.line_search = line_search
+        for name in spans.values():
+            delattr(sim.stepper, name)
+        for m in mods:
+            m.line_search = line_search
     wall = time.perf_counter() - t0
     iters = sum(r["iters"] for r in sim.frames[n0:])
     print(f"timed split over {frames} frames ({iters} iterations), "
           f"wall {wall / frames * 1e3:.2f} ms/frame:")
-    inner = {"rebuild_h0": REBUILD_SPANS, "h0_apply": APPLY_SPANS}
+    # spans that run inside another span: timed, not subtracted again
+    inner = {"rebuild_h0": REBUILD_SPANS, "h0_apply": APPLY_SPANS,
+             "gsdd_sweep": ("subdomain_solve", "line_search", "gradient"),
+             "newton_factor": ("element_hessians", "assemble_subdomains",
+                               "factorize")}
+    nested = REBUILD_SPANS + APPLY_SPANS + ("subdomain_solve",)
+    if "gsdd_sweep" in spans:       # the sweep holds its line searches
+        nested += ("line_search", "gradient")
+    if "newton_factor" in spans:    # Newton's factor holds these
+        nested += ("element_hessians", "assemble_subdomains", "factorize")
     for k, v in acc.most_common():
-        if k in REBUILD_SPANS + APPLY_SPANS:
+        if k in nested:
             continue
         print(f"  {k:20s} {v / frames * 1e3:9.2f} ms/frame "
               f"({100 * v / wall:5.1f}%)")
         for j in inner.get(k, ()):
             if j in acc:
                 print(f"    {j:22s} {acc[j] / frames * 1e3:9.2f} ms/frame")
-    outer = sum(v for k, v in acc.items()
-                if k not in REBUILD_SPANS + APPLY_SPANS)
+    outer = sum(v for k, v in acc.items() if k not in nested)
     print(f"  {'rest (host)':20s} {(wall - outer) / frames * 1e3:9.2f} "
           f"ms/frame")
 
@@ -191,7 +239,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device (none found)")
-    cells, stepper = SCENES[args.scene]
+    cells, stepper, warm = SCENES[args.scene]
     tmp = tempfile.mkdtemp(prefix="dot_prof_")
     try:
         mesh = bar_mesh(*cells, size=(4.0, 1.0, 1.0))
@@ -199,7 +247,7 @@ def main(argv=None):
         meshio.save_tet_mesh(mp, mesh.V, mesh.conn, mesh.SF)
         sp = os.path.join(tmp, "scene.txt")
         with open(sp, "w") as f:
-            f.write(SCENE.format(stepper=stepper, mesh=mp))
+            f.write(SCENE.format(stepper=stepper, warm=warm, mesh=mp))
         t0 = time.perf_counter()
         sim = Simulator(Config.load(sp), os.path.join(tmp, "out"),
                         dtype=torch.float32, device="cuda", mute=True,

@@ -13,8 +13,9 @@ Per run directory:
   log.txt           tolerances, inner iter counts, sysE per step
   finalResult_mesh.msh
 
-This port runs `timeStepper DOT` with `h0Refresh 1` (the reference's
-per-step refactorization). Every other stepper and policy, restart and the
+This port runs `timeStepper DOT | GSDD | Newton | LBFGS | LBFGSH | LBFGSHI
+| LBFGSJH` with `h0Refresh 1` (the reference's per-step refactorization).
+`timeStepper ADMM | ADMMDD`, the other h0Refresh policies, restart and the
 viewer raise NotImplementedError: they are queue 1 of ROADMAP.md.
 """
 
@@ -30,7 +31,8 @@ from . import io as meshio
 from . import partition, scripts
 from .config import Config
 from .mesh import Mesh
-from .steppers import DOTStepper, System
+from .steppers import (DOTStepper, GSDDStepper, LBFGSH, LBFGSHI, LBFGSJH,
+                       LBFGSPD, NewtonStepper, System)
 from .steppers.core import APPLY_DTYPES
 
 DEFAULT_REL_TOL = 1.0e-5   # README: "1e-5 CN ... used in all experiments"
@@ -90,7 +92,13 @@ def pick_dtype(name=None, device="cpu"):
 def _unsupported(what):
     return NotImplementedError(
         f"{what} is not ported to dot_tpu_torch yet (ROADMAP.md queue 1); "
-        "the port runs 'timeStepper DOT' with 'h0Refresh 1'")
+        "the port runs 'timeStepper DOT, GSDD, Newton, LBFGS, LBFGSH, "
+        "LBFGSHI, LBFGSJH' with 'h0Refresh 1'")
+
+
+STEPPERS = {"DOT": DOTStepper, "GSDD": GSDDStepper, "Newton": NewtonStepper,
+            "LBFGS": LBFGSPD, "LBFGSH": LBFGSH, "LBFGSHI": LBFGSHI,
+            "LBFGSJH": LBFGSJH}
 
 
 class Simulator:
@@ -101,11 +109,16 @@ class Simulator:
         "cpu" runs on the CPU. `use_kernels=False` runs the plain PyTorch
         versions of the kernels instead (a comparison run; the main path
         keeps the default). `plan`: a SubdomainPlan already built for this
-        scene's mesh and partition count (reused instead of partitioning
-        again)."""
+        scene's mesh, stepper and partition count (reused instead of
+        partitioning again)."""
         device = resolve_device(device)
-        if cfg.time_stepper != "DOT":
+        if cfg.time_stepper in ("ADMM", "ADMMDD"):
             raise _unsupported(f"timeStepper {cfg.time_stepper}")
+        if cfg.time_stepper not in STEPPERS:
+            raise NotImplementedError(
+                f"timeStepper {cfg.time_stepper} is unknown (dot_tpu has "
+                "DOT, GSDD, Newton, ADMM, ADMMDD, LBFGS, LBFGSH, LBFGSHI, "
+                "LBFGSJH)")
         if cfg.h0_refresh != 1:
             raise _unsupported(f"h0Refresh {cfg.h0_refresh}")
         if cfg.restart:
@@ -137,20 +150,37 @@ class Simulator:
 
         self.timer.start("partition+build")
         dtype = dtype if dtype is not None else pick_dtype(None, self.device)
-        n_parts = partition.partition_amt_from_config(cfg, self.mesh.n_vert)
-        if plan is None:
-            plan = partition.build_plan(self.mesh, n_parts,
-                                        scheme=cfg.partition_scheme)
-        elif plan.n_parts != n_parts:
+        # the plan each stepper runs on (dot_tpu/sim.py:131-196): DOT and
+        # GSDD the element partition, Newton and LBFGS-H/HI the whole mesh
+        # as one part, LBFGS-JH a disjoint node partition, LBFGS-PD none
+        st = cfg.time_stepper
+        if st in ("DOT", "GSDD", "LBFGSJH"):
+            n_parts = partition.partition_amt_from_config(cfg,
+                                                          self.mesh.n_vert)
+        else:
+            n_parts = 0 if st == "LBFGS" else 1
+        if plan is not None and plan.n_parts != n_parts:
             raise ValueError(f"plan has {plan.n_parts} parts; the scene "
                              f"asks for {n_parts}")
-        # applyDtype -> System.apply_dtype (dot_tpu/sim.py:126-136)
-        self.system = System(self.mesh, cfg, plan, dtype=dtype,
-                             device=self.device, use_kernels=use_kernels,
-                             apply_dtype=APPLY_DTYPES[cfg.apply_dtype])
-        self.stepper = DOTStepper(self.system, self.script_data,
-                                  warm_start_opt=cfg.warm_start)
-        if plan.n_parts > 1:
+        if plan is None and st == "LBFGSJH":
+            plan = partition.build_node_plan(self.mesh, n_parts)
+        elif plan is None and st in ("DOT", "GSDD"):
+            plan = partition.build_plan(self.mesh, n_parts,
+                                        scheme=cfg.partition_scheme)
+        elif plan is None and st != "LBFGS":
+            plan = partition.build_plan(self.mesh, 1)
+        # applyDtype -> System.apply_dtype (dot_tpu/sim.py:126-136); GSDD's
+        # sweep never applies the coarse correction, so it is not built
+        self.system = System(
+            self.mesh, cfg, plan, dtype=dtype, device=self.device,
+            use_kernels=use_kernels,
+            apply_dtype=APPLY_DTYPES[cfg.apply_dtype],
+            factor_dtype=torch.bfloat16 if st == "LBFGSHI" else None,
+            use_coarse=False if st == "GSDD" else None)
+        self.stepper = STEPPERS[st](self.system, self.script_data,
+                                    warm_start_opt=cfg.warm_start)
+        if (plan is not None and plan.part is not None
+                and plan.n_parts > 1):
             meshio.write_partition_debug(output_dir, self.mesh, plan.part)
 
         self.state = self.stepper.init_state()

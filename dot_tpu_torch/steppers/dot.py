@@ -11,20 +11,11 @@ from __future__ import annotations
 
 import torch
 
-from .quasi_newton import QuasiNewtonStepper, _vdot
+from .quasi_newton import RebuildH0Stepper, _vdot
 
 
-class DOTStepper(QuasiNewtonStepper):
+class DOTStepper(RebuildH0Stepper):
     name = "DOT"
-
-    def h0_apply(self, state, q):
-        return self.system.h0_apply(state.chol, state.equil, q,
-                                    kc=state.kc_chol, fixed=state.fixed)
-
-    def end_of_step(self, sys, x, fixed, state):
-        (state.elem_h, state.chol, state.equil,
-         state.kc_chol) = sys.rebuild_h0(x, fixed)
-        return state
 
     def alpha0_and_fp(self, sys, state, g, p):
         # one corner gather of p (K4) feeds both the quadratic form and

@@ -47,6 +47,35 @@ def line_search(system, x0, p, e0, e0_host, x_tilta, alpha0, F0, Fp):
     return x0 + alpha * p, e, alpha, e_h, a_h, k, failed
 
 
+def push_row(rows, row):
+    """Append an iterStats row; past STATS_CAP rows the last is replaced."""
+    if len(rows) < STATS_CAP:
+        rows.append(row)
+    else:
+        rows[-1] = row
+
+
+def finish_step(sys, state, x, e_h, sqn_h, tol, it, n_ls, stopped, failed,
+                rows, syncs0):
+    """The end of every stepper's time step: the Backward-Euler update, the
+    system energy diagnostic and the host-side StepStats. Returns (state,
+    (StepStats, sysE))."""
+    x_n_prev = state.x_n
+    state = sys.be_update(state, x)
+    sys_e = sys.host(sys.system_energy(x, x_n_prev,
+                                       sys.sigma(sys.defgrad(x))))[0]
+    if sqn_h <= tol:
+        stop = "tol"
+    elif stopped:
+        stop = "ls_failed" if failed else "rel_dec"
+    else:
+        stop = "iter_cap"
+    stats = StepStats(energy=e_h, sqn_g=sqn_h, inner_iters=it,
+                      ls_halvings=n_ls, stop=stop, rows=rows,
+                      syncs=sys.n_syncs - syncs0)
+    return state, (stats, sys_e)
+
+
 class QuasiNewtonStepper:
     name = "LBFGS"
 
@@ -121,7 +150,7 @@ class QuasiNewtonStepper:
             state = self.on_bc_change(sys, x, fixed, state)
 
         x = sys.warm_start(self.warm_start_opt, x, state.v, state.dx_elastic,
-                           fixed)
+                           fixed, x_tilta=state.x_tilta)
         F = sys.defgrad(x)
         e = sys.energy(x, state.x_tilta, F)
         g = sys.gradient(x, state.x_tilta, fixed)
@@ -161,29 +190,29 @@ class QuasiNewtonStepper:
                 F = F + alpha * Fp
                 x, e, e_h, g = x_new, e_new, e_new_h, g_new
                 row = (a_h, e_new_h, sqn_h)
-            if len(rows) < STATS_CAP:
-                rows.append(row)
-            else:
-                rows[-1] = row
+            push_row(rows, row)
 
         state.lb_s, state.lb_t, state.lb_rho, state.lb_valid = bufs
         # H0 refresh at the converged x every step (h0Refresh 1,
         # DOTTimeStepper.cpp:343)
         state = self.end_of_step(sys, x, fixed, state)
-        x_n_prev = state.x_n
-        state = sys.be_update(state, x)
-        sys_e = sys.host(sys.system_energy(x, x_n_prev,
-                                           sys.sigma(sys.defgrad(x))))[0]
-        if sqn_h <= tol:
-            stop = "tol"
-        elif stopped:
-            stop = "ls_failed" if failed else "rel_dec"
-        else:
-            stop = "iter_cap"
-        stats = StepStats(energy=e_h, sqn_g=sqn_h, inner_iters=it,
-                          ls_halvings=n_ls, stop=stop, rows=rows,
-                          syncs=sys.n_syncs - syncs0)
-        return state, (stats, sys_e)
+        return finish_step(sys, state, x, e_h, sqn_h, tol, it, n_ls, stopped,
+                           failed, rows, syncs0)
 
     def init_state(self):
         return self.system.init_state(self.script_data)
+
+
+class RebuildH0Stepper(QuasiNewtonStepper):
+    """H0 = the assembled subdomain Hessians (whatever the plan: an element
+    partition, one part, a node partition), factorized once per time step
+    and applied by block solves + duplicate averaging."""
+
+    def h0_apply(self, state, q):
+        return self.system.h0_apply(state.chol, state.equil, q,
+                                    kc=state.kc_chol, fixed=state.fixed)
+
+    def end_of_step(self, sys, x, fixed, state):
+        (state.elem_h, state.chol, state.equil,
+         state.kc_chol) = sys.rebuild_h0(x, fixed)
+        return state

@@ -355,3 +355,144 @@ def test_coarse_chunk_step_on_card_matches_cpu(cuda):
         assert s.kc_chol is not None and s.chol.linv.dtype == torch.bfloat16
         out.append(es)
     np.testing.assert_allclose(out[1], out[0], rtol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# K13-K16: warmStart 5, LBFGS-PD, the GSDD sweep
+# ----------------------------------------------------------------------
+def _stepper_scene(script="stretch", cells=(8, 3, 3)):
+    mesh = bar_mesh(*cells)
+    cfg = Config(energy="FCR", dt=0.025, rho=1000.0, ym=1e5, pr=0.4,
+                 script=script, handle_ratio=0.05)
+    mesh.set_lame(cfg.ym, cfg.pr)
+    mesh.find_border_verts(cfg.handle_ratio)
+    sd = scripts.init_script(mesh, script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    return mesh, cfg, sd
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stepper_kernels_match_plain_versions(cuda, dtype):
+    """K13 (hessian_diag), K14 (pd_assemble), K15 (block_matvec_k and the
+    permute passes) and K16 (local gather / scatter) against their plain
+    versions: f64 1e-12, f32 1e-5."""
+    from dot_tpu_torch.kernels import pd
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    mesh, cfg, sd = _stepper_scene()
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    sysm = System(mesh, cfg, None, dtype=dtype, device=cuda)
+    x = t(sd.x0 + 0.02 * rng.normal(size=sd.x0.shape))
+    fixed = torch.as_tensor(sd.fixed0, device=cuda)
+    eh = sysm.element_hessians(x)
+    args = (eh, sysm.scat_perm, sysm.scat_segids, sysm.scat_off, sysm.mass)
+    assert _rel_max(ops.hessian_diag(*args), pd.hessian_diag_ref(*args)) <= tol
+
+    bp = pd.pd_plan(partition.build_pd_band_plan(sysm._conn_scatter_np,
+                                                 mesh.n_vert, bs_unit=16),
+                    cuda)
+    assert bp.nb >= 3
+    sysm._pd_plan = bp
+    free = torch.logical_not(fixed).to(dtype)
+    a_args = (sysm.g9, sysm.conn, sysm._pd_weights(), free, sysm.mass, bp)
+    assert _rel_max(ops.pd_assemble(*a_args),
+                    pd.pd_assemble_ref(*a_args)) <= tol
+    L, d = sysm.build_pd_factor(fixed)
+    A = L.linv.view(bp.nb, bp.bs, bp.bs)
+    v, c = t(rng.normal(size=(2, bp.nb, bp.bs, 3)))
+    for store in (A, A.to(torch.bfloat16)):
+        for trans in (False, True):
+            k3 = ops.block_matvec_k(store, v, c, trans)
+            assert _rel_max(k3, pd.block_matvec_k_ref(store, v, c,
+                                                      trans)) <= 10 * tol
+            for j in range(3):      # column j is K7 on column j, bit for bit
+                col = ops.block_matvec(store, v[..., j].contiguous(),
+                                       c[..., j].contiguous(), trans)
+                assert torch.equal(k3[..., j], col)
+    with pytest.raises(ValueError, match="3 right-hand sides"):
+        ops.block_matvec_k(A, v[..., :2].contiguous())
+    rhs = t(rng.normal(size=(mesh.n_vert, 3)))
+    z = t(rng.normal(size=(bp.nv_p, 3)))
+    assert _rel_max(ops.pd_gather(rhs, bp.inv, d[0]),
+                    pd.pd_gather_ref(rhs, bp.inv, d[0])) <= tol
+    assert _rel_max(ops.pd_scatter(z, bp.perm, d[0]),
+                    pd.pd_scatter_ref(z, bp.perm, d[0])) <= tol
+
+    plan = partition.build_plan(mesh, 4, pad_elem_to=16, pad_n3_to=48)
+    s4 = System(mesh, cfg, plan, dtype=dtype, device=cuda)
+    dd = t(rng.uniform(0.5, 2.0, size=(4, s4.n3)))
+    for i in range(4):
+        g_args = (rhs, s4.l2g, s4.local_valid, dd, i)
+        assert _rel_max(ops.local_gather_one(*g_args),
+                        pd.local_gather_one_ref(*g_args)) <= tol
+        zi = t(rng.normal(size=s4.n3))
+        s_args = (zi, dd, s4.l2g, s4.local_valid, i, mesh.n_vert)
+        assert _rel_max(ops.local_scatter_one(*s_args),
+                        pd.local_scatter_one_ref(*s_args)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_block_matvec_on_a_strided_subdomain_slice(cuda, dtype):
+    """K7 reads one subdomain's blocks of a scan-major (m, P, n, n) leaf in
+    place: the same numbers as on a contiguous copy, no copy made."""
+    rng = np.random.default_rng(3)
+    A = torch.as_tensor(rng.normal(size=(5, 3, 48, 48)), dtype=dtype,
+                        device=cuda)
+    v, c = torch.as_tensor(rng.normal(size=(2, 5, 48)), dtype=dtype,
+                           device=cuda)
+    for store in (A, A.to(torch.bfloat16)):
+        view = store[:, 1]
+        assert not view.is_contiguous()
+        for trans in (False, True):
+            got = ops.block_matvec(view, v, c, trans)
+            assert torch.equal(got, ops.block_matvec(view.contiguous(), v, c,
+                                                     trans))
+    with pytest.raises(ValueError, match="row-major"):
+        ops.block_matvec(A[:, 1].mT, v)
+
+
+def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
+    """One LBFGS-PD time step (banded PD factor) and one GSDD time step
+    (block-scan factor, 2 parts) on the card: the kernel path against the
+    plain versions on the same card, f64."""
+    from dot_tpu_torch.kernels import pd
+    from dot_tpu_torch.steppers import GSDDStepper, LBFGSPD
+    mesh, cfg, sd = _stepper_scene()
+    outs = []
+    for use in (True, False):
+        sysm = System(mesh, cfg, None, dtype=torch.float64, device=cuda,
+                      use_kernels=use)
+        sysm._pd_plan = pd.pd_plan(partition.build_pd_band_plan(
+            sysm._conn_scatter_np, mesh.n_vert, bs_unit=16), cuda)
+        st = LBFGSPD(sysm, sd)
+        n0 = dict(ops.launches)
+        s, (stats, sys_e) = st.step(st.init_state())
+        if use:
+            assert ops.launches["pd_assemble"] == n0["pd_assemble"] + 1
+            assert ops.launches["block_matvec_k"] > n0["block_matvec_k"]
+            assert ops.launches["pd_gather"] \
+                == n0["pd_gather"] + stats.inner_iters
+        outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
+    assert outs[0][1] == outs[1][1]
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)
+
+    plan = partition.build_plan(mesh, 2, pad_elem_to=16, pad_n3_to=48,
+                                band_bs_unit=48, band_min_nb=3)
+    outs = []
+    for use in (True, False):
+        sysm = System(mesh, cfg, plan, dtype=torch.float64, device=cuda,
+                      use_kernels=use, use_coarse=False)
+        st = GSDDStepper(sysm, sd)
+        n0 = dict(ops.launches)
+        s, (stats, sys_e) = st.step(st.init_state())
+        if use:
+            assert ops.launches["local_gather_one"] \
+                == n0["local_gather_one"] + 2 * stats.inner_iters
+            assert ops.launches["local_scatter_one"] \
+                == n0["local_scatter_one"] + 2 * stats.inner_iters
+        outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
+    assert outs[0][1] == outs[1][1]
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)

@@ -84,12 +84,51 @@ def test_cli_refuses_unported_modes(tmp_path):
 
 
 @pytest.mark.parametrize("stepper,extra", [
-    ("Newton", ""), ("GSDD 2", ""), ("LBFGS", ""), ("DOT 2", "h0Refresh -1"),
-    ("DOT 2", "restart status0")])
+    ("ADMM", ""), ("ADMMDD 2", ""), ("LBFGS", "h0Refresh 4"),
+    ("DOT 2", "h0Refresh -1"), ("DOT 2", "restart status0")])
 def test_unported_configurations_raise(tmp_path, stepper, extra):
     cfg = Config.load(_scene(tmp_path, stepper, extra))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulator(cfg, str(tmp_path / "out"), device="cpu", mute=True)
+
+
+@pytest.mark.parametrize("stepper,folder,cls,parts,warm", [
+    ("Newton", "Newton", "NewtonStepper", 1, 2),
+    ("LBFGS", "LBFGS", "LBFGSPD", 0, 2),
+    ("LBFGSH", "LBFGSH", "LBFGSH", 1, 2),
+    ("LBFGSHI", "LBFGSHI", "LBFGSHI", 1, 2),
+    ("LBFGSJH 3", "LBFGSJH3", "LBFGSJH", 3, 2),
+    ("GSDD 2", "GSDD2", "GSDDStepper", 2, 2),
+    ("DOT 2", "DOT2", "DOTStepper", 2, 5)])
+def test_run_script_each_stepper(tmp_path, stepper, folder, cls, parts, warm):
+    """One frame of every ported timeStepper (and of warmStart 5) through
+    run_script on the CPU: dot_tpu/sim.py's dispatch (plan kind, factor
+    dtype, coarse space off for GSDD), the folder name, finite output."""
+    scene = _scene(tmp_path, stepper)
+    with open(scene) as f:
+        text = f.read()
+    with open(scene, "w") as f:
+        f.write(text.replace("warmStart 2", f"warmStart {warm}"))
+    sim, _ = run_script(scene, frames=1, output_root=str(tmp_path / "out"),
+                        dtype="f64", device="cpu", mute=True)
+    assert type(sim.stepper).__name__ == cls
+    assert sim.stepper.warm_start_opt == warm
+    assert sim.system.n_parts == parts
+    assert os.path.basename(sim.out) == f"bar_twist_FCR_{folder}"
+    assert (sim.system.plan is None) == (stepper == "LBFGS")
+    assert (sim.system.factor_dtype == torch.bfloat16) == (stepper
+                                                           == "LBFGSHI")
+    assert not sim.system.use_coarse
+    if cls == "LBFGSJH":
+        assert sim.system.plan.part is None
+        assert int(sim.system.plan.dup.max()) == 1
+    assert os.path.exists(os.path.join(sim.out, "label.obj")) == (
+        cls in ("GSDDStepper", "DOTStepper"))
+    r = sim.frames[0]
+    assert np.isfinite(r["sys_e"]) and r["stop"] in ("tol", "rel_dec")
+    assert r["sqn_g"] <= r["tol"] or r["stop"] == "rel_dec"
+    assert torch.isfinite(sim.state.x).all()
+    assert os.path.exists(os.path.join(sim.out, "finalResult_mesh.msh"))
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):

@@ -210,10 +210,16 @@ def test_warm_start_and_x_tilta_match(option):
 
 
 def test_warm_start_5_not_ported():
+    """warmStart 5 was the last option the port lacked: it now runs (held
+    against dot_tpu in tests/test_torch_warmstart.py) and only an option
+    dot_tpu does not have either raises."""
     _, _, _, _, _, tsys = _scene("dense")
-    x = torch.zeros((tsys.n_vert, 3), dtype=torch.float64)
+    x, xt, fixed, p = _state("dense", seed=6)
+    w = tsys.warm_start(5, _t(x), _t(p), _t(p), _t(fixed), x_tilta=_t(xt))
+    assert torch.isfinite(w).all()
+    np.testing.assert_array_equal(w.numpy()[fixed], x[fixed])
     with pytest.raises(NotImplementedError):
-        tsys.warm_start(5, x, x, x, torch.zeros(tsys.n_vert, dtype=bool))
+        tsys.warm_start(6, _t(x), _t(p), _t(p), _t(fixed), x_tilta=_t(xt))
 
 
 @pytest.mark.parametrize("script", ["twist", "stretchnsquash", "bend",
