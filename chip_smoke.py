@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,scale]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
@@ -9,8 +9,10 @@ result line):
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
            chol_inv.cu, K7 and K15 block_matvec.cu, K8 and K16 h0.cu,
            K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
-           K15's permute passes pd.cu) with nvcc for sm_90a, one nvcc per
-           source, all at once; K4 and K9 with Triton
+           K15's permute passes pd.cu, K17 / K18 / K20 admm.cu; K19 and the
+           per-slab / from-F entry points of K1 / K2 live in band_asm.cu
+           and elem.cu) with nvcc for sm_90a, one nvcc per source, all at
+           once; K4 and K9 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
            tolerances, median times, the time of one PyTorch library call
@@ -28,7 +30,13 @@ result line):
            Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
            (bs 512, nb 33): the assembled band, the solve's block products
            with 3 right-hand sides (each column equal to K7's) and its
-           permute / scale passes
+           permute / scale passes; K17 (with the Newton iterations and
+           energy evaluations each element took, which must equal the plain
+           version's and which set its bound), its SPD projection alone,
+           and K18 with both epilogues at the ADMM-PD shapes on random,
+           inverted and near-degenerate Dx + u; K19, K20 (and its diagonal
+           flag) and the per-slab / from-F entry points of K1 / K2 on the
+           real bar17 own-element plan (P 6, the ADMM-DD plan's W)
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -48,6 +56,17 @@ result line):
            or rel_dec, the factor's kind, its kernels launched, sysE against
            the plain-path run of the same frames (rtol 1e-3) and against
            DOT's (rtol 1e-3; LBFGSJH and GSDD 5e-3)
+  admm     bar17 twist, f32, relTol 1e-5, through sim.Simulator, 2 frames
+           each: `timeStepper ADMM` (K17, K18, K14, K15 and the global
+           K1 / K2 passes; one host read an iteration) and `timeStepper
+           ADMMDD 6` (K19, K20 and its diagonal flag, both new entry points,
+           K3, K6, K7, K2; banded_local and an exact f32 BTDFactor
+           (13, 6, 768, 768) as the local factor). Each run: finite sysE,
+           every frame stopped by tol or at its cap (printed), iterations,
+           syncs, s/frame, peak memory, its kernels launched, sysE against
+           the plain-path run of the same frames (rtol 1e-3) and against
+           DOT 6's (gated at rtol 1e-3 where the frames stopped by tol,
+           printed where one hit its cap)
   scale    bar135 twist (131x31x31 cells, 755,346 tets, 135,168 vertices),
            `timeStepper DOT -1 1024` (tools/scalability.py's protocol),
            f32: mesh and plan built once (P 133, nb 8, bs 768; the coarse
@@ -66,7 +85,7 @@ result line):
            versions (sysE rtol 1e-3)
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON record (per kernel: launches of all paths' runs and
-launches_by_path {main, steppers, scale}; times at the bar17 shapes, and
+launches_by_path {main, steppers, admm, scale}; times at the bar17 shapes, and
 under "bar135" K6's and K7's at the bar135 shapes) and {"ok": true, "device": {...}}. Exits
 non-zero without a result line when no CUDA device is present.
 """
@@ -160,6 +179,20 @@ SOURCES = {
                          "dot_tpu/steppers/core.py:1282"),
     "local_scatter_one": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
                           "dot_tpu/steppers/core.py:1287"),
+    "admm_local_step": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
+                        "dot_tpu/steppers/admm.py:142"),
+    "dtw_scatter": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
+                    "dot_tpu/steppers/admm.py:216"),
+    "own_band_assemble": ("cuda", "dot_tpu_torch/kernels/csrc/band_asm.cu",
+                          "dot_tpu/steppers/core.py:811"),
+    "w_matvec": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
+                 "dot_tpu/steppers/admm_dd.py:221"),
+    "w_diag": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
+               "dot_tpu/steppers/admm_dd.py:244"),
+    "ls_trial_energy_parts": ("cuda", "dot_tpu_torch/kernels/csrc/elem.cu",
+                              "dot_tpu/steppers/admm_dd.py:532"),
+    "elem_gradient_from_F": ("cuda", "dot_tpu_torch/kernels/csrc/elem.cu",
+                             "dot_tpu/steppers/admm_dd.py:295"),
 }
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
@@ -169,6 +202,11 @@ F32_FLOP_S = 67e12
 # bound by their bytes by a wide margin either way
 ELEM_FLOPS = dict(ls_trial_energy=900, elem_gradient=1100,
                   elem_hessian=4000)
+# K17 per element (f32 sweep counts): the flip-SVD once, then per Newton
+# iteration the 3x3 Jacobi eigendecomposition of d2psi (4 sweeps x 3
+# rotations), dpsi, d2psi and the adjugate solve, and per energy evaluation
+# psi and the distance term; multiplied by the counts the kernel reports
+K17_FLOPS = dict(svd=900, newton=900, energy=40)
 BAR135 = (131, 31, 31)
 SCALE_SCENE = SCENE_TMPL.replace("timeStepper DOT 6",
                                  "timeStepper DOT -1 1024")
@@ -204,6 +242,21 @@ STEPPER_RUNS = {
     "LBFGSJH6": ("LBFGSJH 6", 2, 3, 5e-3, _QN + (
         "elem_hessian", "chol_inv", "h0_gather", "h0_average")),
 }
+# the admm phase: (scene's timeStepper line, the kernels the run must launch)
+ADMM_FRAMES = 2
+ADMM_RUNS = {
+    "ADMM": ("ADMM", (
+        "admm_local_step", "dtw_scatter", "pd_assemble", "chol_inv",
+        "block_matvec_k", "pd_gather", "pd_scatter", "ls_trial_energy",
+        "elem_gradient", "direction_pass")),
+    "ADMMDD6": ("ADMMDD 6", (
+        "own_band_assemble", "w_matvec", "w_diag", "ls_trial_energy_parts",
+        "elem_gradient_from_F", "elem_hessian", "chol_inv", "block_matvec",
+        "elem_gradient", "ls_trial_energy", "direction_pass")),
+}
+ADMM_KERNELS = ("admm_local_step", "dtw_scatter", "own_band_assemble",
+                "w_matvec", "w_diag", "ls_trial_energy_parts",
+                "elem_gradient_from_F")
 STEPPER_KERNELS = ("hessian_diag", "pd_assemble", "block_matvec_k",
                    "pd_gather", "pd_scatter", "local_gather_one",
                    "local_scatter_one")
@@ -352,13 +405,13 @@ def _median_ms(torch, fn, reps=15):
     return float(np.median(times))
 
 
-def _time_pair(torch, kernel, plain):
+def _time_pair(torch, kernel, plain, plain_reps=15):
     """(kernel ms, plain ms): medians, better of two rounds in the order
     plain, kernel, kernel, plain."""
-    p1 = _median_ms(torch, plain)
+    p1 = _median_ms(torch, plain, plain_reps)
     k1 = _median_ms(torch, kernel)
     k2 = _median_ms(torch, kernel)
-    p2 = _median_ms(torch, plain)
+    p2 = _median_ms(torch, plain, plain_reps)
     return min(k1, k2), min(p1, p2)
 
 
@@ -378,11 +431,14 @@ def _bound(nbytes, flops, rate=F32_FLOP_S):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _report(torch, tag, kname, checks, fns, cost, bad, record):
+def _report(torch, tag, kname, checks, fns, cost, bad, record,
+            plain_reps=15):
     """Time kernel / plain / library (fns: (kernel, plain, library or
     None)), print the checks against their limits and the times, and keep
-    the f32 record (max_abs_err, ms, plain_ms, library_ms, bound)."""
-    ms, plain_ms = _time_pair(torch, fns[0], fns[1])
+    the f32 record (max_abs_err, ms, plain_ms, library_ms, bound).
+    `plain_reps`: timed calls of the plain version per round (fewer for one
+    that takes seconds)."""
+    ms, plain_ms = _time_pair(torch, fns[0], fns[1], plain_reps)
     lib_ms = _median_ms(torch, fns[2]) if fns[2] is not None else None
     bound_ms, bound_by = _bound(*cost)
     parts = []
@@ -1171,6 +1227,398 @@ def phase_steppers(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _local_step_inputs(torch, n, dtype, rng):
+    """(Dx, u9), each (9, n) on the card: a third random deformation
+    gradients (any sign of det), a third inverted near the identity, a
+    third near rank 1; duals a tenth of that size."""
+    third = n // 3
+    f = np.empty((9, n))
+    f[:, :third] = np.eye(3).reshape(9, 1) + 0.5 * rng.normal(size=(9, third))
+    inv = np.eye(3).reshape(9, 1) + 0.1 * rng.normal(size=(9, third))
+    inv[[0, 3, 6]] *= -1.0
+    f[:, third:2 * third] = inv
+    m = n - 2 * third
+    uv = rng.normal(size=(3, m))[:, None] * rng.normal(size=(3, m))[None]
+    f[:, 2 * third:] = uv.reshape(9, m) + 1e-3 * rng.normal(size=(9, m))
+    u = 0.1 * rng.normal(size=(9, n))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    return t(f), t(u)
+
+
+def phase_admm_kernels(torch, record):
+    """K17-K20 and the per-slab / from-F entry points of K1 / K2 against
+    their plain versions at the bar17 shapes: K17 and K18 on the ADMM-PD
+    system (no plan), the others on the ADMMDD 6 plan."""
+    from dot_tpu_torch.kernels import admm as kadmm
+    from dot_tpu_torch.kernels import ops
+    from dot_tpu_torch.steppers import (ADMMDDStepper, ADMMPDStepper, System)
+    tmp = tempfile.mkdtemp(prefix="dot_smoke_admm_k_")
+    try:
+        sim = _simulator(torch, _scene_variant(_bar_scene(tmp), "dd",
+                                               "ADMMDD 6"),
+                         os.path.join(tmp, "out"))
+        mesh, cfg, plan = sim.mesh, sim.cfg, sim.system.plan
+        sd, ap = sim.script_data, sim.stepper.ap
+        x0 = sim.state.x.detach().cpu().numpy().astype(np.float64)
+        fixed = sim.state.fixed
+        sim.finalize()
+        del sim
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(20261019)
+        x_np = x0 + 0.01 * rng.normal(size=x0.shape)
+        bad = []
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).split(".")[-1]
+            tol, th = TOL_SCALE[name], TOL[name]
+            res, times, costs = {}, {}, {}
+
+            # ---- K17, its SPD projection, K18: the ADMM-PD system
+            pdsys = System(mesh, cfg, None, dtype=dtype, device="cuda")
+            pst = ADMMPDStepper(pdsys, sd)
+            n, nv, sz = pdsys.n_elem_p, pdsys.n_vert, 4 if dtype == \
+                torch.float32 else 8
+            Dx, u9 = _local_step_inputs(torch, n, dtype, rng)
+            l_args = (Dx, u9, pst.w_e, pst.vol_dtsq, pdsys.u_e, pdsys.lam_e,
+                      pdsys.mat)
+            zk, duk, ck = ops.admm_local_step(*l_args, want_counts=True)
+            zr, dur, cr = kadmm.admm_local_step_ref(*l_args, want_counts=True)
+            # an element whose stop test falls the other way for one ulp
+            # takes another Newton iteration: z and du are held where the
+            # loop counts agree, and the share of the others is bounded
+            same = (ck == cr).all(dim=0)
+            n_diff = int((~same).sum())
+            its, evs = int(ck[0].sum()), int(ck[1].sum())
+            res["admm_local_step"] = [
+                ("z", _rel_max(zk[:, same], zr[:, same]), th["elem"],
+                 float((zk[:, same] - zr[:, same]).abs().max())),
+                ("du", _rel_max(duk[:, same], dur[:, same]), th["elem"],
+                 float((duk[:, same] - dur[:, same]).abs().max())),
+                (f"share of elements whose loop counts differ ({n_diff})",
+                 n_diff / n, 1e-3 if dtype == torch.float32 else 1e-4,
+                 None)]
+            say(f"kernels: {name} admm_local_step: Newton iterations per "
+                f"element mean {its / n:.2f} max {int(ck[0].max())}, energy "
+                f"evaluations mean {evs / n:.2f} max {int(ck[1].max())}")
+            times["admm_local_step"] = (
+                lambda: ops.admm_local_step(*l_args),
+                lambda: kadmm.admm_local_step_ref(*l_args), None)
+            costs["admm_local_step"] = (
+                40 * n * sz, K17_FLOPS["svd"] * n + K17_FLOPS["newton"] * its
+                + K17_FLOPS["energy"] * evs)
+
+            a6 = torch.as_tensor(rng.normal(size=(6, n)), dtype=dtype,
+                                 device="cuda")
+            mk, mr = ops.make_pd3(a6), kadmm.make_pd3_ref(a6)
+            err_pd = _rel_max(mk, mr)
+            say(f"kernels: {name} make_pd3 (K17's SPD projection alone, row "
+                f"u): rel {err_pd:.3e} (tol {th['elem']:g})")
+            if not err_pd <= th["elem"]:
+                bad.append(f"make_pd3 {name}: {err_pd:.3e}")
+
+            M9 = torch.as_tensor(rng.normal(size=(9, n)), dtype=dtype,
+                                 device="cuda")
+            xx = torch.as_tensor(x_np, dtype=dtype, device="cuda")
+            base = torch.as_tensor(rng.normal(size=(nv, 3)), dtype=dtype,
+                                   device="cuda")
+            off = torch.as_tensor(rng.normal(size=(nv, 3)), dtype=dtype,
+                                  device="cuda")
+            free = torch.logical_not(fixed).to(dtype)
+            s_args = (M9, pdsys.g9, pst.w_e, pdsys.scat_perm,
+                      pdsys.scat_segids, pdsys.scat_off, xx)
+            ak = ops.dtw_scatter(*s_args, mass=pdsys.mass)
+            ar = kadmm.dtw_scatter_ref(*s_args, mass=pdsys.mass)
+            rk = ops.dtw_scatter(*s_args, base=base, offset=off, free=free)
+            rr = kadmm.dtw_scatter_ref(*s_args, base=base, offset=off,
+                                       free=free)
+            res["dtw_scatter"] = [
+                ("A x", _rel_max(ak, ar), tol["elem"],
+                 float((ak - ar).abs().max())),
+                ("rhs", _rel_max(rk, rr), tol["elem"],
+                 float((rk - rr).abs().max()))]
+            corner = torch.randn((4 * n, 3), dtype=dtype, device="cuda")
+            cidx = pdsys.conn_s.t().reshape(-1).long()
+            acc18 = torch.zeros((nv + 1, 3), dtype=dtype, device="cuda")
+            times["dtw_scatter"] = (
+                lambda: ops.dtw_scatter(*s_args, base=base, offset=off,
+                                        free=free),
+                lambda: kadmm.dtw_scatter_ref(*s_args, base=base, offset=off,
+                                              free=free),
+                lambda: acc18.index_add_(0, cidx, corner))
+            costs["dtw_scatter"] = (
+                (19 * n + 13 * nv) * sz + 32 * n + 8 * (nv + 2),
+                12 * n * 11)
+            del zk, zr, duk, dur
+            torch.cuda.empty_cache()
+
+            # ---- K19, K20, the two entry points: the ADMMDD 6 plan
+            sysm = System(mesh, cfg, plan, dtype=dtype, device="cuda")
+            dd = ADMMDDStepper(sysm, sd, ap)
+            P, n3, nmax = sysm.n_parts, sysm.n3, dd.nmax
+            n = sysm.n_elem_p
+            _, wv, _, _ = dd.update_weights(xx, fixed)
+            free3f = dd._free3(fixed).reshape(-1).contiguous()
+            wp = dd.wp
+            valid = sysm.local_valid[..., None]
+            xl_flat = dd._to_flat(xx[sysm.l2g] * valid)
+            eh = sysm.k.elem_hessian(xl_flat, dd.conn_local, sysm.g9,
+                                     sysm.u_e, sysm.lam_e, sysm.vol_w,
+                                     sysm.mat, sysm.dt_sq)
+            freef = sysm._free(fixed).to(dtype).reshape(-1)
+            ml = dd.mass_local.reshape(-1).contiguous()
+            b_args = (eh, freef, ml, sysm.own_band_plan, wv, free3f, wp)
+            fk = ops.own_band_assemble(*b_args)
+            fr = kadmm.own_band_assemble_ref(*b_args)
+            n_drop = int((wp.band_dest >= sysm.own_band_plan.total).sum())
+            res["own_band_assemble"] = [
+                ("band", _rel_norm(fk, fr), TOL_H0[name]["exact"],
+                 float((fk - fr).abs().max()))]
+            obp = sysm.own_band_plan
+            n_ub, n_asm = obp.ub_row.shape[0], obp.src_block.shape[0]
+            n_w, n_rows = wp.row.shape[0], free3f.shape[0]
+            times["own_band_assemble"] = (
+                lambda: ops.own_band_assemble(*b_args),
+                lambda: kadmm.own_band_assemble_ref(*b_args), None)
+            costs["own_band_assemble"] = (
+                eh.numel() * sz + 16 * n_asm + 8 * (n_ub + 1) + 16 * n_ub
+                + 2 * freef.numel() * sz + 72 * n_ub
+                + 8 * obp.pad_diag.numel() + obp.total * sz
+                + (24 + sz) * n_w + (8 + 2 * sz) * n_rows,
+                9 * n_asm + 3 * n_w + 2 * n_rows)
+            del fr
+
+            a = torch.as_tensor(rng.normal(size=n_rows), dtype=dtype,
+                                device="cuda")
+            yk = ops.w_matvec(wv, free3f, a, wp)
+            yr = kadmm.w_matvec_ref(wv, free3f, a, wp)
+            dk = ops.w_matvec(wv, free3f, None, wp, diag_only=True)
+            dr = kadmm.w_matvec_ref(wv, free3f, None, wp, diag_only=True)
+            res["w_matvec"] = [("W a", _rel_max(yk, yr), tol["elem"],
+                                float((yk - yr).abs().max()))]
+            res["w_diag"] = [("diag W", _rel_max(dk, dr), tol["elem"],
+                              float((dk - dr).abs().max()))]
+            wm = wv * free3f[wp.row] * free3f[wp.col]
+            va = wm * a[wp.col]
+            acc20 = torch.zeros(n_rows, dtype=dtype, device="cuda")
+            times["w_matvec"] = (
+                lambda: ops.w_matvec(wv, free3f, a, wp),
+                lambda: kadmm.w_matvec_ref(wv, free3f, a, wp),
+                lambda: acc20.index_add_(0, wp.row, va))
+            times["w_diag"] = (
+                lambda: ops.w_matvec(wv, free3f, None, wp, diag_only=True),
+                lambda: kadmm.w_matvec_ref(wv, free3f, None, wp,
+                                           diag_only=True),
+                lambda: acc20.index_add_(0, wp.row, wm))
+            costs["w_matvec"] = ((sz + 8) * n_w + 8 * (n_rows + 1)
+                                 + 4 * n_rows * sz, 4 * n_w + 3 * n_rows)
+            costs["w_diag"] = ((sz + 8) * n_w + 8 * (n_rows + 1)
+                               + 3 * n_rows * sz, 3 * n_w + 2 * n_rows)
+
+            F0 = dd._local_defgrad(xl_flat)
+            p_flat = dd._to_flat(torch.as_tensor(
+                0.01 * rng.normal(size=(P, nmax, 3)), dtype=dtype,
+                device="cuda") * valid)
+            Fp = dd._local_defgrad(p_flat)
+            alpha = torch.as_tensor([1.0, 0.5, 0.25, 1.0, 0.125, 0.5][:P]
+                                    + [1.0] * max(P - 6, 0), dtype=dtype,
+                                    device="cuda")
+            e_args = (F0, Fp, alpha, sysm.u_e, sysm.lam_e, sysm.vol_w,
+                      sysm.mat, P)
+            ek = ops.ls_trial_energy_parts(*e_args)
+            er = kadmm.ls_trial_energy_parts_ref(*e_args)
+            e0k = ops.ls_trial_energy_parts(F0, None, None, *e_args[3:])
+            e0r = kadmm.ls_trial_energy_parts_ref(F0, None, None,
+                                                  *e_args[3:])
+            per_slab = float(((ek - er).abs() / er.abs()).max())
+            res["ls_trial_energy_parts"] = [
+                ("per slab", per_slab, th["elem"],
+                 float((ek - er).abs().max())),
+                ("per slab, no direction",
+                 float(((e0k - e0r).abs() / e0r.abs()).max()), th["elem"],
+                 None)]
+            times["ls_trial_energy_parts"] = (
+                lambda: ops.ls_trial_energy_parts(*e_args),
+                lambda: kadmm.ls_trial_energy_parts_ref(*e_args), None)
+            costs["ls_trial_energy_parts"] = (
+                (21 * n + 2 * P) * sz, ELEM_FLOPS["ls_trial_energy"] * n)
+
+            g_args = (F0, dd.conn_local, sysm.g9, sysm.u_e, sysm.lam_e,
+                      sysm.vol_w, sysm.mat, P * nmax)
+            gk = ops.elem_gradient_from_F(*g_args)
+            gr = kadmm.elem_gradient_from_F_ref(*g_args)
+            # the same forces as K2 on the local rows
+            g2 = ops.elem_gradient(xl_flat[:-1].contiguous(), torch.where(
+                dd.conn_local == P * nmax, 0, dd.conn_local), dd.conn_local,
+                sysm.g9, sysm.u_e, sysm.lam_e, sysm.vol_w, sysm.mat)
+            res["elem_gradient_from_F"] = [
+                ("grad", _rel_norm(gk, gr), th["grad"],
+                 float((gk - gr).abs().max())),
+                ("vs K2 at the same rows", _rel_norm(gk, g2), th["grad"],
+                 None)]
+            forces = torch.randn((4 * n, 3), dtype=dtype, device="cuda")
+            lidx = dd.conn_local.t().reshape(-1).long()
+            accg = torch.zeros((P * nmax + 1, 3), dtype=dtype, device="cuda")
+            times["elem_gradient_from_F"] = (
+                lambda: ops.elem_gradient_from_F(*g_args),
+                lambda: kadmm.elem_gradient_from_F_ref(*g_args),
+                lambda: accg.index_add_(0, lidx, forces))
+            costs["elem_gradient_from_F"] = (
+                (21 * n + 3 * (P * nmax + 1)) * sz + 16 * n,
+                ELEM_FLOPS["elem_gradient"] * n)
+            torch.cuda.synchronize()
+            for kname, checks in res.items():
+                _report(torch, name, kname, checks, times[kname],
+                        costs[kname], bad, record,
+                        plain_reps=2 if kname == "admm_local_step" else 15)
+            say(f"kernels: {name} ADMM shapes: K17 / K18 on {mesh.n_elem} "
+                f"elements and {nv} vertices; own band {obp.total} values "
+                f"from {n_asm} tuples in {n_ub} blocks; W {n_w} entries "
+                f"({n_drop} in upper-neighbour blocks, dropped) on {n_rows} "
+                f"rows; slabs {P} x {n // P} elements; local rows "
+                f"{P * nmax}")
+            del sysm, dd, eh, fk, F0, Fp, forces
+            torch.cuda.empty_cache()
+        if bad:
+            raise Fail("kernel disagrees with its plain version: "
+                       + "; ".join(bad))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_admm(torch, launches_out):
+    """ADMM-PD and ADMM-DD 6 at bar17 through Simulator."""
+    from dot_tpu_torch.kernels import ops
+    from dot_tpu_torch.steppers.core import BTDFactor
+    tmp = tempfile.mkdtemp(prefix="dot_admm_")
+    try:
+        base = _bar_scene(tmp)
+        out_root = os.path.join(tmp, "out")
+        dot = _simulator(torch, base, out_root, suffix="ref",
+                         save_every=10 ** 9)
+        dot.run(ADMM_FRAMES)
+        dot.finalize()
+        e_dot = np.asarray([r["sys_e"] for r in dot.frames])
+        del dot
+        torch.cuda.empty_cache()
+        total = dict.fromkeys(ops.KERNELS, 0)
+        problems = []
+        for tag, (stepper, need) in ADMM_RUNS.items():
+            scene = _scene_variant(base, tag, stepper)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            sim = _simulator(torch, scene, out_root, save_every=10 ** 9)
+            t1 = time.perf_counter()
+            sim.run(ADMM_FRAMES)
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated()
+            for k, v in launches.items():
+                total[k] += v
+            sysm, fr, st = sim.system, sim.frames, sim.stepper
+            cap = st.max_iter if tag == "ADMM" else 1000
+            iters = sum(r["iters"] for r in fr)
+            say(f"admm: {tag}: {type(st).__name__}, P {sysm.n_parts}, n3 "
+                f"{sysm.n3}, banded {sysm.banded} (nb {sysm.band_nb}, bs "
+                f"{sysm.band_bs}); iteration cap {cap}; Simulator "
+                f"{t1 - t0:.2f} s; s/frame "
+                f"{np.mean([r['seconds'] for r in fr]):.5f}; ms/iteration "
+                f"{1e3 * sum(r['seconds'] for r in fr) / max(iters, 1):.3f};"
+                f" peak {peak / 2**20:.1f} MiB")
+            say(f"admm: {tag}: per frame (iters, syncs, stop, s): "
+                + "; ".join(f"{r['iters']},{r['syncs']},{r['stop']},"
+                            f"{r['seconds']:.3f}" for r in fr))
+            say(f"admm: {tag}: launches "
+                f"{ {k: v for k, v in launches.items() if v} }")
+            for r in fr:
+                if not np.isfinite(r["sys_e"]):
+                    problems.append(f"{tag} frame {r['frame']} sysE not "
+                                    "finite")
+                if r["stop"] not in ("tol", "iter_cap") or (
+                        r["stop"] == "iter_cap" and r["iters"] != cap):
+                    problems.append(f"{tag} frame {r['frame']} stopped by "
+                                    f"{r['stop']} after {r['iters']}")
+            for k in need:
+                if launches[k] <= 0:
+                    problems.append(f"{tag}: kernel {k} never launched")
+            if tag == "ADMM":
+                kind, leaf_dt, shape = _factor_kind(sim.state.chol)
+                say(f"admm: ADMM: global factor {kind} {leaf_dt} {shape}; "
+                    f"K17 {launches['admm_local_step'] / max(iters, 1):.2f}, "
+                    f"K18 {launches['dtw_scatter'] / max(iters, 1):.2f}, K15 "
+                    f"gather {launches['pd_gather'] / max(iters, 1):.2f} per "
+                    "iteration")
+                if (kind != "BTDFactor" or leaf_dt != ["float32"]
+                        or launches["admm_local_step"] != iters
+                        or launches["dtw_scatter"] != iters + len(fr)):
+                    problems.append(f"ADMM: factor {kind} {leaf_dt}, "
+                                    f"launches {launches}")
+            else:
+                s_ = sim.state
+                free3 = st._free3(s_.fixed)
+                xl = st._to_flat(s_.x[sysm.l2g] * sysm.local_valid[..., None])
+                L, _ = st._local_h_factor(xl, (s_.w_vals,
+                                               free3.reshape(-1)), s_.fixed)
+                kind, leaf_dt, shape = _factor_kind(L)
+                n_ref = launches["own_band_assemble"]
+                say(f"admm: ADMMDD6: banded_local {st.banded_local}; local "
+                    f"factor {kind} {leaf_dt} {shape}; consensus factor "
+                    f"{tuple(s_.cons_chol.shape)} {s_.cons_chol.dtype}; "
+                    f"local refactorizations {n_ref} (K19) in {iters} "
+                    f"iterations; K20 "
+                    f"{launches['w_matvec'] / max(iters, 1):.2f}, per-slab "
+                    f"K1 {launches['ls_trial_energy_parts'] / max(iters, 1):.2f}"
+                    f", from-F K2 "
+                    f"{launches['elem_gradient_from_F'] / max(iters, 1):.2f} "
+                    "per iteration")
+                if (not st.banded_local or not isinstance(L, BTDFactor)
+                        or leaf_dt != ["float32"]
+                        or shape != (13, 6, 768, 768)):
+                    problems.append(f"ADMMDD6: local factor {kind} "
+                                    f"{leaf_dt} {shape}, banded_local "
+                                    f"{st.banded_local}")
+                del L, s_
+            sim.finalize()
+            a = np.asarray([r["sys_e"] for r in fr])
+            by_tol = all(r["stop"] == "tol" for r in fr)
+            rel_dot = np.abs(a / e_dot[:len(a)] - 1.0).max()
+            del sim, sysm, st
+            torch.cuda.empty_cache()
+
+            # the same frames with the plain versions on the card (the
+            # plain local step reads the host inside its loops: seconds a
+            # frame)
+            t0 = time.perf_counter()
+            ref = _simulator(torch, scene, out_root, suffix="plain",
+                             use_kernels=False, save_every=10 ** 9)
+            ref.run(ADMM_FRAMES)
+            ref.finalize()
+            b = np.asarray([r["sys_e"] for r in ref.frames])
+            rel = np.abs(a / b - 1.0).max()
+            say(f"admm: {tag}: sysE " + " ".join("%.10e" % v for v in a)
+                + f"; vs plain path max rel {rel:.3e} (tol 1e-3; plain "
+                f"iters {[r['iters'] for r in ref.frames]}, s/frame "
+                f"{np.mean([r['seconds'] for r in ref.frames]):.3f}); vs "
+                f"DOT6 max rel {rel_dot:.3e} ("
+                + ("tol 1e-3" if by_tol else "not gated: a frame hit its cap")
+                + ")")
+            if not rel <= 1e-3:
+                problems.append(f"{tag}: kernel and plain paths disagree: "
+                                f"{rel:.3e}")
+            if by_tol and not rel_dot <= 1e-3:
+                problems.append(f"{tag}: sysE off DOT's by {rel_dot:.3e}")
+            del ref
+            torch.cuda.empty_cache()
+        launches_out["admm"] = total
+        for k in ADMM_KERNELS:
+            if total[k] <= 0:
+                problems.append(f"kernel {k} never launched on the admm path")
+        if problems:
+            raise Fail("admm path: " + "; ".join(problems))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
     """K9-K12 and K5's compact entry point against their plain versions on
     the bar135 plan (f64 and f32), timed with library call and bound."""
@@ -1514,7 +1962,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases",
                     default="probe,build,kernels,golden,main,steppers,"
-                            "scale")
+                            "admm,scale")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1542,12 +1990,15 @@ def main(argv=None):
             phase_kernels(torch, record)
             phase_h0_kernels(torch, record)
             phase_pd_kernels(torch, record)
+            phase_admm_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)
         if "main" in phases:
             phase_main(torch, launches)
         if "steppers" in phases:
             phase_steppers(torch, launches)
+        if "admm" in phases:
+            phase_admm(torch, launches)
         if "scale" in phases:
             phase_scale(torch, record, launches)
     except Exception as exc:  # report the phase's failure and exit non-zero
@@ -1556,7 +2007,7 @@ def main(argv=None):
         say(f"FAIL: {type(exc).__name__}: {exc}")
         return 1
     if set(phases) != {"probe", "build", "kernels", "golden", "main",
-                       "steppers", "scale"}:
+                       "steppers", "admm", "scale"}:
         say(f"partial run ({args.phases}): no result line")
         return 0
 
@@ -1565,7 +2016,7 @@ def main(argv=None):
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         by_path = {path: launches[path][name]
-                   for path in ("main", "steppers", "scale")}
+                   for path in ("main", "steppers", "admm", "scale")}
         at_scale = {k.split("@")[1]: v for k, v in record.items()
                     if k.startswith(name + "@")}
         kernels.append(dict(name=name, route=route, source=source,

@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .steppers.admm import ADMMState
+from .steppers.admm_dd import ADMMDDState
 from .steppers.core import (APPLY_DTYPES, BTDFactor, CoarseFactor, CRFactor,
                             SimState, System)
 
@@ -85,3 +87,37 @@ def state_from_numpy(d, system=None):
         lb_s=t(d.lb_s), lb_t=t(d.lb_t), lb_rho=t(d.lb_rho),
         lb_valid=t(d.lb_valid),
         kc_chol=coarse_from_numpy(getattr(d, "kc_chol", None), dev, fdt))
+
+
+def _common_fields(d, system):
+    """The fields every stepper's state shares, as tensors on `system`'s
+    device in its dtype."""
+    dev, fdt = system.device, system.dtype
+
+    def t(a, dtype=fdt):
+        return torch.as_tensor(np.asarray(a), device=dev, dtype=dtype)
+    return t, dict(
+        x=t(d.x), x_n=t(d.x_n), v=t(d.v), x_tilta=t(d.x_tilta),
+        dx_elastic=t(d.dx_elastic), fixed=t(d.fixed, torch.bool),
+        vel_sign=t(d.vel_sign), released=t(d.released, torch.bool))
+
+
+def admm_state_from_numpy(d, system):
+    """The port's ADMMState from a dot_tpu ADMMState whose leaves went
+    through np.asarray (the PD factor: a P = 1 BTDFactor or the dense
+    (nV, nV) factor, in the solve dtype)."""
+    t, common = _common_fields(d, system)
+    chol = factor_from_numpy(d.chol, system.device)
+    if isinstance(chol, torch.Tensor):
+        chol = chol.to(system._solve_dtype)
+    return ADMMState(chol=chol, equil=t(d.equil), **common)
+
+
+def admm_dd_state_from_numpy(d, system):
+    """The port's ADMMDDState from a dot_tpu ADMMDDState whose leaves went
+    through np.asarray."""
+    t, common = _common_fields(d, system)
+    return ADMMDDState(
+        elem_h=t(d.elem_h), w_vals=t(d.w_vals),
+        cons_chol=t(d.cons_chol, system._solve_dtype),
+        cons_equil=t(d.cons_equil), **common)

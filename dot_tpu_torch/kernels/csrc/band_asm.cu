@@ -23,6 +23,23 @@
 // Second entry point, dot_band_compact: the same values written to the
 // (nUB, 9) compact instead of the band (core.py:733-748 _band_compact), for
 // the chunked rebuild, whose band K12 (band_equil.cu) writes.
+//
+// K19 own_band_assemble (ADMM-DD's augmented local Hessian) is this source
+// too. It replaces dot_tpu/steppers/core.py:811-839 (assemble_own_btd_flat:
+// the same two-stage scheme over the OWN-element tuples, with the subdomain
+// lumped mass) and the two adds of dot_tpu/steppers/admm_dd.py:348-361
+// (+ the masked compact W at w_band_dest in drop mode, + the masked
+// mass-diff diagonal at md_band_diag). Its first launch is
+// band_assemble_kernel on the own-element tables; its second and third are
+// dot_band_add_w below: one thread per W entry adds w free[row] free[col]
+// to its band slot (the slots are unique; a slot >= total marks an entry of
+// an upper-neighbour block, whose transpose lives in `sub`, and is
+// skipped), then one thread per local dof adds md3 free to its diagonal
+// slot. Two kernels, in that order, because a diagonal W entry and the
+// mass-diff term share a slot: each slot is then summed as the plain
+// version sums it ((own + W) + md), with no atomics -- a Cholesky reads
+// the result. Bound: memory, as K5 (the zeroed 354 MB band at bar17
+// dominates); the W pass moves ~0.4M entries x 36 B.
 
 #include <cuda_runtime.h>
 
@@ -113,7 +130,66 @@ int launch(const void* eh, int64_t n_ep, const int64_t* src_block,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_add_w_kernel(const T* __restrict__ w_vals, const T* __restrict__ free3f,
+                  const int64_t* __restrict__ row,
+                  const int64_t* __restrict__ col,
+                  const int64_t* __restrict__ band_dest, int64_t n_w,
+                  int64_t total, T* __restrict__ band) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (t >= n_w) return;
+  const int64_t dd = band_dest[t];
+  if (dd < total) band[dd] += w_vals[t] * free3f[row[t]] * free3f[col[t]];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+band_add_md_kernel(const T* __restrict__ md3, const T* __restrict__ free3f,
+                   const int64_t* __restrict__ md_band_diag, int64_t n_rows,
+                   T* __restrict__ band) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (t < n_rows) band[md_band_diag[t]] += md3[t] * free3f[t];
+}
+
+template <typename T>
+int launch_add_w(const void* w_vals, const void* free3f, const int64_t* row,
+                 const int64_t* col, const int64_t* band_dest, int64_t n_w,
+                 const void* md3, const int64_t* md_band_diag, int64_t n_rows,
+                 int64_t total, void* band, cudaStream_t stream) {
+  if (n_w > 0)
+    band_add_w_kernel<T><<<static_cast<unsigned>((n_w + kThreads - 1) / kThreads),
+                           kThreads, 0, stream>>>(
+        static_cast<const T*>(w_vals), static_cast<const T*>(free3f), row, col,
+        band_dest, n_w, total, static_cast<T*>(band));
+  if (n_rows > 0)
+    band_add_md_kernel<T><<<
+        static_cast<unsigned>((n_rows + kThreads - 1) / kThreads), kThreads, 0,
+        stream>>>(static_cast<const T*>(md3), static_cast<const T*>(free3f),
+                  md_band_diag, n_rows, static_cast<T*>(band));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace dotk5
+
+// K19's W pass on an assembled band: w_vals, row, col, band_dest: (n_w,);
+// free3f, md3, md_band_diag: (n_rows,); band: (total,).
+extern "C" int dot_band_add_w(int dtype, const void* w_vals, const void* free3f,
+                              const void* row, const void* col,
+                              const void* band_dest, long long n_w,
+                              const void* md3, const void* md_band_diag,
+                              long long n_rows, long long total, void* band,
+                              void* stream) {
+  auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dotk5::launch_add_w<float>(w_vals, free3f, i64(row), i64(col),
+                                      i64(band_dest), n_w, md3,
+                                      i64(md_band_diag), n_rows, total, band, s);
+  return dotk5::launch_add_w<double>(w_vals, free3f, i64(row), i64(col),
+                                     i64(band_dest), n_w, md3,
+                                     i64(md_band_diag), n_rows, total, band, s);
+}
 
 extern "C" int dot_band_assemble(int dtype, const void* eh, long long n_ep,
                                  const void* src_block, const void* seg_off,

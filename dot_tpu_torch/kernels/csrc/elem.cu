@@ -39,6 +39,20 @@
 //   so every store instruction of a warp is one coalesced 128 B (f32) row
 //   segment; the dt^2 scale is folded into the store.
 //
+// Two more entry points serve ADMM-DD:
+// dot_ls_trial_energy_parts -- K1 with one step length and one sum per
+//   subdomain slab; replaces trial_e / e0 of
+//   dot_tpu/steppers/admm_dd.py:532-543 (and :274-279). Same bytes and
+//   flops as K1. Design: grid (blocks per slab, slabs); alpha is read at
+//   the block's slab; each block's sum goes to its slab's row of the
+//   partials and one block per slab sums that row in a fixed order: each
+//   subdomain's accept / halve decision reads its own sum.
+// dot_elem_gradient_from_F -- K2 without the gather of x; replaces the
+//   element part of _local_gradient (admm_dd.py:295-311), which takes the
+//   CARRIED local deformation gradients (updated linearly along each
+//   accepted step, never re-gathered). Same scatter and padding rule as K2;
+//   reads 9 + 9 + 3 values and 4 ids per element (100 B in f32).
+//
 // Built with -fmad=false so that products and sums round as the plain
 // PyTorch version's elementwise ops do (see elem.cuh).
 
@@ -102,6 +116,45 @@ sum_partials_kernel(const T* __restrict__ partials, int m, T* __restrict__ out) 
   block_sum_store(v, out);
 }
 
+// K1 per slab: block (b, p) covers elements p * n_slab + b * 256 ... of slab
+// p, reads alpha[p] and writes partials[p * gridDim.x + b]
+template <typename T, int M>
+__global__ void __launch_bounds__(kRedThreads)
+ls_trial_energy_parts_kernel(const T* __restrict__ F0, const T* __restrict__ Fp,
+                             const T* __restrict__ alpha,
+                             const T* __restrict__ u, const T* __restrict__ lam,
+                             const T* __restrict__ w, int n, int n_slab,
+                             T* __restrict__ partials) {
+  const int i = blockIdx.x * kRedThreads + threadIdx.x;
+  const int e = blockIdx.y * n_slab + i;
+  T v = T(0);
+  if (i < n_slab) {
+    T f[9], U[9], s[3], V[9];
+    if (Fp != nullptr) {
+      const T a = alpha[blockIdx.y];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) f[k] = F0[k * n + e] + a * Fp[k * n + e];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) f[k] = F0[k * n + e];
+    }
+    svd3_flip(f, U, s, V);
+    v = Mat<T, M>::psi(s, u[e], lam[e]) * w[e];
+  }
+  block_sum_store(v, partials + blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// one block per slab: sums its m partials as sum_partials_kernel does
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads)
+sum_slab_partials_kernel(const T* __restrict__ partials, int m,
+                         T* __restrict__ out) {
+  T v = T(0);
+  const T* row = partials + blockIdx.x * m;
+  for (int i = threadIdx.x; i < m; i += kRedThreads) v += row[i];
+  block_sum_store(v, out + blockIdx.x);
+}
+
 template <typename T>
 __device__ __forceinline__ void gather_defgrad(const T* __restrict__ x,
                                                const int* __restrict__ conn,
@@ -146,6 +199,36 @@ elem_gradient_kernel(const T* __restrict__ x, const int* __restrict__ conn,
   if (e >= n || conn_s[e] == conn_s[n + e]) return;   // padding element
   T f[9], g[9], U[9], s[3], V[9], P[9], D[4][3];
   gather_defgrad(x, conn, g9, n, e, f, g);
+  svd3_flip(f, U, s, V);
+  Mat<T, M>::first_piola(f, U, s, V, u[e], lam[e], P);
+  const T we = w[e];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) P[k] = P[k] * we;
+  corner_basis(g, D);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const long long v = conn_s[c * n + e];
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      atomicAdd(acc + v * 3 + d, D[c][0] * P[3 * d] + D[c][1] * P[3 * d + 1]
+                                     + D[c][2] * P[3 * d + 2]);
+  }
+}
+
+template <typename T, int M>
+__global__ void __launch_bounds__(kElemThreads)
+elem_gradient_from_F_kernel(const T* __restrict__ F, const int* __restrict__ conn_s,
+                            const T* __restrict__ g9, const T* __restrict__ u,
+                            const T* __restrict__ lam, const T* __restrict__ w,
+                            int n, T* __restrict__ acc) {
+  const int e = blockIdx.x * kElemThreads + threadIdx.x;
+  if (e >= n || conn_s[e] == conn_s[n + e]) return;   // padding element
+  T f[9], g[9], U[9], s[3], V[9], P[9], D[4][3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    f[k] = F[k * n + e];
+    g[k] = g9[k * n + e];
+  }
   svd3_flip(f, U, s, V);
   Mat<T, M>::first_piola(f, U, s, V, u[e], lam[e], P);
   const T we = w[e];
@@ -251,6 +334,29 @@ void launch_trial(const void* F0, const void* Fp, const void* alpha, const void*
 }
 
 template <typename T, int M>
+void launch_trial_parts(const void* F0, const void* Fp, const void* alpha,
+                        const void* u, const void* lam, const void* w, int n,
+                        int n_parts, void* partials, void* out, cudaStream_t st) {
+  const int n_slab = n / n_parts;
+  const int nb = blocks(n_slab, kRedThreads);
+  ls_trial_energy_parts_kernel<T, M><<<dim3(nb, n_parts), kRedThreads, 0, st>>>(
+      (const T*)F0, (const T*)Fp, (const T*)alpha, (const T*)u, (const T*)lam,
+      (const T*)w, n, n_slab, (T*)partials);
+  sum_slab_partials_kernel<T><<<n_parts, kRedThreads, 0, st>>>(
+      (const T*)partials, nb, (T*)out);
+}
+
+template <typename T, int M>
+void launch_grad_from_F(const void* F, const int* conn_s, const void* g9,
+                        const void* u, const void* lam, const void* w, int n,
+                        void* acc, cudaStream_t st) {
+  elem_gradient_from_F_kernel<T, M><<<blocks(n, kElemThreads), kElemThreads, 0,
+                                      st>>>(
+      (const T*)F, conn_s, (const T*)g9, (const T*)u, (const T*)lam,
+      (const T*)w, n, (T*)acc);
+}
+
+template <typename T, int M>
 void launch_grad(const void* x, const int* conn, const int* conn_s, const void* g9,
                  const void* u, const void* lam, const void* w, int n, void* acc,
                  cudaStream_t st) {
@@ -306,6 +412,27 @@ int dot_elem_gradient(int dtype, int mat, const void* x, const void* conn,
                       void* stream) {
   DOTK_DISPATCH(dotk::launch_grad, x, (const int*)conn, (const int*)conn_s, g9, u,
                 lam, w, n, acc, (cudaStream_t)stream)
+}
+
+// F0, Fp: (9, n); alpha, out: (n_parts,); partials: n_parts *
+// dot_trial_partials(n / n_parts) values; n is a multiple of n_parts.
+int dot_ls_trial_energy_parts(int dtype, int mat, const void* F0,
+                              const void* Fp, const void* alpha, const void* u,
+                              const void* lam, const void* w, int n,
+                              int n_parts, void* partials, void* out,
+                              void* stream) {
+  if (n_parts < 1 || n % n_parts != 0) return 1;
+  DOTK_DISPATCH(dotk::launch_trial_parts, F0, Fp, alpha, u, lam, w, n, n_parts,
+                partials, out, (cudaStream_t)stream)
+}
+
+// F: (9, n) deformation gradients; conn_s: (4, n) scatter rows; acc as K2.
+int dot_elem_gradient_from_F(int dtype, int mat, const void* F,
+                             const void* conn_s, const void* g9, const void* u,
+                             const void* lam, const void* w, int n, void* acc,
+                             void* stream) {
+  DOTK_DISPATCH(dotk::launch_grad_from_F, F, (const int*)conn_s, g9, u, lam, w,
+                n, acc, (cudaStream_t)stream)
 }
 
 int dot_elem_hessian(int dtype, int mat, const void* x, const void* conn,

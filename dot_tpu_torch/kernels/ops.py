@@ -1,15 +1,17 @@
-"""Wrappers of the sixteen hand-written kernels of the steppers' paths.
+"""Wrappers of the twenty hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
   kernels/band.py for K5-K8 and K12, kernels/lbfgs.py for K9,
-  kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16) for CPU
-  tensors;
+  kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16,
+  kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
+  K1 / K2) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
   csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
   K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
-  passes: csrc/pd.cu, all through ctypes; K4: triton_qf.py, K9:
+  passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
+  all through ctypes; K4: triton_qf.py, K9:
   triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
   its count in `launches`;
 - raises for any other device.
@@ -27,7 +29,7 @@ import types
 
 import torch
 
-from . import band, coarse, lbfgs, pd, soa
+from . import admm, band, coarse, lbfgs, pd, soa
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
@@ -35,7 +37,10 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "lbfgs_combine", "coarse_assemble", "coarse_restrict",
            "coarse_prolong", "band_compact", "band_equil_scatter",
            "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
-           "pd_scatter", "local_gather_one", "local_scatter_one")
+           "pd_scatter", "local_gather_one", "local_scatter_one",
+           "admm_local_step", "make_pd3", "dtw_scatter", "own_band_assemble",
+           "w_matvec", "w_diag", "ls_trial_energy_parts",
+           "elem_gradient_from_F")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -62,7 +67,14 @@ plain = types.SimpleNamespace(
     pd_gather=pd.pd_gather_ref,
     pd_scatter=pd.pd_scatter_ref,
     local_gather_one=pd.local_gather_one_ref,
-    local_scatter_one=pd.local_scatter_one_ref)
+    local_scatter_one=pd.local_scatter_one_ref,
+    admm_local_step=admm.admm_local_step_ref,
+    make_pd3=admm.make_pd3_ref,
+    dtw_scatter=admm.dtw_scatter_ref,
+    own_band_assemble=admm.own_band_assemble_ref,
+    w_matvec=admm.w_matvec_ref,
+    ls_trial_energy_parts=admm.ls_trial_energy_parts_ref,
+    elem_gradient_from_F=admm.elem_gradient_from_F_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -116,6 +128,17 @@ def _load():
                                                 + [LL, P, P, LL, P, P, P]),
             ("coarse", "dot_coarse_restrict"): [I] + [P] * 6 + [LL, P, P],
             ("coarse", "dot_coarse_prolong"): [I] + [P] * 6 + [LL, P, P],
+            ("admm", "dot_admm_local_step"): [I, I] + [P] * 6 + [I] + [P] * 4,
+            ("admm", "dot_make_pd3"): [I, P, I, P, P],
+            ("admm", "dot_dtw_scatter"): ([I, P, P, P, LL, P, P, LL]
+                                          + [P] * 7),
+            ("admm", "dot_w_matvec"): [I] + [P] * 6 + [LL, I, P, P],
+            ("band_asm", "dot_band_add_w"): ([I] + [P] * 5
+                                             + [LL, P, P, LL, LL, P, P]),
+            ("elem", "dot_ls_trial_energy_parts"): ([I, I] + [P] * 6
+                                                    + [I, I, P, P, P]),
+            ("elem", "dot_elem_gradient_from_F"): ([I, I] + [P] * 6
+                                                   + [I, P, P]),
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -822,3 +845,218 @@ def local_scatter_one(z, d, l2g, valid, part, n_vert):
                                 _stream(z))
     _ok(name, err)
     return out
+
+
+# ----------------------------------------------------------------------
+# K17-K20 and the added entry points of K1 / K2: the two ADMM steppers
+# ----------------------------------------------------------------------
+def admm_local_step(Dx, u9, w, vol_dtsq, mu, lam, mat, want_counts=False):
+    """K17: (z, du), each (9, N): ADMM-PD's per-element local step on
+    Dx + u9 (see kernels/admm.py). Dx, u9: (9, N); w, vol_dtsq, mu, lam:
+    (N,). With `want_counts` also a (2, N) int32 tensor: each element's
+    Newton iterations and energy evaluations."""
+    name = "admm_local_step"
+    n = Dx.shape[-1]
+    _check(name, Dx, dict(Dx=Dx, u9=u9, w=w, vol_dtsq=vol_dtsq, mu=mu,
+                          lam=lam),
+           dict(Dx=(9, n), u9=(9, n), w=(n,), vol_dtsq=(n,), mu=(n,),
+                lam=(n,)))
+    if not _route(name, Dx):
+        return admm.admm_local_step_ref(Dx, u9, w, vol_dtsq, mu, lam, mat,
+                                        want_counts)
+    lib = _load()
+    z = torch.empty_like(Dx)
+    du = torch.empty_like(Dx)
+    counts = (torch.empty((2, n), dtype=torch.int32, device=Dx.device)
+              if want_counts else None)
+    err = lib.admm_local_step(_DTYPES[Dx.dtype], mat.code, _ptr(Dx),
+                              _ptr(u9), _ptr(w), _ptr(vol_dtsq), _ptr(mu),
+                              _ptr(lam), n, _ptr(z), _ptr(du), _ptr(counts),
+                              _stream(Dx))
+    _ok(name, err)
+    return (z, du, counts) if want_counts else (z, du)
+
+
+def make_pd3(a6):
+    """K17's SPD projection on its own (the check of that device
+    function): (6, N) packed symmetric 3x3 matrices, eigenvalues clamped
+    at 0."""
+    name = "make_pd3"
+    n = a6.shape[-1]
+    _check(name, a6, dict(a6=a6), dict(a6=(6, n)))
+    if not _route(name, a6):
+        return admm.make_pd3_ref(a6)
+    lib = _load()
+    out = torch.empty_like(a6)
+    err = lib.make_pd3(_DTYPES[a6.dtype], _ptr(a6), n, _ptr(out),
+                       _stream(a6))
+    _ok(name, err)
+    return out
+
+
+def dtw_scatter(M9, g9, w, perm, segids, seg_off, x, mass=None, base=None,
+                offset=None, free=None):
+    """K18: (nV, 3) per-vertex sums of D^T (w M) over the sorted
+    (element, corner) incidences, finished as s + mass x (given `mass`) or
+    (base + s - offset) free + x (1 - free) (given base, offset and free).
+    M9, g9: (9, N); w: (N,); perm, segids: (4N,) int64; seg_off: (nV + 2,);
+    x, base, offset: (nV, 3); mass, free: (nV,)."""
+    name, dev = "dtw_scatter", M9.device
+    dt = _float(name, M9)
+    n, nv = M9.shape[-1], x.shape[0]
+    if (mass is None) == (base is None) or (
+            base is not None and (offset is None or free is None)):
+        raise ValueError(f"{name}: give mass, or base, offset and free")
+    _need(name, "M9", M9, dev, dt, (9, n))
+    _need(name, "g9", g9, dev, dt, (9, n))
+    _need(name, "w", w, dev, dt, (n,))
+    _need(name, "perm", perm, dev, torch.int64, (4 * n,))
+    _need(name, "segids", segids, dev, torch.int64, (4 * n,))
+    _need(name, "seg_off", seg_off, dev, torch.int64, (nv + 2,))
+    _need(name, "x", x, dev, dt, (nv, 3))
+    for key, t, shape in (("mass", mass, (nv,)), ("base", base, (nv, 3)),
+                          ("offset", offset, (nv, 3)), ("free", free, (nv,))):
+        if t is not None:
+            _need(name, key, t, dev, dt, shape)
+    if not _route(name, M9):
+        return admm.dtw_scatter_ref(M9, g9, w, perm, segids, seg_off, x,
+                                    mass, base, offset, free)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.dtw_scatter(_DTYPES[dt], _ptr(M9), _ptr(g9), _ptr(w), n,
+                          _ptr(perm), _ptr(seg_off), nv, _ptr(x), _ptr(mass),
+                          _ptr(base), _ptr(offset), _ptr(free), _ptr(out),
+                          _stream(M9))
+    _ok(name, err)
+    return out
+
+
+def _w_tables(name, ref, free3f, wp, w_vals):
+    dev, n_rows = ref.device, free3f.shape[0]
+    n_w = wp.row.shape[0]
+    _need(name, "w_vals", w_vals, dev, ref.dtype, (n_w,))
+    _need(name, "free3f", free3f, dev, ref.dtype, (n_rows,))
+    _need(name, "row", wp.row, dev, torch.int64, (n_w,))
+    _need(name, "col", wp.col, dev, torch.int64, (n_w,))
+    _need(name, "row_off", wp.row_off, dev, torch.int64, (n_rows + 1,))
+    _need(name, "md3", wp.md3, dev, ref.dtype, (n_rows,))
+    return n_rows, n_w
+
+
+def own_band_assemble(elem_h, freef, mass_flat, plan, w_vals, free3f, wp):
+    """K19: the flat [diag | sub] band (plan.total,) of ADMM-DD's augmented
+    local Hessians: the own-element blocks of the (144, nEp) element
+    Hessians with the subdomain lumped mass (plan: the own band.BandPlan;
+    freef, mass_flat: (P N,)), + the masked compact W (w_vals (nUW,),
+    free3f (P n3,), wp: admm.WPlan with band slots) and + the masked
+    mass-diff diagonal."""
+    name, dev = "own_band_assemble", elem_h.device
+    dt = _float(name, elem_h)
+    n_ub = plan.ub_row.shape[0]
+    _need(name, "elem_h", elem_h, dev, dt, (144, None))
+    _need(name, "freef", freef, dev, dt, (None,))
+    _need(name, "mass_flat", mass_flat, dev, dt, freef.shape)
+    i64 = torch.int64
+    _need(name, "src_block", plan.src_block, dev, i64, (None,))
+    _need(name, "seg_off", plan.seg_off, dev, i64, (n_ub + 1,))
+    _need(name, "ub_row", plan.ub_row, dev, i64, (n_ub,))
+    _need(name, "ub_col", plan.ub_col, dev, i64, (n_ub,))
+    _need(name, "dest", plan.dest, dev, i64, (n_ub * 9,))
+    _need(name, "pad_diag", plan.pad_diag, dev, i64, (None,))
+    n_rows, n_w = _w_tables(name, elem_h, free3f, wp, w_vals)
+    if wp.band_dest is None:
+        raise ValueError(f"{name}: the W plan has no band slots")
+    _need(name, "band_dest", wp.band_dest, dev, i64, (n_w,))
+    _need(name, "md_band_diag", wp.md_band_diag, dev, i64, (n_rows,))
+    if not _route(name, elem_h):
+        return admm.own_band_assemble_ref(elem_h, freef, mass_flat, plan,
+                                          w_vals, free3f, wp)
+    lib = _load()
+    flat = torch.zeros(plan.total, dtype=dt, device=dev)
+    err = lib.band_assemble(
+        _DTYPES[dt], _ptr(elem_h), elem_h.shape[1], _ptr(plan.src_block),
+        _ptr(plan.seg_off), _ptr(plan.ub_row), _ptr(plan.ub_col),
+        _ptr(freef), _ptr(mass_flat), _ptr(plan.dest), n_ub,
+        _ptr(plan.pad_diag), plan.pad_diag.shape[0], plan.total, _ptr(flat),
+        _stream(elem_h))
+    if err == 0:
+        err = lib.band_add_w(
+            _DTYPES[dt], _ptr(w_vals), _ptr(free3f), _ptr(wp.row),
+            _ptr(wp.col), _ptr(wp.band_dest), n_w, _ptr(wp.md3),
+            _ptr(wp.md_band_diag), n_rows, plan.total, _ptr(flat),
+            _stream(elem_h))
+    _ok(name, err)
+    return flat
+
+
+def w_matvec(w_vals, free3f, a, wp, diag_only=False):
+    """K20: (P n3,) y = W a of ADMM-DD's compact interface-weight operator,
+    masked to free rows and columns, plus the masked mass-diff diagonal;
+    with `diag_only` (a None) the operator's diagonal (counted as
+    `w_diag`). w_vals: (nUW,); free3f, a: (P n3,); wp: admm.WPlan."""
+    name = "w_diag" if diag_only else "w_matvec"
+    n_rows, _ = _w_tables(name, free3f, free3f, wp, w_vals)
+    if diag_only != (a is None):
+        raise ValueError(f"{name}: `a` is given exactly without diag_only")
+    if a is not None:
+        _need(name, "a", a, free3f.device, free3f.dtype, (n_rows,))
+    _float(name, free3f)
+    if not _route(name, free3f):
+        return admm.w_matvec_ref(w_vals, free3f, a, wp, diag_only)
+    lib = _load()
+    out = torch.empty_like(free3f)
+    err = lib.w_matvec(_DTYPES[free3f.dtype], _ptr(w_vals), _ptr(free3f),
+                       _ptr(a), _ptr(wp.col), _ptr(wp.row_off), _ptr(wp.md3),
+                       n_rows, int(bool(diag_only)), _ptr(out),
+                       _stream(free3f))
+    _ok(name, err)
+    return out
+
+
+def ls_trial_energy_parts(F0, Fp, alpha, u, lam, w, mat, n_parts):
+    """K1 per slab: (P,) sums of w Psi(sigma(F0 + alpha_p Fp)) over the P
+    equal element slabs of the (9, N) buffers, alpha (P,) one step per slab
+    (Fp and alpha may be None: F = F0)."""
+    name = "ls_trial_energy_parts"
+    n = F0.shape[-1]
+    if (Fp is None) != (alpha is None):
+        raise ValueError(f"{name}: a direction Fp and its alphas go together")
+    if n_parts < 1 or n % n_parts:
+        raise ValueError(f"{name}: {n} elements in {n_parts} slabs")
+    _check(name, F0, dict(F0=F0, Fp=Fp, alpha=alpha, u=u, lam=lam, w=w),
+           dict(F0=(9, n), Fp=(9, n), alpha=(n_parts,), u=(n,), lam=(n,),
+                w=(n,)))
+    if not _route(name, F0):
+        return admm.ls_trial_energy_parts_ref(F0, Fp, alpha, u, lam, w, mat,
+                                              n_parts)
+    lib = _load()
+    part = torch.empty(n_parts * lib.trial_partials(n // n_parts),
+                       dtype=F0.dtype, device=F0.device)
+    out = torch.empty(n_parts, dtype=F0.dtype, device=F0.device)
+    err = lib.ls_trial_energy_parts(
+        _DTYPES[F0.dtype], mat.code, _ptr(F0), _ptr(Fp), _ptr(alpha),
+        _ptr(u), _ptr(lam), _ptr(w), n, n_parts, _ptr(part), _ptr(out),
+        _stream(F0))
+    _ok(name, err)
+    return out
+
+
+def elem_gradient_from_F(F, conn_s, g9, u, lam, w, mat, n_rows):
+    """K2 from carried deformation gradients: per-element D (w P) at F
+    (9, N) scattered into an (n_rows + 1, 3) accumulator (last row: padding
+    elements, skipped). conn_s: (4, N) int32 scatter row ids."""
+    name = "elem_gradient_from_F"
+    n = F.shape[-1]
+    _check(name, F, dict(F=F, conn_s=conn_s, g9=g9, u=u, lam=lam, w=w),
+           dict(F=(9, n), conn_s=(4, n), g9=(9, n), u=(n,), lam=(n,),
+                w=(n,)))
+    if not _route(name, F):
+        return admm.elem_gradient_from_F_ref(F, conn_s, g9, u, lam, w, mat,
+                                             n_rows)
+    lib = _load()
+    acc = torch.zeros((n_rows + 1, 3), dtype=F.dtype, device=F.device)
+    err = lib.elem_gradient_from_F(
+        _DTYPES[F.dtype], mat.code, _ptr(F), _ptr(conn_s), _ptr(g9), _ptr(u),
+        _ptr(lam), _ptr(w), n, _ptr(acc), _stream(F))
+    _ok(name, err)
+    return acc

@@ -2,16 +2,20 @@
 
     python -m dot_tpu_torch.profiling [--scene bar17|bar135|bar17-lbfgs|
                                        bar17-gsdd|bar17-ws5|bar17-newton|
-                                       bar17-lbfgsh|bar17-lbfgsjh]
+                                       bar17-lbfgsh|bar17-lbfgsjh|
+                                       bar17-admm|bar17-admmdd]
                                       [--frames 3] [--out output/profile]
+                                      [--no-trace]
 
 Builds a bar twist scene (tools/scalability.py's template, f32, relTol
 1e-5): `--scene bar17` (the default: 56x16x16 cells, 86,016 tets,
 DOT 6) or `--scene bar135` (131x31x31 cells, 755,346 tets, DOT -1 1024:
 133 parts, the coarse space and the chunked bf16 rebuild); the other
 scenes are bar17 under `timeStepper LBFGS` (LBFGS-PD), `GSDD 6`, `DOT 6`
-with `warmStart 5`, `Newton`, `LBFGSH` and `LBFGSJH 6`. It runs one
-warm-up frame, then
+with `warmStart 5`, `Newton`, `LBFGSH`, `LBFGSJH 6`, `ADMM` (ADMM-PD) and
+`ADMMDD 6` (the two ADMM steppers take hundreds of iterations a frame:
+profile them with `--frames 1 --no-trace`, which skips the chrome trace).
+It runs one warm-up frame, then
 1. times `--frames` frames as they run, then `--frames` more with the
    H0 rebuild (and inside it the element Hessians, the coarse factor, the
    assembly and the factorization, or on the chunked path the compact,
@@ -19,11 +23,13 @@ warm-up frame, then
    apply), the line search, the quadratic form and the gradient, and the
    other steppers' spans (`pd_factor` = build_pd_factor, `pd_solve`,
    `gsdd_sweep` = GSDDStepper.sweep, `newton_factor` =
-   NewtonStepper.factor, `hessian_diag`) wrapped in synchronised host timers (the syncs perturb the total a little;
+   NewtonStepper.factor, `hessian_diag`; ADMM-PD's `local_step`, ADMM-DD's
+   `local_factor`, `local_gradient`, `init_dual`, `update_weights` and
+   `solve_local`) wrapped in synchronised host timers (the syncs perturb the total a little;
    the split is what this reads);
 2. profiles `--frames` more frames with torch.profiler and prints the
    device time by kernel name, the device time and launches per frame of
-   each hand-written kernel (K1-K16, with the wrappers' launch counts),
+   each hand-written kernel (K1-K20, with the wrappers' launch counts),
    the device busy time per frame and the idle share (1 - busy /
    unwrapped frame time), and writes the chrome trace under --out.
 Needs a CUDA device.
@@ -76,6 +82,15 @@ KERNEL_NAMES = {
     "pd_scatter": ("pd_scatter_kernel",),
     "local_gather_one": (),     # K8's h0_gather_kernel on one row
     "local_scatter_one": ("local_scatter_kernel",),
+    "admm_local_step": ("admm_local_step_kernel",),
+    "make_pd3": ("make_pd3_kernel",),       # inside K17 on the main path
+    "dtw_scatter": ("dtw_scatter_kernel",),
+    # K19's first pass is K5's band_assemble_kernel on the own tables
+    "own_band_assemble": ("band_add_w_kernel", "band_add_md_kernel"),
+    "w_matvec": ("w_matvec_kernel",),
+    "w_diag": (),                           # w_matvec_kernel's diagonal flag
+    "ls_trial_energy_parts": ("ls_trial_energy_parts_kernel",),
+    "elem_gradient_from_F": ("elem_gradient_from_F_kernel",),
 }
 # spans inside rebuild_h0 and h0_apply (timed, not subtracted from the
 # host rest): the unchunked path assembles and factorizes, the chunked one
@@ -89,7 +104,15 @@ APPLY_SPANS = ("_coarse_apply",)
 SYSTEM_SPANS = {"pd_factor": "build_pd_factor", "pd_solve": "pd_solve",
                 "hessian_diag": "hessian_diag",
                 "subdomain_solve": "subdomain_solve"}
-STEPPER_SPANS = {"gsdd_sweep": "sweep", "newton_factor": "factor"}
+STEPPER_SPANS = {"gsdd_sweep": "sweep", "newton_factor": "factor",
+                 "local_step": "_local_step",
+                 "local_factor": "_local_h_factor",
+                 "local_gradient": "_local_gradient",
+                 "init_dual": "_init_dual",
+                 "update_weights": "update_weights"}
+# ADMM-DD's local solves run outside any other span (h0_apply holds the
+# quasi-Newton steppers')
+ADMM_DD_SYSTEM_SPANS = {"solve_local": "solve_local"}
 _B17 = (56, 16, 16)
 # scene -> (cells, timeStepper line, warmStart)
 SCENES = {"bar17": (_B17, "DOT 6", 2),
@@ -99,7 +122,9 @@ SCENES = {"bar17": (_B17, "DOT 6", 2),
           "bar17-ws5": (_B17, "DOT 6", 5),
           "bar17-newton": (_B17, "Newton", 2),
           "bar17-lbfgsh": (_B17, "LBFGSH", 2),
-          "bar17-lbfgsjh": (_B17, "LBFGSJH 6", 2)}
+          "bar17-lbfgsjh": (_B17, "LBFGSJH 6", 2),
+          "bar17-admm": (_B17, "ADMM", 2),
+          "bar17-admmdd": (_B17, "ADMMDD 6", 2)}
 
 SCENE = """energy FCR
 timeStepper {stepper}
@@ -130,10 +155,10 @@ def wrap_timed(obj, name, acc, module=None, label=None):
     return fn
 
 
-def profile_frames(sim, frames, out):
+def profile_frames(sim, frames, out, trace=True):
     """Print the timed split and the device profile of `frames` frames
     (three passes) of a warmed-up CUDA Simulator; write the trace to
-    out/frame_trace.json."""
+    out/frame_trace.json unless `trace` is False."""
     n0 = len(sim.frames)
     sim.run(frames)
     spf = sum(r["seconds"] for r in sim.frames[n0:]) / frames
@@ -145,7 +170,10 @@ def profile_frames(sim, frames, out):
         + REBUILD_SPANS + APPLY_SPANS
     for name in names:
         wrap_timed(sysm, name, acc)
-    for label, name in SYSTEM_SPANS.items():
+    sys_spans = dict(SYSTEM_SPANS)
+    if hasattr(sim.stepper, "_local_h_factor"):
+        sys_spans.update(ADMM_DD_SYSTEM_SPANS)
+    for label, name in sys_spans.items():
         wrap_timed(sysm, name, acc, label=label)
     spans = {label: name for label, name in STEPPER_SPANS.items()
              if hasattr(sim.stepper, name)}
@@ -161,7 +189,7 @@ def profile_frames(sim, frames, out):
     try:
         sim.run(frames)
     finally:
-        for name in names + tuple(SYSTEM_SPANS.values()):
+        for name in names + tuple(sys_spans.values()):
             delattr(sysm, name)
         for name in spans.values():
             delattr(sim.stepper, name)
@@ -175,12 +203,15 @@ def profile_frames(sim, frames, out):
     inner = {"rebuild_h0": REBUILD_SPANS, "h0_apply": APPLY_SPANS,
              "gsdd_sweep": ("subdomain_solve", "line_search", "gradient"),
              "newton_factor": ("element_hessians", "assemble_subdomains",
-                               "factorize")}
+                               "factorize"),
+             "local_factor": ("factorize",)}
     nested = REBUILD_SPANS + APPLY_SPANS + ("subdomain_solve",)
     if "gsdd_sweep" in spans:       # the sweep holds its line searches
         nested += ("line_search", "gradient")
     if "newton_factor" in spans:    # Newton's factor holds these
         nested += ("element_hessians", "assemble_subdomains", "factorize")
+    if "local_factor" in spans:     # ADMM-DD: the local factor holds this
+        nested += ("factorize",)
     for k, v in acc.most_common():
         if k in nested:
             continue
@@ -226,8 +257,9 @@ def profile_frames(sim, frames, out):
               f"{sum(e.self_device_time_total for e in mine) / 1e3 / frames:9.3f}"
               f" {sum(e.count for e in mine) / frames:8.1f}"
               f" {launches[kname] / frames:8.1f}")
-    os.makedirs(out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out, "frame_trace.json"))
+    if trace:
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "frame_trace.json"))
     print(f"per-frame iterations {[r['iters'] for r in sim.frames]}")
 
 
@@ -236,6 +268,8 @@ def main(argv=None):
     ap.add_argument("--scene", choices=sorted(SCENES), default="bar17")
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--out", default="output/profile")
+    ap.add_argument("--no-trace", action="store_true",
+                    help="do not write the chrome trace")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA device (none found)")
@@ -261,7 +295,7 @@ def main(argv=None):
               f"{time.perf_counter() - t0:.1f} s; "
               f"{torch.cuda.get_device_name(0)}")
         sim.run(1)
-        profile_frames(sim, args.frames, args.out)
+        profile_frames(sim, args.frames, args.out, not args.no_trace)
         sim.finalize()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -13,10 +13,13 @@ Per run directory:
   log.txt           tolerances, inner iter counts, sysE per step
   finalResult_mesh.msh
 
-This port runs `timeStepper DOT | GSDD | Newton | LBFGS | LBFGSH | LBFGSHI
-| LBFGSJH` with `h0Refresh 1` (the reference's per-step refactorization).
-`timeStepper ADMM | ADMMDD`, the other h0Refresh policies, restart and the
-viewer raise NotImplementedError: they are queue 1 of ROADMAP.md.
+This port runs all nine steppers at dim 3: `timeStepper DOT | GSDD | Newton
+| LBFGS | LBFGSH | LBFGSHI | LBFGSJH | ADMM | ADMMDD`, the quasi-Newton ones
+with `h0Refresh 1` (the reference's per-step refactorization; the key does
+not apply to Newton and the two ADMM steppers, which own their factors'
+lifetimes, and is ignored for them as dot_tpu ignores it). The other
+h0Refresh policies, restart and the viewer raise NotImplementedError: they
+are queue 1 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from . import io as meshio
 from . import partition, scripts
 from .config import Config
 from .mesh import Mesh
-from .steppers import (DOTStepper, GSDDStepper, LBFGSH, LBFGSHI, LBFGSJH,
-                       LBFGSPD, NewtonStepper, System)
+from .steppers import (ADMMDDStepper, ADMMPDStepper, DOTStepper, GSDDStepper,
+                       LBFGSH, LBFGSHI, LBFGSJH, LBFGSPD, NewtonStepper,
+                       System)
 from .steppers.core import APPLY_DTYPES
 
 DEFAULT_REL_TOL = 1.0e-5   # README: "1e-5 CN ... used in all experiments"
@@ -93,12 +97,15 @@ def _unsupported(what):
     return NotImplementedError(
         f"{what} is not ported to dot_tpu_torch yet (ROADMAP.md queue 1); "
         "the port runs 'timeStepper DOT, GSDD, Newton, LBFGS, LBFGSH, "
-        "LBFGSHI, LBFGSJH' with 'h0Refresh 1'")
+        "LBFGSHI, LBFGSJH, ADMM, ADMMDD' at dim 3, the quasi-Newton steppers "
+        "with 'h0Refresh 1'")
 
 
 STEPPERS = {"DOT": DOTStepper, "GSDD": GSDDStepper, "Newton": NewtonStepper,
             "LBFGS": LBFGSPD, "LBFGSH": LBFGSH, "LBFGSHI": LBFGSHI,
-            "LBFGSJH": LBFGSJH}
+            "LBFGSJH": LBFGSJH, "ADMM": ADMMPDStepper, "ADMMDD": ADMMDDStepper}
+# the steppers the h0Refresh key applies to (dot_tpu/sim.py:212-218)
+QUASI_NEWTON = ("DOT", "GSDD", "LBFGS", "LBFGSH", "LBFGSHI", "LBFGSJH")
 
 
 class Simulator:
@@ -112,14 +119,11 @@ class Simulator:
         scene's mesh, stepper and partition count (reused instead of
         partitioning again)."""
         device = resolve_device(device)
-        if cfg.time_stepper in ("ADMM", "ADMMDD"):
-            raise _unsupported(f"timeStepper {cfg.time_stepper}")
         if cfg.time_stepper not in STEPPERS:
             raise NotImplementedError(
-                f"timeStepper {cfg.time_stepper} is unknown (dot_tpu has "
-                "DOT, GSDD, Newton, ADMM, ADMMDD, LBFGS, LBFGSH, LBFGSHI, "
-                "LBFGSJH)")
-        if cfg.h0_refresh != 1:
+                f"timeStepper {cfg.time_stepper} is unknown (the port runs "
+                + ", ".join(STEPPERS) + ")")
+        if cfg.h0_refresh != 1 and cfg.time_stepper in QUASI_NEWTON:
             raise _unsupported(f"h0Refresh {cfg.h0_refresh}")
         if cfg.restart:
             raise _unsupported("restart")
@@ -152,13 +156,15 @@ class Simulator:
         dtype = dtype if dtype is not None else pick_dtype(None, self.device)
         # the plan each stepper runs on (dot_tpu/sim.py:131-196): DOT and
         # GSDD the element partition, Newton and LBFGS-H/HI the whole mesh
-        # as one part, LBFGS-JH a disjoint node partition, LBFGS-PD none
+        # as one part, LBFGS-JH a disjoint node partition, LBFGS-PD and
+        # ADMM-PD none, ADMM-DD the element partition with its own-element
+        # tables and the ADMM-DD plan on top
         st = cfg.time_stepper
-        if st in ("DOT", "GSDD", "LBFGSJH"):
+        if st in ("DOT", "GSDD", "LBFGSJH", "ADMMDD"):
             n_parts = partition.partition_amt_from_config(cfg,
                                                           self.mesh.n_vert)
         else:
-            n_parts = 0 if st == "LBFGS" else 1
+            n_parts = 0 if st in ("LBFGS", "ADMM") else 1
         if plan is not None and plan.n_parts != n_parts:
             raise ValueError(f"plan has {plan.n_parts} parts; the scene "
                              f"asks for {n_parts}")
@@ -167,7 +173,10 @@ class Simulator:
         elif plan is None and st in ("DOT", "GSDD"):
             plan = partition.build_plan(self.mesh, n_parts,
                                         scheme=cfg.partition_scheme)
-        elif plan is None and st != "LBFGS":
+        elif plan is None and st == "ADMMDD":
+            plan = partition.build_plan(self.mesh, n_parts, own_plan=True,
+                                        scheme=cfg.partition_scheme)
+        elif plan is None and n_parts == 1:
             plan = partition.build_plan(self.mesh, 1)
         # applyDtype -> System.apply_dtype (dot_tpu/sim.py:126-136); GSDD's
         # sweep never applies the coarse correction, so it is not built
@@ -177,8 +186,21 @@ class Simulator:
             apply_dtype=APPLY_DTYPES[cfg.apply_dtype],
             factor_dtype=torch.bfloat16 if st == "LBFGSHI" else None,
             use_coarse=False if st == "GSDD" else None)
-        self.stepper = STEPPERS[st](self.system, self.script_data,
-                                    warm_start_opt=cfg.warm_start)
+        if st == "ADMMDD":
+            if plan.n_own == 0 or (plan.own_udest is None
+                                   and plan.own_band_dest is None):
+                raise ValueError("ADMMDD needs a plan built with "
+                                 "own_plan=True")
+            self.stepper = ADMMDDStepper(
+                self.system, self.script_data,
+                partition.build_admm_dd_plan(self.mesh, plan),
+                warm_start_opt=cfg.warm_start)
+        elif st == "ADMM":
+            self.stepper = ADMMPDStepper(self.system, self.script_data,
+                                         max_iter=cfg.max_iter_apd)
+        else:
+            self.stepper = STEPPERS[st](self.system, self.script_data,
+                                        warm_start_opt=cfg.warm_start)
         if (plan is not None and plan.part is not None
                 and plan.n_parts > 1):
             meshio.write_partition_debug(output_dir, self.mesh, plan.part)

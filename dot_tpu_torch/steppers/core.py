@@ -297,6 +297,36 @@ class System:
                 dest=t(p.band_dest, torch.int64),
                 pad_diag=t(p.band_pad_diag, torch.int64),
                 total=P * nb * bs * bs + P * (nb - 1) * bs * bs)
+        # own-element-only tables (build_plan(..., own_plan=True): ADMM-DD's
+        # local Hessians, dot_tpu core.py:381-407): scalar-level on dense
+        # plans, a second BandPlan on banded ones
+        self.own_band_plan = None
+        self.n_own_unique = 0
+        n_own = int(getattr(p, "n_own", 0))
+        if getattr(p, "own_udest", None) is not None:
+            i3 = np.arange(3)
+            comp = ((p.asm_a[:n_own, None, None] * 4
+                     + p.asm_b[:n_own, None, None]) * 9
+                    + i3[None, :, None] * 3 + i3[None, None, :])
+            gidx = comp.astype(np.int64) * self.n_elem_p \
+                + p.asm_elem[:n_own, None, None].astype(np.int64)
+            self.own_gather_idx = t(gidx.reshape(-1)[p.own_perm], torch.int64)
+            self.own_stage1 = t(p.own_stage1, torch.int64)
+            self.own_udest = t(p.own_udest, torch.int64)
+            self.n_own_unique = int(p.own_udest.shape[0])
+        if getattr(p, "own_band_dest", None) is not None:
+            P, bs, nb = self.n_parts, self.band_bs, self.band_nb
+            n_oub = int(p.own_ub_row.shape[0])
+            self.own_band_plan = band.BandPlan(
+                src_block=t(src_block[:n_own][p.own_block_perm], torch.int64),
+                stage1=t(p.own_block_stage1, torch.int64),
+                seg_off=t(band.csr_offsets(p.own_block_stage1, n_oub)),
+                ub_row=t(p.own_ub_row, torch.int64),
+                ub_col=t(p.own_ub_col, torch.int64),
+                diag_ub=t(p.own_diag_ub, torch.int64),
+                dest=t(p.own_band_dest, torch.int64),
+                pad_diag=self.band_plan.pad_diag,
+                total=self.band_plan.total)
         if self.use_coarse:
             self.coarse_plan = coarse.build_plan(mesh, p, dtype, self.device)
 
@@ -453,6 +483,43 @@ class System:
             + (1.0 - f3)
         Hd.diagonal(dim1=1, dim2=2).add_(diag)
         return Hd
+
+    def assemble_subdomains_local_only(self, elem_h, fixed, mass_local):
+        """Dense (P, n3, n3) subdomain Hessians from OWN elements only (no
+        interface completion) with the subdomain lumped mass `mass_local`
+        (P, N): the elasticity + mass part of ADMM-DD's augmented local
+        Hessian (reference: computeHessianProxy_subdomain,
+        ADMMDDTimeStepper.cpp:1540+; dot_tpu core.py:790-809). Plain torch,
+        as the dense assemble_subdomains."""
+        P, n3 = self.n_parts, self.n3
+        vals = elem_h.reshape(-1)[self.own_gather_idx]
+        compact = torch.zeros(self.n_own_unique, dtype=self.dtype,
+                              device=self.device)
+        compact.index_add_(0, self.own_stage1, vals)
+        Hd = torch.zeros(P * n3 * n3, dtype=self.dtype, device=self.device)
+        Hd[self.own_udest] = compact
+        Hd = Hd.reshape(P, n3, n3)
+        f3 = torch.repeat_interleave(self._free(fixed).to(self.dtype), 3,
+                                     dim=-1)
+        Hd = Hd * f3[:, :, None] * f3[:, None, :]
+        diag = torch.repeat_interleave(mass_local, 3, dim=-1) * f3 \
+            + (1.0 - f3)
+        Hd.diagonal(dim1=1, dim2=2).add_(diag)
+        return Hd
+
+    def assemble_own_btd_flat(self, elem_h, fixed, mass_local, w_vals,
+                              free3f, wp):
+        """The banded augmented local Hessians of ADMM-DD as the flat
+        [diag | sub] band (K19): the own-element blocks with the subdomain
+        lumped mass on free diagonals and unit fixed / padding rows
+        (dot_tpu core.py:811-839), plus the masked compact W `w_vals` and
+        the masked mass-diff diagonal at the band slots of `wp` (an
+        admm.WPlan; dot_tpu admm_dd.py:352-357; upper-neighbour entries of
+        W are dropped like the assembly's)."""
+        freef = self._free(fixed).to(self.dtype).reshape(-1)
+        return self.k.own_band_assemble(
+            elem_h, freef, mass_local.reshape(-1).contiguous(),
+            self.own_band_plan, w_vals, free3f, wp)
 
     def _assemble_btd(self, elem_h, fixed):
         """Block-tridiagonal assembly (K5) into the flat [diag | sub]

@@ -84,7 +84,8 @@ def test_cli_refuses_unported_modes(tmp_path):
 
 
 @pytest.mark.parametrize("stepper,extra", [
-    ("ADMM", ""), ("ADMMDD 2", ""), ("LBFGS", "h0Refresh 4"),
+    ("ADMM", "restart status0"), ("ADMMDD 2", "restart status0"),
+    ("LBFGS", "h0Refresh 4"),
     ("DOT 2", "h0Refresh -1"), ("DOT 2", "restart status0")])
 def test_unported_configurations_raise(tmp_path, stepper, extra):
     cfg = Config.load(_scene(tmp_path, stepper, extra))
