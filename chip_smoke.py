@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale,dim2]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
@@ -36,7 +36,15 @@ result line):
            and K18 with both epilogues at the ADMM-PD shapes on random,
            inverted and near-degenerate Dx + u; K19, K20 (and its diagonal
            flag) and the per-slab / from-F entry points of K1 / K2 on the
-           real bar17 own-element plan (P 6, the ADMM-DD plan's W)
+           real bar17 own-element plan (P 6, the ADMM-DD plan's W); the 2D
+           device functions (svd2_flip, eigh2, make_pd2, the three
+           materials) through their check entries, defgrad2d and K21-K24 at
+           the full-size 2D scene's shapes (spikes at resolution 20,000:
+           19,873 triangles, 10,171 vertices, a (20,342)^2 dense matrix) on
+           random, inverted, near-degenerate and rest-state deformations
+           (`--phases kernels2d` runs these alone); K6 above its panel limit
+           on a 2,000^2 block (the host's split: 2 launches; an indefinite
+           block flagged and NaN)
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -83,11 +91,24 @@ result line):
            stage, the two mat-vecs on Lc^{-1}), f64 and f32, timed with
            library and bound; the first 2 frames again with the plain
            versions (sysE rtol 1e-3)
+  dim2     the 2D path through dim2.Sim2D on scene files written here:
+           the spikes stretch golden (resolution 200, Newton, f64, kernels
+           on: sysE against the recorded trace at rtol 2e-4, z = 0, the
+           output files, no .msh), then the same scene at resolution 20,000
+           in f32 (f64 instead, with a printed finding, if f32 does not
+           reach relTol 1e-5): 1 warm-up + 3 timed frames, every frame
+           finite and stopped by tol or rel_dec, z = 0, K21-K24 launched
+           (K23 and K24 once an iteration), peak memory; 2 more frames with
+           the assembly (K23 + K24), the library Cholesky, the triangular
+           solves, the line search (K21) and the gradient (K22) timed; the
+           same frames with the plain versions (sysE rtol 1e-3)
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON record (per kernel: launches of all paths' runs and
-launches_by_path {main, steppers, admm, scale}; times at the bar17 shapes, and
-under "bar135" K6's and K7's at the bar135 shapes) and {"ok": true, "device": {...}}. Exits
-non-zero without a result line when no CUDA device is present.
+launches_by_path {main, steppers, admm, scale, dim2}; times at the bar17
+shapes, the 2D kernels' at the full-size spikes scene's; under "bar135"
+K6's and K7's at the bar135 shapes, under "split2000" K6's on the 2,000^2
+block) and {"ok": true, "device": {...}}. Exits non-zero without a result
+line when no CUDA device is present.
 """
 
 import argparse
@@ -112,6 +133,38 @@ GOLDEN_SYS_E = [
     7.243233402989e+01,
     7.174690962232e+01,
 ]
+
+# Recorded golden sysE trace of the 2D spikes stretch scene (FCR, dt 0.025,
+# E 1e5, nu 0.4, rho 1000, resolution 200, Newton, f64), copied from
+# tests/test_dim2.py:241-245.
+GOLDEN_2D_SPIKES_SYS_E = [
+    3.294256031942e+03,
+    3.294256605060e+03,
+    3.300416677680e+03,
+]
+SPIKES_SCENE = """energy FCR
+timeStepper Newton
+warmStart 2
+resolution {resolution}
+size 1
+time 5 0.025
+density 1000
+stiffness 100000 0.4
+script stretch
+handleRatio 0.03
+shape spikes
+"""
+# the full-size 2D scene: 19,873 triangles, 10,171 vertices, a dense
+# (20,342)^2 whole-mesh factor (1.655 GB in f32) every Newton iteration
+SPIKES_FULL = 20000
+DIM2_FRAMES = 3
+DIM2_KERNELS = ("defgrad2d", "ls_trial_energy2d", "elem_gradient2d",
+                "elem_hessian2d", "dense_assemble2d", "dense_scale2d")
+# operations per triangle of K21-K23, counted from kernels/csrc/elem2d.cuh
+# (two atan2 and two sincos in the SVD, one more of each in eigh2); an
+# estimate: these kernels are bound by their bytes either way
+ELEM2D_FLOPS = dict(ls_trial_energy2d=120, elem_gradient2d=180,
+                    elem_hessian2d=600)
 
 BAR17 = (56, 16, 16)
 SCENE_TMPL = """energy FCR
@@ -193,7 +246,22 @@ SOURCES = {
                               "dot_tpu/steppers/admm_dd.py:532"),
     "elem_gradient_from_F": ("cuda", "dot_tpu_torch/kernels/csrc/elem.cu",
                              "dot_tpu/steppers/admm_dd.py:295"),
+    "defgrad2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                  "dot_tpu/kernels/soa2d.py:233"),
+    "ls_trial_energy2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                          "dot_tpu/dim2.py:911"),
+    "elem_gradient2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                        "dot_tpu/dim2.py:463"),
+    "elem_hessian2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                       "dot_tpu/kernels/soa2d.py:252"),
+    "dense_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                         "dot_tpu/dim2.py:486"),
+    "dense_scale2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                      "dot_tpu/dim2.py:494"),
 }
+PATHS = ("main", "steppers", "admm", "scale", "dim2")
+ALL_PHASES = ("probe", "build", "kernels", "golden", "main", "steppers",
+              "admm", "scale", "dim2")
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
@@ -1619,6 +1687,481 @@ def phase_admm(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _spikes_scene(tmp, resolution, name):
+    """Write the 2D spikes stretch scene (the scene of the repo's 2D golden,
+    tests/test_dim2.py:239-260) at `resolution`; return its path."""
+    scene = os.path.join(tmp, f"{name}.txt")
+    with open(scene, "w") as f:
+        f.write(SPIKES_SCENE.format(resolution=resolution))
+    return scene
+
+
+def _sim2d(torch, scene, out_root, dtype, suffix="", **kw):
+    """The Sim2D run_script_2d would build for `scene` on the card."""
+    from dot_tpu_torch.config import Config
+    from dot_tpu_torch.dim2 import Sim2D
+    cfg = Config.load(scene)
+    name = cfg.output_folder_name() + (f"_{suffix}" if suffix else "")
+    return Sim2D(cfg, os.path.join(out_root, name), dtype=dtype,
+                 device="cuda", mute=True, **kw)
+
+
+def _dim2_inputs(torch, dtype, rng):
+    """Element statics of the full-size spikes mesh and deformed states: a
+    third of the vertices jittered (random and inverted triangles), a third
+    squashed flat (near-degenerate F), the rest at rest (F = I: R = 0 in the
+    flip-SVD, s0 = s1); F0 a third random, a third inverted, a third of
+    rank ~1."""
+    from dot_tpu_torch.config import Config
+    from dot_tpu_torch.dim2 import Mesh2D
+    from dot_tpu_torch.kernels import soa2d
+    cfg = Config(energy="FCR", shape="spikes", resolution=SPIKES_FULL,
+                 ym=1e5, pr=0.4, rho=1000.0, handle_ratio=0.03)
+    mesh = Mesh2D.from_config(cfg)
+    dev = torch.device("cuda")
+    n, nv = mesh.n_elem, mesh.n_vert
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    x = mesh.V.copy()
+    sel = rng.permutation(nv)
+    a, b = sel[:nv // 3], sel[nv // 3: 2 * nv // 3]
+    h = float(np.sqrt(mesh.area.mean()))
+    x[a, :2] += rng.normal(scale=0.5 * h, size=(len(a), 2))
+    x[b, 1] = x[b, 1] * 1e-3
+    f0 = np.empty((4, n))
+    third = n // 3
+    f0[:, :third] = rng.normal(size=(4, third))
+    inv = np.eye(2).reshape(4, 1) + 0.1 * rng.normal(size=(4, third))
+    inv[[0, 2]] *= -1.0                                            # det < 0
+    f0[:, third:2 * third] = inv
+    m = n - 2 * third
+    uv = rng.normal(size=(2, m))[:, None] * rng.normal(size=(2, m))[None]
+    f0[:, 2 * third:] = uv.reshape(4, m) + 1e-7 * rng.normal(size=(4, m))
+    f0[:, 0] = (1.0, 0.0, 0.0, 1.0)                      # F = I: R = 0
+    f0[:, 1] = (0.0, -2.0, 2.0, 0.0)                     # a scaled rotation
+    f0[:, 2] = 0.0                                       # Q = R = 0
+    free = np.ones(nv)
+    free[rng.permutation(nv)[:nv // 30]] = 0.0
+    xt = mesh.V + np.concatenate(
+        [rng.normal(scale=0.1 * h, size=(nv, 2)), np.zeros((nv, 1))], axis=1)
+    p = np.concatenate([rng.normal(scale=0.01, size=(nv, 2)),
+                        np.zeros((nv, 1))], axis=1)
+    return mesh, dict(
+        conn=t(mesh.conn.T, torch.int32),
+        g4=t(mesh.rest_tri_inv.reshape(-1, 4).T), u=t(mesh.u),
+        lam=t(mesh.lam), w=t(mesh.area), mass=t(mesh.mass), x=t(x),
+        x_tilta=t(xt), p=t(p), free=t(free), F0=t(f0),
+        Fp=t(rng.normal(size=(4, n))), h3=t(rng.normal(size=(3, n))),
+        alpha=torch.tensor(0.5, dtype=dtype, device=dev),
+        plan=soa2d.scatter2d_plan(mesh.conn, nv, dev))
+
+
+def _usv2(U, s, V):
+    """U diag(s) V^T of (4, N) / (2, N) component rows, as (4, N)."""
+    import torch
+    return torch.stack([
+        U[2 * i] * s[0] * V[2 * j] + U[2 * i + 1] * s[1] * V[2 * j + 1]
+        for i in range(2) for j in range(2)])
+
+
+def _rows_rel_max(a, b):
+    """Largest per-row max error over the row's own scale ((R, N) stacks of
+    quantities of different magnitudes)."""
+    scale = b.abs().amax(dim=1).clamp_min(1e-300)
+    return float(((a - b).abs().amax(dim=1) / scale).max())
+
+
+def phase_dim2_kernels(torch, record):
+    """The 2D kernels (K21-K24, defgrad2d) and the check entries of their
+    device functions against the plain versions at the full-size spikes
+    scene's shapes, and K6's host split on a 2,000^2 block."""
+    from dot_tpu_torch.kernels import band, ops, soa2d
+    mat = soa2d.FCR2D
+    rng = np.random.default_rng(20261020)
+    dt_sq = 0.025 ** 2
+    bad = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = TOL[name]
+        mesh, d = _dim2_inputs(torch, dtype, rng)
+        conn, g4, u, lam, w = d["conn"], d["g4"], d["u"], d["lam"], d["w"]
+        plan = d["plan"]
+        n, nv, sz = mesh.n_elem, mesh.n_vert, d["x"].element_size()
+        n2, n_slot = 2 * nv, plan.udest.shape[0]
+
+        # ---- t1: the device functions, each through its check entry.
+        # U, V and Q are not unique (R = 0, s0 = s1, b = 0 with a = c):
+        # sigma, U diag(sigma) V^T, the eigenvalues and Q diag(lam) Q^T are
+        Uk, sk, Vk = ops.svd2_flip(d["F0"])
+        Ur, sr, Vr = soa2d.svd2_flip_ref(d["F0"])
+        detU = Uk[0] * Uk[3] - Uk[1] * Uk[2]
+        detV = Vk[0] * Vk[3] - Vk[1] * Vk[2]
+        lk, Qk = ops.eigh2(d["h3"])
+        lr, Qr = soa2d.eigh2_ref(d["h3"])
+
+        def sym_of(l_, Q_):
+            return torch.stack([
+                l_[0] * Q_[0] * Q_[0] + l_[1] * Q_[1] * Q_[1],
+                l_[0] * Q_[0] * Q_[2] + l_[1] * Q_[1] * Q_[3],
+                l_[0] * Q_[2] * Q_[2] + l_[1] * Q_[3] * Q_[3]])
+        t1 = [("svd2_flip sigma", _rel_max(sk, sr)),
+              ("svd2_flip U S V^T", _rel_max(_usv2(Uk, sk, Vk),
+                                             _usv2(Ur, sr, Vr))),
+              ("svd2_flip U S V^T vs F", _rel_max(_usv2(Uk, sk, Vk),
+                                                  d["F0"])),
+              ("svd2_flip |det U - 1|", float((detU - 1).abs().max())),
+              ("svd2_flip |det V - 1|", float((detV - 1).abs().max())),
+              ("eigh2 lam", _rel_max(lk, lr)),
+              ("eigh2 Q L Q^T", _rel_max(sym_of(lk, Qk), sym_of(lr, Qr))),
+              ("make_pd2", _rel_max(ops.make_pd2(d["h3"]),
+                                    soa2d.make_pd2_ref(d["h3"])))]
+        for mname, m_ in soa2d.SOA2D_MATERIALS.items():
+            t1.append((f"material2d {mname} (Psi, dPsi, d2Psi, BLeft, P)",
+                       _rows_rel_max(ops.material2d(d["F0"], u, lam, m_),
+                                     soa2d.material2d_ref(d["F0"], u, lam,
+                                                          m_))))
+        say(f"kernels: {name} elem2d.cuh device functions (rows t1) on "
+            f"{n} matrices: " + "; ".join(f"{k} {v:.3e}" for k, v in t1)
+            + f" (tol {tol['elem']:g})")
+        for k, v in t1:
+            if not v <= tol["elem"]:
+                bad.append(f"{k} {name}: {v:.3e} > {tol['elem']:g}")
+
+        res, times, costs = {}, {}, {}
+        # ---- defgrad2d
+        fk, fr = ops.defgrad2d(d["x"], conn, g4), \
+            soa2d.defgrad2d_ref(d["x"], conn, g4)
+        pk, pr = ops.defgrad2d(d["p"], conn, g4), \
+            soa2d.defgrad2d_ref(d["p"], conn, g4)
+        res["defgrad2d"] = [
+            ("F(x)", _rel_max(fk, fr), tol["elem"],
+             float((fk - fr).abs().max())),
+            ("F(p)", _rel_max(pk, pr), tol["elem"], None)]
+        times["defgrad2d"] = (lambda: ops.defgrad2d(d["x"], conn, g4),
+                              lambda: soa2d.defgrad2d_ref(d["x"], conn, g4),
+                              None)
+        costs["defgrad2d"] = ((3 * nv + 8 * n) * sz + 12 * n, 12 * n)
+
+        # ---- K21
+        e_args = (d["F0"], d["Fp"], d["alpha"], u, lam, w, mat)
+        k = ops.ls_trial_energy2d(*e_args, want_sigma=True)
+        r = soa2d.ls_trial_energy2d_ref(*e_args, want_sigma=True)
+        k0 = ops.ls_trial_energy2d(fk, None, None, u, lam, w, mat)
+        r0 = soa2d.ls_trial_energy2d_ref(fr, None, None, u, lam, w, mat)
+        res["ls_trial_energy2d"] = [
+            ("sum", _rel_max(k[0], r[0]), tol["elem"],
+             float((k[0] - r[0]).abs())),
+            ("sigma", _rel_max(k[1], r[1]), tol["elem"],
+             float((k[1] - r[1]).abs().max())),
+            ("sum, no direction", _rel_max(k0[0], r0[0]), tol["elem"], None)]
+        times["ls_trial_energy2d"] = (
+            lambda: ops.ls_trial_energy2d(*e_args),
+            lambda: soa2d.ls_trial_energy2d_ref(*e_args), None)
+        costs["ls_trial_energy2d"] = ((11 * n + 2) * sz,
+                                      ELEM2D_FLOPS["ls_trial_energy2d"] * n)
+
+        # ---- K22
+        g_args = (d["x"], d["x_tilta"], d["free"], d["mass"], conn, g4, u,
+                  lam, w, mat, dt_sq, plan)
+        gk, gr = ops.elem_gradient2d(*g_args), \
+            soa2d.elem_gradient2d_ref(*g_args)
+        fixed_rows = d["free"] == 0
+        res["elem_gradient2d"] = [
+            ("grad", _rel_norm(gk, gr), tol["grad"],
+             float((gk - gr).abs().max())),
+            ("z and fixed rows", float(gk[:, 2].abs().max())
+             + float(gk[fixed_rows].abs().max()), 0.0, None)]
+        forces = torch.randn(6 * n, dtype=dtype, device="cuda")
+        acc = torch.zeros(n2, dtype=dtype, device="cuda")
+        times["elem_gradient2d"] = (
+            lambda: ops.elem_gradient2d(*g_args),
+            lambda: soa2d.elem_gradient2d_ref(*g_args),
+            lambda: acc.index_add_(0, plan.gdest, forces))
+        costs["elem_gradient2d"] = (
+            (11 * nv + 7 * n) * sz + 12 * n + 8 * (3 * n + nv + 1),
+            ELEM2D_FLOPS["elem_gradient2d"] * n)
+
+        # ---- K23
+        h_args = (d["x"], conn, g4, u, lam, w, mat, dt_sq)
+        hk, hr = ops.elem_hessian2d(*h_args), \
+            soa2d.elem_hessian2d_ref(*h_args)
+        res["elem_hessian2d"] = [("H", _rel_norm(hk, hr), tol["hess"],
+                                  float((hk - hr).abs().max()))]
+        times["elem_hessian2d"] = (lambda: ops.elem_hessian2d(*h_args),
+                                   lambda: soa2d.elem_hessian2d_ref(*h_args),
+                                   None)
+        costs["elem_hessian2d"] = ((3 * nv + 7 * n + 36 * n) * sz + 12 * n,
+                                   ELEM2D_FLOPS["elem_hessian2d"] * n)
+
+        # ---- K24 on the plain version's element Hessians
+        Hk, dk = ops.dense_assemble2d(hr, d["free"], d["mass"], plan)
+        Hr, dr = soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"], plan)
+        sym = float((Hk - Hk.t()).abs().max())
+        res["dense_assemble2d"] = [
+            ("H", _rel_max(Hk, Hr), TOL_SCALE[name]["elem"],
+             float((Hk - Hr).abs().max())),
+            ("d", _rel_max(dk, dr), TOL_SCALE[name]["elem"], None),
+            ("|H - H^T|", sym, 0.0, None)]
+        Sr = soa2d.dense_scale2d_ref(Hr, dr, plan)
+        del Hr
+        Sk = ops.dense_scale2d(Hk.clone(), dk, plan)
+        res["dense_scale2d"] = [
+            ("H / d / d", _rel_max(Sk, Sr), TOL_SCALE[name]["elem"],
+             float((Sk - Sr).abs().max())),
+            ("|diag - 1|", float((Sk.diagonal() - 1).abs().max()),
+             4 * torch.finfo(dtype).eps, None)]
+        del Sk, Sr
+        torch.cuda.empty_cache()
+        vals = hr.t().reshape(-1).contiguous()
+        flat = torch.zeros(n2 * n2, dtype=dtype, device="cuda")
+        times["dense_assemble2d"] = (
+            lambda: ops.dense_assemble2d(hr, d["free"], d["mass"], plan),
+            lambda: soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"],
+                                               plan),
+            lambda: flat.index_add_(0, plan.hdest, vals))
+        costs["dense_assemble2d"] = (
+            (36 * n + 2 * nv + n2 * n2 + n2) * sz + 8 * 36 * n
+            + 8 * (2 * n_slot + 1), 36 * n + 4 * n_slot)
+        # the scaling touches the assembled slots only: every other entry
+        # of H is 0 before and after
+        times["dense_scale2d"] = (
+            lambda: ops.dense_scale2d(Hk, dk, plan),
+            lambda: soa2d.dense_scale2d_ref(Hk, dk, plan), None)
+        costs["dense_scale2d"] = ((2 * n_slot + n2) * sz + 8 * n_slot,
+                                  4 * n_slot)
+        torch.cuda.synchronize()
+        for kname, checks in res.items():
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record, plain_reps=5)
+        say(f"kernels: {name} 2D shapes: spikes resolution {SPIKES_FULL}: "
+            f"{n} triangles, {nv} vertices, dense matrix {n2}^2 "
+            f"({n2 * n2 * sz / 1e9:.3f} GB), {n_slot} assembled slots from "
+            f"{36 * n} entries")
+        del Hk, flat, vals, hk, hr, d
+        torch.cuda.empty_cache()
+
+        # ---- K6 above its panel limit: the host's 2 x 2 split
+        nb6 = 2000
+        G = torch.as_tensor(rng.normal(size=(nb6, nb6)), dtype=dtype,
+                            device="cuda")
+        A = (G @ G.t() / nb6 + torch.eye(nb6, dtype=dtype, device="cuda"))[None]
+        ops.reset_launches()
+        Lk, Xk, bk = ops.chol_inv(A, True)
+        n_k6 = ops.launches["chol_inv"]
+        Lr, Xr, br = band.chol_inv_ref(A, True)
+        Ll, Xl, _ = ops.chol_inv(A, False)
+        indef = A - 2.0 * torch.eye(nb6, dtype=dtype, device="cuda")
+        Li_, Xi_, bi = ops.chol_inv(indef, True)
+        lim = ops.chol_inv_max_n(dtype)
+        tol6 = 1e-10 if dtype == torch.float64 else 1e-5
+        checks = [("L", _rel_norm(Lk, Lr), tol6,
+                   float((Lk - Lr).abs().max())),
+                  ("Linv", _rel_norm(Xk, Xr), tol6,
+                   float((Xk - Xr).abs().max())),
+                  ("L lower-only", _rel_norm(Ll, Lr), tol6, None),
+                  ("Linv lower-only", _rel_norm(Xl, Xr), tol6, None)]
+        say(f"kernels: {name} chol_inv above the panel limit ({lim}): a "
+            f"{nb6}^2 block in {n_k6} K6 launches; SPD flagged "
+            f"{bk.tolist()} (plain {br.tolist()}); indefinite flagged "
+            f"{bi.tolist()}, NaN L {bool(torch.isnan(Li_).all())}, NaN Linv "
+            f"{bool(torch.isnan(Xi_).all())}")
+        if (nb6 <= lim or n_k6 < 2 or bool(bk.any()) or not bool(bi.all())
+                or not bool(torch.isnan(Li_).all())
+                or not bool(torch.isnan(Xi_).all())):
+            bad.append(f"chol_inv split {name}: limit {lim}, {n_k6} launches, "
+                       f"flags {bk.tolist()} / {bi.tolist()}")
+        eye6 = torch.eye(nb6, dtype=dtype, device="cuda")
+
+        def lib_chol():
+            Lq = torch.linalg.cholesky(A)
+            return torch.linalg.solve_triangular(Lq, eye6, upper=False)
+        _report(torch, name, "chol_inv@split2000", checks,
+                (lambda: ops.chol_inv(A, True),
+                 lambda: band.chol_inv_ref(A, True), lib_chol),
+                (3 * A.numel() * sz, 2 * nb6 ** 3 / 3), bad, record,
+                plain_reps=5)
+        del A, G, Lk, Xk, Lr, Xr, Ll, Xl, indef, Li_, Xi_
+        torch.cuda.empty_cache()
+    if bad:
+        raise Fail("kernel disagrees with its plain version: "
+                   + "; ".join(bad))
+
+
+def _dim2_split(sim, frames):
+    """ms/frame of the parts of a Newton2D frame over `frames` more frames,
+    each call wrapped in synchronised host timers: the assembly (K23, K24
+    and its scaling), the library Cholesky, the two triangular solves, the
+    line-search trials (K21) and the gradient (K22)."""
+    import collections
+    import torch
+    from dot_tpu_torch.profiling import wrap_timed
+    acc = collections.Counter()
+    sysm = sim.system
+    names = ("factorize", "solve", "elastic_energy", "gradient")
+    for name in names:
+        wrap_timed(sysm, name, acc)
+    chol = wrap_timed(None, "cholesky_ex", acc, module=torch.linalg,
+                      label="cholesky")
+    try:
+        sim.run(frames)
+    finally:
+        torch.linalg.cholesky_ex = chol
+        for name in names:
+            delattr(sysm, name)
+    ms = {k: acc[k] / frames * 1e3 for k in names + ("cholesky",)}
+    ms["assembly"] = ms["factorize"] - ms["cholesky"]
+    return ms
+
+
+def phase_dim2(torch, launches_out):
+    """The 2D path through Sim2D on scene files written here: the golden
+    (spikes, resolution 200, f64, kernels on), then the full-size run."""
+    from dot_tpu_torch.kernels import ops
+    tmp = tempfile.mkdtemp(prefix="dot_dim2_")
+    try:
+        out_root = os.path.join(tmp, "out")
+        # ---- golden
+        gold = _sim2d(torch, _spikes_scene(tmp, 200, "spikes200"), out_root,
+                      torch.float64)
+        ops.reset_launches()
+        gold.run(len(GOLDEN_2D_SPIKES_SYS_E))
+        g_launch = {k: ops.launches[k] for k in DIM2_KERNELS}
+        gold.finalize()
+        vals = np.asarray([r["sys_e"] for r in gold.frames])
+        rel = np.abs(vals / np.asarray(GOLDEN_2D_SPIKES_SYS_E) - 1.0)
+        z_max = float(gold.state.x[:, 2].abs().max())
+        say(f"dim2: golden spikes 200 ({gold.mesh.n_elem} triangles, "
+            f"{gold.mesh.n_vert} vertices) Newton f64, kernels on: sysE "
+            f"{['%.10e' % v for v in vals]}, max rel {rel.max():.3e} (tol "
+            f"2e-4); iters {[r['iters'] for r in gold.frames]}, stops "
+            f"{[r['stop'] for r in gold.frames]}; max |z| {z_max:g}; "
+            f"launches {g_launch}")
+        problems = []
+        if not rel.max() <= 2e-4:
+            problems.append(f"golden sysE off by {rel.max():.3e}")
+        if z_max != 0.0:
+            problems.append(f"golden z moved: {z_max:g}")
+        if any(v <= 0 for v in g_launch.values()):
+            problems.append(f"golden: a 2D kernel never launched: {g_launch}")
+        need = ["config.txt", "iterStats.txt", "log.txt", "info.txt",
+                "status0", "0.obj", f"status{gold.frame}",
+                f"{gold.frame}.obj"]
+        missing = [f for f in need
+                   if not os.path.exists(os.path.join(gold.out, f))]
+        if missing or os.path.exists(os.path.join(gold.out,
+                                                  "finalResult_mesh.msh")):
+            problems.append(f"golden outputs: missing {missing}")
+        del gold
+        if problems:
+            raise Fail("dim2 path: " + "; ".join(problems))
+
+        # ---- full size: f32, and f64 if f32 does not reach the tolerance
+        scene = _spikes_scene(tmp, SPIKES_FULL, "spikes_full")
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[-1]
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            sim = _sim2d(torch, scene, out_root, dtype, suffix=name,
+                         save_every=10 ** 9)
+            t1 = time.perf_counter()
+            ops.reset_launches()
+            sim.run(1 + DIM2_FRAMES)
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated()
+            fr = list(sim.frames)
+            timed = fr[1:]
+            spf = float(np.mean([r["seconds"] for r in timed]))
+            n2 = sim.system.n2
+            say(f"dim2: spikes resolution {SPIKES_FULL} Newton {name}: "
+                f"{sim.mesh.n_elem} triangles, {sim.mesh.n_vert} vertices, "
+                f"dense matrix {n2}^2 "
+                f"({n2 * n2 * sim.state.x.element_size() / 1e9:.3f} GB); "
+                f"Sim2D {t1 - t0:.2f} s; s/frame {spf:.5f} ({DIM2_FRAMES} "
+                f"timed frames after 1 warm-up of {fr[0]['seconds']:.3f} s); "
+                f"iters/frame {np.mean([r['iters'] for r in timed]):.2f}; LS "
+                f"halvings/frame "
+                f"{np.mean([r['halvings'] for r in timed]):.2f}; syncs/frame "
+                f"{np.mean([r['syncs'] for r in timed]):.2f}; peak device "
+                f"memory {peak / 2**20:.1f} MiB")
+            say("dim2: per frame (iters, halvings, syncs, stop, s): "
+                + "; ".join(f"{r['iters']},{r['halvings']},{r['syncs']},"
+                            f"{r['stop']},{r['seconds']:.3f}" for r in fr))
+            say("dim2: sysE " + " ".join("%.10e" % r["sys_e"] for r in fr))
+            n_fr = len(fr)
+            say("dim2: launches per frame "
+                + ", ".join(f"{k} {launches[k] / n_fr:.2f}"
+                            for k in DIM2_KERNELS)
+                + f"; all { {k: v for k, v in launches.items() if v} }")
+            ok = all(np.isfinite(r["sys_e"]) and r["stop"] in ("tol",
+                                                                "rel_dec")
+                     for r in fr)
+            z_max = float(sim.state.x[:, 2].abs().max())
+            if ok or dtype == torch.float64:
+                break
+            say(f"dim2: FINDING: {name} does not reach relTol 1e-5 at this "
+                f"size (stops {[r['stop'] for r in fr]}); the phase runs in "
+                "float64 instead")
+            sim.finalize()
+            del sim
+        launches_out["dim2"] = launches
+        problems = []
+        if not ok:
+            problems.append(f"a frame is not finite or stopped by "
+                            f"{[r['stop'] for r in fr]}")
+        if z_max != 0.0:
+            problems.append(f"z moved: {z_max:g}")
+        for k in DIM2_KERNELS:
+            if launches[k] <= 0:
+                problems.append(f"kernel {k} never launched on the dim2 path")
+        iters = sum(r["iters"] for r in fr)
+        if (launches["elem_hessian2d"] != iters
+                or launches["dense_assemble2d"] != iters
+                or launches["dense_scale2d"] != iters):
+            problems.append(f"{iters} Newton iterations but launches "
+                            f"{launches}")
+        split = _dim2_split(sim, 2)
+        more = sim.frames[n_fr:]
+        it2 = max(sum(r["iters"] for r in more), 1) / 2
+        say(f"dim2: synchronised split over 2 more frames (iters "
+            f"{[r['iters'] for r in more]}), ms/frame: factorize "
+            f"{split['factorize']:.2f} (assembly K23 + K24 "
+            f"{split['assembly']:.2f}, Cholesky {split['cholesky']:.2f}), "
+            f"solves {split['solve']:.2f}, line search and energies (K21) "
+            f"{split['elastic_energy']:.2f}, gradient (K22) "
+            f"{split['gradient']:.2f}; per Newton iteration: Cholesky "
+            f"{split['cholesky'] / it2:.2f}, assembly "
+            f"{split['assembly'] / it2:.3f}, solves "
+            f"{split['solve'] / it2:.2f}")
+        sim.finalize()
+        a = np.asarray([r["sys_e"] for r in fr])
+        dtype_run = sim.system.dtype
+        del sim
+        torch.cuda.empty_cache()
+        if problems:
+            raise Fail("dim2 path: " + "; ".join(problems))
+
+        # the same frames with the plain versions on the card
+        ref = _sim2d(torch, scene, out_root, dtype_run, suffix="plain",
+                     use_kernels=False, save_every=10 ** 9)
+        ref.run(len(fr))
+        ref.finalize()
+        b = np.asarray([r["sys_e"] for r in ref.frames])
+        rel = np.abs(a / b - 1.0)
+        say(f"dim2: plain-path sysE {' '.join('%.10e' % v for v in b)}; max "
+            f"rel vs kernels {rel.max():.3e} (tol 1e-3); plain s/frame "
+            f"{np.mean([r['seconds'] for r in ref.frames[1:]]):.5f}; plain "
+            f"iters {[r['iters'] for r in ref.frames]}")
+        if not rel.max() <= 1e-3:
+            raise Fail(f"dim2 kernel path and plain path disagree: "
+                       f"{rel.max():.3e}")
+        return spf
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
     """K9-K12 and K5's compact entry point against their plain versions on
     the bar135 plan (f64 and f32), timed with library call and bound."""
@@ -1960,9 +2503,9 @@ def phase_scale(torch, record, launches_out):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases",
-                    default="probe,build,kernels,golden,main,steppers,"
-                            "admm,scale")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated; kernels2d runs the 2D kernel "
+                         "checks of `kernels` alone")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1991,6 +2534,8 @@ def main(argv=None):
             phase_h0_kernels(torch, record)
             phase_pd_kernels(torch, record)
             phase_admm_kernels(torch, record)
+        if "kernels" in phases or "kernels2d" in phases:
+            phase_dim2_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)
         if "main" in phases:
@@ -2001,29 +2546,37 @@ def main(argv=None):
             phase_admm(torch, launches)
         if "scale" in phases:
             phase_scale(torch, record, launches)
+        if "dim2" in phases:
+            phase_dim2(torch, launches)
     except Exception as exc:  # report the phase's failure and exit non-zero
         import traceback
         traceback.print_exc()
         say(f"FAIL: {type(exc).__name__}: {exc}")
         return 1
-    if set(phases) != {"probe", "build", "kernels", "golden", "main",
-                       "steppers", "admm", "scale"}:
+    if set(phases) != set(ALL_PHASES):
         say(f"partial run ({args.phases}): no result line")
         return 0
 
-    # launches: all paths' runs together, and each path's own count;
-    # the times are at the bar17 shapes, K6 and K7 also at bar135's own
+    # launches: all paths' runs together, and each path's own count; the
+    # times are at the bar17 shapes (the 2D kernels: the full-size spikes
+    # scene's), K6 and K7 also at bar135's own and K6 on a 2,000^2 block
+    # above its panel limit (the host's split)
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
-        by_path = {path: launches[path][name]
-                   for path in ("main", "steppers", "admm", "scale")}
-        at_scale = {k.split("@")[1]: v for k, v in record.items()
-                    if k.startswith(name + "@")}
+        by_path = {path: launches[path][name] for path in PATHS}
+        extra = {}
+        for k, v in record.items():
+            if k.startswith(name + "@"):
+                tag = k.split("@")[1]
+                if tag == "split2000":
+                    extra[tag] = v
+                else:
+                    extra.setdefault("bar135", {})[tag] = v
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),
                             launches_by_path=by_path, **record[name],
-                            **({"bar135": at_scale} if at_scale else {})))
+                            **extra))
     say(f"smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(nvidia_smi())
     say(json.dumps({"kernels": kernels}))

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .dim2 import Sim2DState
 from .steppers.admm import ADMMState
 from .steppers.admm_dd import ADMMDDState
 from .steppers.core import (APPLY_DTYPES, BTDFactor, CoarseFactor, CRFactor,
@@ -121,3 +122,11 @@ def admm_dd_state_from_numpy(d, system):
         elem_h=t(d.elem_h), w_vals=t(d.w_vals),
         cons_chol=t(d.cons_chol, system._solve_dtype),
         cons_equil=t(d.cons_equil), **common)
+
+
+def sim2d_state_from_numpy(d, system):
+    """The port's Sim2DState from a dot_tpu Sim2DState whose leaves went
+    through np.asarray, on `system`'s (a dim2.System2D's) device in its
+    dtype."""
+    _, common = _common_fields(d, system)
+    return Sim2DState(**common)

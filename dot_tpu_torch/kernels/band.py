@@ -134,6 +134,40 @@ def chol_inv_ref(A, symmetrize):
     return L, Li, bad
 
 
+def chol_inv_split(A, symmetrize, max_n, leaf):
+    """(L, L^{-1}, bad) of a batch (B, n, n) of SPD blocks of any width from
+    a factorization `leaf(A, symmetrize)` that takes blocks up to `max_n`
+    wide (K6: its panel lives in shared memory; chol_inv_ref in the CPU
+    tests). A wider block is split 2 x 2 on the host, recursively:
+      L11 from A11;  L21 = A21 L11^{-T};  L22 from A22 - L21 L21^T;
+      L^{-1} = [[L11^{-1}, 0], [-L22^{-1} L21 L11^{-1}, L22^{-1}]],
+    the three products with torch.matmul (dot_tpu has these inside a
+    library Cholesky, not in a kernel body). With `symmetrize` the halves
+    are cut from (A + A^T) / 2, else from the lower triangle. A failed half
+    is NaN, so everything after it is, and a flagged block comes back NaN in
+    L and L^{-1}, as from the leaf."""
+    n = A.shape[-1]
+    if n <= max_n:
+        return leaf(A.contiguous(), symmetrize)
+    k = n // 2
+    A21 = A[:, k:, :k]
+    if symmetrize:
+        A21 = (A21 + A[:, :k, k:].mT) / 2
+    L11, Li11, bad1 = chol_inv_split(A[:, :k, :k], symmetrize, max_n, leaf)
+    L21 = A21 @ Li11.mT
+    L22, Li22, bad2 = chol_inv_split(A[:, k:, k:] - L21 @ L21.mT, symmetrize,
+                                     max_n, leaf)
+    L = torch.zeros_like(A)
+    Li = torch.zeros_like(A)
+    L[:, :k, :k], L[:, k:, :k], L[:, k:, k:] = L11, L21, L22
+    Li[:, :k, :k], Li[:, k:, k:] = Li11, Li22
+    Li[:, k:, :k] = -(Li22 @ (L21 @ Li11))
+    bad = bad1 | bad2
+    nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
+    return (torch.where(bad[:, None, None], nan, L),
+            torch.where(bad[:, None, None], nan, Li), bad)
+
+
 def block_matvec_ref(A, v, c=None, trans=False, out=None):
     """K7 plain: op(A) v, or c - op(A) v, over a batch: A (B, n, n) in
     bf16, f32 or f64 (taken to v's dtype), v and c (B, n). `out` (may be c)

@@ -25,7 +25,8 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # library -> (sources, the first one compiled; extra flags). -fmad=false:
 # products and sums round one by one, as the plain PyTorch versions'
 # elementwise ops do (K1-K3, K5, K8, K13, K14, K16-K20 then agree bit for bit
-# in most outputs); K6, K7 and K15 are sums of products whose order differs
+# in most outputs; the 2D kernels K21-K24 up to the device library's atan2,
+# sin and cos); K6, K7 and K15 are sums of products whose order differs
 # from the plain versions' anyway, so they keep the contraction. K9 is Triton
 # (triton_lbfgs.py) and is compiled at its first launch.
 LIBRARIES = {
@@ -39,6 +40,7 @@ LIBRARIES = {
     "hdiag": (("hdiag.cu",), ("-fmad=false",)),
     "pd": (("pd.cu",), ("-fmad=false",)),
     "admm": (("admm.cu", "elem.cuh"), ("-fmad=false",)),
+    "elem2d": (("elem2d.cu", "elem2d.cuh"), ("-fmad=false",)),
 }
 
 last_build_seconds = None   # wall time of the last build() that compiled

@@ -1,17 +1,18 @@
-"""Wrappers of the twenty hand-written kernels of the steppers' paths.
+"""Wrappers of the twenty-four hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
   kernels/band.py for K5-K8 and K12, kernels/lbfgs.py for K9,
   kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16,
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
-  K1 / K2) for CPU tensors;
+  K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
+  check entries of their device functions) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
   csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
   K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
   passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
-  all through ctypes; K4: triton_qf.py, K9:
+  K21-K24: csrc/elem2d.cu, all through ctypes; K4: triton_qf.py, K9:
   triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
   its count in `launches`;
 - raises for any other device.
@@ -29,7 +30,7 @@ import types
 
 import torch
 
-from . import admm, band, coarse, lbfgs, pd, soa
+from . import admm, band, coarse, lbfgs, pd, soa, soa2d
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
@@ -40,7 +41,9 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "pd_scatter", "local_gather_one", "local_scatter_one",
            "admm_local_step", "make_pd3", "dtw_scatter", "own_band_assemble",
            "w_matvec", "w_diag", "ls_trial_energy_parts",
-           "elem_gradient_from_F")
+           "elem_gradient_from_F", "defgrad2d", "ls_trial_energy2d",
+           "elem_gradient2d", "elem_hessian2d", "dense_assemble2d",
+           "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -74,7 +77,17 @@ plain = types.SimpleNamespace(
     own_band_assemble=admm.own_band_assemble_ref,
     w_matvec=admm.w_matvec_ref,
     ls_trial_energy_parts=admm.ls_trial_energy_parts_ref,
-    elem_gradient_from_F=admm.elem_gradient_from_F_ref)
+    elem_gradient_from_F=admm.elem_gradient_from_F_ref,
+    defgrad2d=soa2d.defgrad2d_ref,
+    ls_trial_energy2d=soa2d.ls_trial_energy2d_ref,
+    elem_gradient2d=soa2d.elem_gradient2d_ref,
+    elem_hessian2d=soa2d.elem_hessian2d_ref,
+    dense_assemble2d=soa2d.dense_assemble2d_ref,
+    dense_scale2d=soa2d.dense_scale2d_ref,
+    svd2_flip=soa2d.svd2_flip_ref,
+    eigh2=soa2d.eigh2_ref,
+    make_pd2=soa2d.make_pd2_ref,
+    material2d=soa2d.material2d_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -139,6 +152,21 @@ def _load():
                                                     + [I, I, P, P, P]),
             ("elem", "dot_elem_gradient_from_F"): ([I, I] + [P] * 6
                                                    + [I, P, P]),
+            ("elem2d", "dot_defgrad2d"): [I, P, P, P, I, P, P],
+            ("elem2d", "dot_ls_trial_energy2d"): ([I, I] + [P] * 6 + [I]
+                                                  + [P] * 4),
+            ("elem2d", "dot_trial2d_partials"): [I],
+            ("elem2d", "dot_elem_gradient2d"): ([I, I] + [P] * 9
+                                                + [ctypes.c_double, I, P, P,
+                                                   LL, P, P, P]),
+            ("elem2d", "dot_elem_hessian2d"): ([I, I] + [P] * 6
+                                               + [ctypes.c_double, I, P, P]),
+            ("elem2d", "dot_dense_assemble2d"): [I, P, LL, P, P, P, LL, P, P,
+                                                 LL, P, P, P],
+            ("elem2d", "dot_dense_scale2d"): [I, P, P, P, LL, LL, P],
+            ("elem2d", "dot_svd2_flip"): [I, P, I, P, P, P, P],
+            ("elem2d", "dot_eigh2"): [I, P, I, P, P, P, P],
+            ("elem2d", "dot_material2d"): [I, I, P, P, P, I, P, P],
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -334,32 +362,41 @@ def band_assemble(elem_h, freef, mass_flat, plan):
 _chol_max_n = {}
 
 
+def chol_inv_max_n(dtype):
+    """The widest block K6 factors in one launch (its panel lives in shared
+    memory): ~1600 in f32, ~1400 in f64."""
+    if dtype not in _chol_max_n:
+        _chol_max_n[dtype] = _load().chol_inv_max_n(_DTYPES[dtype])
+    return _chol_max_n[dtype]
+
+
+def _chol_inv_launch(A, symmetrize):
+    """One K6 launch on a contiguous batch within the panel limit."""
+    lib = _load()
+    B, n = A.shape[0], A.shape[-1]
+    L = torch.empty_like(A)
+    Li = torch.empty_like(A)
+    info = torch.empty(B, dtype=torch.int32, device=A.device)
+    err = lib.chol_inv(_DTYPES[A.dtype], _ptr(A), n, B, int(bool(symmetrize)),
+                       _ptr(L), _ptr(Li), _ptr(info), _stream(A))
+    _ok("chol_inv", err)
+    return L, Li, info != 0
+
+
 def chol_inv(A, symmetrize):
     """K6: (L, L^{-1}, bad) of a batch (B, n, n) of SPD blocks; bad is a
     (B,) bool flag and a flagged block is NaN in L and L^{-1}.
-    `symmetrize` factors (A + A^T) / 2, else the lower triangle is read."""
+    `symmetrize` factors (A + A^T) / 2, else the lower triangle is read.
+    A block wider than the kernel's shared-memory panel is split 2 x 2 on
+    the host (band.chol_inv_split: K6 on the halves, torch.matmul between
+    them), so any width factors, as in dot_tpu."""
     name = "chol_inv"
     dt = _float(name, A)
     _need(name, "A", A, A.device, dt, (None, A.shape[-1], A.shape[-1]))
     if not _route(name, A):
         return band.chol_inv_ref(A, symmetrize)
-    lib = _load()
-    B, n = A.shape[0], A.shape[-1]
-    if dt not in _chol_max_n:
-        _chol_max_n[dt] = lib.chol_inv_max_n(_DTYPES[dt])
-    if n > _chol_max_n[dt]:
-        raise ValueError(
-            f"{name}: blocks of {n} exceed the kernel's panel limit "
-            f"({_chol_max_n[dt]} for {dt}): a band this wide (a P = 1 plan "
-            "or the PD matrix of a mesh with a wide graph bandwidth) needs "
-            "a factorization that spans several thread blocks")
-    L = torch.empty_like(A)
-    Li = torch.empty_like(A)
-    info = torch.empty(B, dtype=torch.int32, device=A.device)
-    err = lib.chol_inv(_DTYPES[dt], _ptr(A), n, B, int(bool(symmetrize)),
-                       _ptr(L), _ptr(Li), _ptr(info), _stream(A))
-    _ok(name, err)
-    return L, Li, info != 0
+    return band.chol_inv_split(A, symmetrize, chol_inv_max_n(dt),
+                               _chol_inv_launch)
 
 
 def _overlap(a, b):
@@ -1060,3 +1097,237 @@ def elem_gradient_from_F(F, conn_s, g9, u, lam, w, mat, n_rows):
         _ptr(lam), _ptr(w), n, _ptr(acc), _stream(F))
     _ok(name, err)
     return acc
+
+
+# ----------------------------------------------------------------------
+# K21-K24: the 2D (triangle-mesh) projected-Newton path, and the check
+# entries of its device functions
+# ----------------------------------------------------------------------
+def _elem2d(name, x, conn, g4, u, lam, w):
+    """The element statics of the 2D kernels next to the positions x."""
+    dt = _float(name, x)
+    n = conn.shape[-1]
+    if n == 0:
+        raise ValueError(f"{name}: no elements")
+    _need(name, "x", x, x.device, dt, (None, 3))
+    _need(name, "conn", conn, x.device, torch.int32, (3, n))
+    _need(name, "g4", g4, x.device, dt, (4, n))
+    for key, t in (("u", u), ("lam", lam), ("w", w)):
+        if t is not None:
+            _need(name, key, t, x.device, dt, (n,))
+    return dt, n
+
+
+def defgrad2d(x, conn, g4):
+    """(4, N) deformation gradients of the in-plane coordinates of x
+    (nV, 3): positions or a search direction. conn (3, N) int32; g4 (4, N)
+    restTriInv."""
+    name = "defgrad2d"
+    dt, n = _elem2d(name, x, conn, g4, None, None, None)
+    if not _route(name, x):
+        return soa2d.defgrad2d_ref(x, conn, g4)
+    lib = _load()
+    F = torch.empty((4, n), dtype=dt, device=x.device)
+    err = lib.defgrad2d(_DTYPES[dt], _ptr(x), _ptr(conn), _ptr(g4), n,
+                        _ptr(F), _stream(x))
+    _ok(name, err)
+    return F
+
+
+def ls_trial_energy2d(F0, Fp, alpha, u, lam, w, mat, want_sigma=False):
+    """K21: sum_e w Psi(sigma(F0 + alpha Fp)) over triangles (Fp may be
+    None: F = F0). F0, Fp: (4, N); alpha: 0-d; u, lam, w: (N,). Returns
+    (0-d sum, sigma (2, N) or None)."""
+    name = "ls_trial_energy2d"
+    n = F0.shape[-1]
+    if n == 0:
+        raise ValueError(f"{name}: no elements")
+    if Fp is not None and alpha is None:
+        raise ValueError(f"{name}: a direction Fp needs its alpha")
+    _check(name, F0, dict(F0=F0, Fp=Fp, alpha=alpha, u=u, lam=lam, w=w),
+           dict(F0=(4, n), Fp=(4, n), alpha=(), u=(n,), lam=(n,), w=(n,)))
+    if not _route(name, F0):
+        return soa2d.ls_trial_energy2d_ref(F0, Fp, alpha, u, lam, w, mat,
+                                           want_sigma)
+    lib = _load()
+    part = torch.empty(lib.trial2d_partials(n), dtype=F0.dtype,
+                       device=F0.device)
+    out = torch.empty((), dtype=F0.dtype, device=F0.device)
+    sigma = (torch.empty((2, n), dtype=F0.dtype, device=F0.device)
+             if want_sigma else None)
+    err = lib.ls_trial_energy2d(
+        _DTYPES[F0.dtype], mat.code, _ptr(F0), _ptr(Fp), _ptr(alpha),
+        _ptr(u), _ptr(lam), _ptr(w), n, _ptr(part), _ptr(out), _ptr(sigma),
+        _stream(F0))
+    _ok(name, err)
+    return out, sigma
+
+
+def elem_gradient2d(x, x_tilta, free, mass, conn, g4, u, lam, w, mat, dt_sq,
+                    plan):
+    """K22: the (nV, 3) gradient of the 2D incremental potential at x:
+    dt_sq times the per-vertex sums of the corner forces D (w P), plus
+    mass (x - x_tilta); z = 0; zero where free (nV,) is 0. plan: a
+    soa2d.Scatter2DPlan (its vertex-sorted incidences set the sum order)."""
+    name = "elem_gradient2d"
+    dt, n = _elem2d(name, x, conn, g4, u, lam, w)
+    nv = x.shape[0]
+    _need(name, "x_tilta", x_tilta, x.device, dt, (nv, 3))
+    _need(name, "free", free, x.device, dt, (nv,))
+    _need(name, "mass", mass, x.device, dt, (nv,))
+    _need(name, "gdest", plan.gdest, x.device, torch.int64, (6 * n,))
+    _need(name, "inc_perm", plan.inc_perm, x.device, torch.int64, (3 * n,))
+    _need(name, "inc_off", plan.inc_off, x.device, torch.int64, (nv + 1,))
+    if not _route(name, x):
+        return soa2d.elem_gradient2d_ref(x, x_tilta, free, mass, conn, g4, u,
+                                         lam, w, mat, dt_sq, plan)
+    lib = _load()
+    ge = torch.empty((6, n), dtype=dt, device=x.device)
+    out = torch.empty((nv, 3), dtype=dt, device=x.device)
+    err = lib.elem_gradient2d(
+        _DTYPES[dt], mat.code, _ptr(x), _ptr(x_tilta), _ptr(free), _ptr(mass),
+        _ptr(conn), _ptr(g4), _ptr(u), _ptr(lam), _ptr(w), float(dt_sq), n,
+        _ptr(plan.inc_perm), _ptr(plan.inc_off), nv, _ptr(ge), _ptr(out),
+        _stream(x))
+    _ok(name, err)
+    return out
+
+
+def elem_hessian2d(x, conn, g4, u, lam, w, mat, dt_sq):
+    """K23: (36, N) SPD-projected 6x6 element Hessians at x, row-major over
+    the (corner, xy) dofs, times dt_sq."""
+    name = "elem_hessian2d"
+    dt, n = _elem2d(name, x, conn, g4, u, lam, w)
+    if not _route(name, x):
+        return soa2d.elem_hessian2d_ref(x, conn, g4, u, lam, w, mat, dt_sq)
+    lib = _load()
+    out = torch.empty((36, n), dtype=dt, device=x.device)
+    err = lib.elem_hessian2d(
+        _DTYPES[dt], mat.code, _ptr(x), _ptr(conn), _ptr(g4), _ptr(u),
+        _ptr(lam), _ptr(w), float(dt_sq), n, _ptr(out), _stream(x))
+    _ok(name, err)
+    return out
+
+
+def _slots2d(name, ref, plan):
+    n_slot = plan.udest.shape[0]
+    _need(name, "udest", plan.udest, ref.device, torch.int64, (n_slot,))
+    _need(name, "seg_off", plan.seg_off, ref.device, torch.int64,
+          (n_slot + 1,))
+    return n_slot
+
+
+def dense_assemble2d(H36, free, mass, plan):
+    """K24: (H (2 nV, 2 nV), d (2 nV,)) from the (36, N) element Hessians:
+    the whole-mesh matrix summed by slot in a fixed order, + mass on the
+    diagonal, rows and columns of fixed dofs zeroed with a unit diagonal;
+    d = sqrt(diag H). free, mass: (nV,); plan: a soa2d.Scatter2DPlan."""
+    name, dev = "dense_assemble2d", H36.device
+    dt = _float(name, H36)
+    n, nv = H36.shape[-1], plan.n_vert
+    _need(name, "H36", H36, dev, dt, (36, n))
+    _need(name, "free", free, dev, dt, (nv,))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    _need(name, "hdest", plan.hdest, dev, torch.int64, (36 * n,))
+    _need(name, "items", plan.items, dev, torch.int64, (36 * n,))
+    n_slot = _slots2d(name, H36, plan)
+    if not _route(name, H36):
+        return soa2d.dense_assemble2d_ref(H36, free, mass, plan)
+    lib = _load()
+    n2 = 2 * nv
+    H = torch.empty((n2, n2), dtype=dt, device=dev)
+    d = torch.empty(n2, dtype=dt, device=dev)
+    err = lib.dense_assemble2d(
+        _DTYPES[dt], _ptr(H36), n, _ptr(plan.items), _ptr(plan.seg_off),
+        _ptr(plan.udest), n_slot, _ptr(free), _ptr(mass), n2, _ptr(H),
+        _ptr(d), _stream(H36))
+    _ok(name, err)
+    return H, d
+
+
+def dense_scale2d(H, d, plan):
+    """K24's second entry: H / d_i / d_j (the Jacobi equilibration before
+    the Cholesky). On the card the assembled slots of H are scaled in place
+    and H is returned (every other entry is 0); the plain version returns a
+    new tensor."""
+    name, dev = "dense_scale2d", H.device
+    dt = _float(name, H)
+    n2 = 2 * plan.n_vert
+    _need(name, "H", H, dev, dt, (n2, n2))
+    _need(name, "d", d, dev, dt, (n2,))
+    n_slot = _slots2d(name, H, plan)
+    if not _route(name, H):
+        return soa2d.dense_scale2d_ref(H, d, plan)
+    lib = _load()
+    err = lib.dense_scale2d(_DTYPES[dt], _ptr(H), _ptr(d), _ptr(plan.udest),
+                            n_slot, n2, _stream(H))
+    _ok(name, err)
+    return H
+
+
+def svd2_flip(F):
+    """The check of the device function svd2_flip: (U (4, N), sigma (2, N),
+    V (4, N)) of F (4, N)."""
+    name = "svd2_flip"
+    n = F.shape[-1]
+    _check(name, F, dict(F=F), dict(F=(4, n)))
+    if not _route(name, F):
+        return soa2d.svd2_flip_ref(F)
+    lib = _load()
+    U, V = torch.empty_like(F), torch.empty_like(F)
+    s = torch.empty((2, n), dtype=F.dtype, device=F.device)
+    err = lib.svd2_flip(_DTYPES[F.dtype], _ptr(F), n, _ptr(U), _ptr(s),
+                        _ptr(V), _stream(F))
+    _ok(name, err)
+    return U, s, V
+
+
+def eigh2(h3):
+    """The check of the device function eigh2: (lam (2, N), Q (4, N)) of
+    packed sym2 matrices h3 (3, N)."""
+    name = "eigh2"
+    n = h3.shape[-1]
+    _check(name, h3, dict(h3=h3), dict(h3=(3, n)))
+    if not _route(name, h3):
+        return soa2d.eigh2_ref(h3)
+    lib = _load()
+    lam = torch.empty((2, n), dtype=h3.dtype, device=h3.device)
+    Q = torch.empty((4, n), dtype=h3.dtype, device=h3.device)
+    err = lib.eigh2(_DTYPES[h3.dtype], _ptr(h3), n, _ptr(lam), _ptr(Q), None,
+                    _stream(h3))
+    _ok(name, err)
+    return lam, Q
+
+
+def make_pd2(h3):
+    """The check of the device function make_pd2: (3, N) packed sym2
+    matrices with their eigenvalues clamped at 0."""
+    name = "make_pd2"
+    n = h3.shape[-1]
+    _check(name, h3, dict(h3=h3), dict(h3=(3, n)))
+    if not _route(name, h3):
+        return soa2d.make_pd2_ref(h3)
+    lib = _load()
+    out = torch.empty_like(h3)
+    err = lib.eigh2(_DTYPES[h3.dtype], _ptr(h3), n, None, None, _ptr(out),
+                    _stream(h3))
+    _ok(name, err)
+    return out
+
+
+def material2d(F, u, lam, mat):
+    """The check of the 2D materials' device functions: (11, N) Psi, dPsi
+    (2), d2Psi (3), BLeftCoef and the first Piola stress (4) at the flip-SVD
+    of F (4, N)."""
+    name = "material2d"
+    n = F.shape[-1]
+    _check(name, F, dict(F=F, u=u, lam=lam), dict(F=(4, n), u=(n,),
+                                                   lam=(n,)))
+    if not _route(name, F):
+        return soa2d.material2d_ref(F, u, lam, mat)
+    lib = _load()
+    out = torch.empty((11, n), dtype=F.dtype, device=F.device)
+    err = lib.material2d(_DTYPES[F.dtype], mat.code, _ptr(F), _ptr(u),
+                         _ptr(lam), n, _ptr(out), _stream(F))
+    _ok(name, err)
+    return out

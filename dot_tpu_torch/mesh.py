@@ -132,8 +132,9 @@ class Mesh:
         (main.cpp:665-790)."""
         if cfg.shape != "input":
             raise NotImplementedError(
-                f"primitive shape {cfg.shape!r} not supported yet (3D builds "
-                "of the reference also only accept 'input', main.cpp:676-678)")
+                f"primitive shape {cfg.shape!r} is a 2D scene: it runs through "
+                "dim2.Sim2D / run_script_2d (3D builds of the reference also "
+                "only accept 'input', main.cpp:676-678)")
         path = resolve_input_path(cfg.input_shape_path, search_dirs)
         if path.endswith(".msh"):
             V, TT, SF = meshio.read_tet_mesh(path)

@@ -13,6 +13,10 @@ Per run directory:
   log.txt           tolerances, inner iter counts, sysE per step
   finalResult_mesh.msh
 
+2D scenes (a primitive `shape`) go through dim2.Sim2D, which shares this
+frame loop and writes the same files but the .msh; only `timeStepper
+Newton` runs there so far.
+
 This port runs all nine steppers at dim 3: `timeStepper DOT | GSDD | Newton
 | LBFGS | LBFGSH | LBFGSHI | LBFGSJH | ADMM | ADMMDD`, the quasi-Newton ones
 with `h0Refresh 1` (the reference's per-step refactorization; the key does
@@ -98,7 +102,9 @@ def _unsupported(what):
         f"{what} is not ported to dot_tpu_torch yet (ROADMAP.md queue 1); "
         "the port runs 'timeStepper DOT, GSDD, Newton, LBFGS, LBFGSH, "
         "LBFGSHI, LBFGSJH, ADMM, ADMMDD' at dim 3, the quasi-Newton steppers "
-        "with 'h0Refresh 1'")
+        "with 'h0Refresh 1', and 'timeStepper Newton' on the 2D shapes "
+        "(grid, square, rectangle, cylinder, spikes, Sharkey) with warmStart "
+        "0-4; no restart at either dimension")
 
 
 STEPPERS = {"DOT": DOTStepper, "GSDD": GSDDStepper, "Newton": NewtonStepper,
@@ -127,17 +133,7 @@ class Simulator:
             raise _unsupported(f"h0Refresh {cfg.h0_refresh}")
         if cfg.restart:
             raise _unsupported("restart")
-        self.cfg = cfg
-        self.out = output_dir
-        os.makedirs(output_dir, exist_ok=True)
-        self.save_every = save_every
-        self.mute = mute
-        self.timer = Timer()
-        self.device = device
-        # the two-loop's scalars drive convergence decisions: float32
-        # matrix products must not drop to TF32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        self._begin(cfg, output_dir, device, save_every, mute)
 
         self.timer.start("load")
         self.mesh = Mesh.from_config(cfg, search_dirs)
@@ -205,9 +201,29 @@ class Simulator:
                 and plan.n_parts > 1):
             meshio.write_partition_debug(output_dir, self.mesh, plan.part)
 
+        self._start()
+
+    def _begin(self, cfg, output_dir, device, save_every, mute):
+        """The run's bookkeeping, before the mesh is loaded (shared with
+        dim2.Sim2D)."""
+        self.cfg = cfg
+        self.out = output_dir
+        os.makedirs(output_dir, exist_ok=True)
+        self.save_every = save_every
+        self.mute = mute
+        self.timer = Timer()
+        self.device = device
+        # the two-loop's scalars drive convergence decisions: float32
+        # matrix products must not drop to TF32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def _start(self):
+        """The initial state, the counters and the run's open files, once
+        the stepper stands."""
         self.state = self.stepper.init_state()
         self.frame = 0
-        self.frame_amt = int(cfg.duration / cfg.dt)
+        self.frame_amt = int(self.cfg.duration / self.cfg.dt)
         self.inner_iter_total = 0
         self.ls_total = 0
         # per-frame host records: dicts of seconds, iters, halvings,
@@ -215,9 +231,9 @@ class Simulator:
         self.frames = []
         self.timer.stop()
 
-        cfg.save(os.path.join(output_dir, "config.txt"))
-        self._iter_stats = open(os.path.join(output_dir, "iterStats.txt"), "w")
-        self._log = open(os.path.join(output_dir, "log.txt"), "w")
+        self.cfg.save(os.path.join(self.out, "config.txt"))
+        self._iter_stats = open(os.path.join(self.out, "iterStats.txt"), "w")
+        self._log = open(os.path.join(self.out, "log.txt"), "w")
 
     # ------------------------------------------------------------------
     def _rel_tol(self, frame):
@@ -273,6 +289,9 @@ class Simulator:
             f"accumulated line search steps {self.ls_total}\n")
         self._log.write(f"{frame}th tol: {tol:.6e}\n")
         self._log.write(f"sysE = {float(sys_e):.10e}\n")
+        if stats.stopped and it == 0:
+            # dot_tpu/sim.py:370-371 (reachable with `timeStepper ADMM 0`)
+            self._log.write("\tline search with Armijo's rule failed!!!\n")
         self._log.flush()
         self._iter_stats.flush()
 
@@ -293,15 +312,20 @@ class Simulator:
             f.write(f"\ndx_Elastic {dxe.shape[0]} 3\n")
             for r in dxe:
                 f.write("%le %le %le\n" % (r[0], r[1], r[2]))
-        meshio.write_obj(os.path.join(self.out, f"{n}.obj"),
-                         x[self._surf_verts], self._surf_faces)
+        self._write_obj(os.path.join(self.out, f"{n}.obj"), x)
+
+    def _write_obj(self, path, x):
+        meshio.write_obj(path, x[self._surf_verts], self._surf_faces)
+
+    def _write_final_mesh(self, x):
+        meshio.save_tet_mesh(os.path.join(self.out, "finalResult_mesh.msh"),
+                             x, self.mesh.conn, self.mesh.SF)
 
     # ------------------------------------------------------------------
     def finalize(self):
         self.save_status()
         x = self.state.x.detach().to("cpu", torch.float64).numpy()
-        meshio.save_tet_mesh(os.path.join(self.out, "finalResult_mesh.msh"),
-                             x, self.mesh.conn, self.mesh.SF)
+        self._write_final_mesh(x)
         with open(os.path.join(self.out, "info.txt"), "w") as f:
             f.write(f"vertAmt {self.mesh.n_vert}\n"
                     f"elemAmt {self.mesh.n_elem}\n")

@@ -132,8 +132,10 @@ class ADMMPDStepper:
             it += 1
             push_row(rows, (1.0, e_h, sqn_h))
 
-        return finish_step(sys, state, x, e_h, sqn_h, tol, it, 0, False,
-                           False, rows, syncs0)
+        state, (stats, sys_e) = finish_step(sys, state, x, e_h, sqn_h, tol,
+                                            it, 0, False, False, rows, syncs0)
+        stats.stopped = it >= self.max_iter     # dot_tpu admm.py:330
+        return state, (stats, sys_e)
 
     def init_state(self):
         sys, sd = self.system, self.script_data

@@ -446,8 +446,10 @@ class ADMMDDStepper:
         # weights and the consensus factor for the next step
         (state.elem_h, state.w_vals, state.cons_chol,
          state.cons_equil) = self.update_weights(z, fixed)
-        return finish_step(sys, state, z, e_h, sqn_h, tol, it, 0, False,
-                           False, rows, syncs0)
+        state, (stats, sys_e) = finish_step(sys, state, z, e_h, sqn_h, tol,
+                                            it, 0, False, False, rows, syncs0)
+        stats.stopped = it >= ADMM_ITER_CAP     # dot_tpu admm_dd.py:642
+        return state, (stats, sys_e)
 
     def init_state(self):
         sys, sd = self.system, self.script_data

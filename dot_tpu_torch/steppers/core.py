@@ -156,9 +156,97 @@ class StepStats:
     stop: str           # "tol", "rel_dec", "ls_failed" or "iter_cap"
     rows: list          # per-iteration (alpha, E, ||g||^2), row 0 = start
     syncs: int          # device -> host reads this step took
+    # dot_tpu's StepStats.stopped: the loop ended by its own stop rule (the
+    # quasi-Newton and Newton steppers: a failed line search or the relative
+    # decrease; the ADMM steppers: the iteration cap)
+    stopped: bool = False
 
 
-class System:
+class SystemBase:
+    """What the 3D System and the 2D System2D (dim2.py) share: the host
+    read, the tolerance, the inertia terms, the warm starts 0-4, the
+    Backward-Euler update and the float64 energy diagnostic. A subclass sets
+    dtype, device, dt, dt_sq, n_vert, n_syncs, mesh, mat, mass, vol_w (the
+    per-element rest measure), u_e, lam_e, gravity, grav_dt_sq,
+    _sqnorm_H_rest and _sqnorm_l, and offers elastic_energy."""
+
+    def host(self, *vals):
+        """One device -> host read of 0-d tensors (counted in n_syncs)."""
+        self.n_syncs += 1
+        return torch.stack([v.reshape(()).to(torch.float64)
+                            for v in vals]).tolist()
+
+    def scalar(self, v):
+        return torch.tensor(v, dtype=self.dtype, device=self.device)
+
+    def target_g_res(self, rel_tol):
+        """targetGRes = eps^2 ||H_rest||^2 ||l||^2 (nFree/nV) dt^4
+        (reference: computeCharNormSq; energyParamSum == 1)."""
+        n_free = self.n_vert - int(np.count_nonzero(self.mesh.fixed_mask))
+        return (rel_tol * rel_tol * self._sqnorm_H_rest * self._sqnorm_l
+                * (n_free / self.n_vert) * self.dt_sq * self.dt_sq)
+
+    def energy(self, x, x_tilta, F):
+        """Incremental potential: dt^2 sum w Psi + 1/2 ||x - xt||_M^2
+        (reference: Optimizer::computeEnergyVal, Optimizer.cpp:1183-1218)."""
+        d = x - x_tilta
+        e_in = 0.5 * torch.sum(self.mass * torch.sum(d * d, dim=-1))
+        return self.elastic_energy(F) + e_in
+
+    def inertia_quad(self, x0, p, x_tilta):
+        """(c0, c1, c2) with  1/2||x0 + a p - xt||_M^2 = c0 + a c1 + a^2 c2."""
+        d0 = x0 - x_tilta
+        c0 = 0.5 * torch.sum(self.mass * torch.sum(d0 * d0, dim=-1))
+        c1 = torch.sum(self.mass * torch.sum(d0 * p, dim=-1))
+        c2 = 0.5 * torch.sum(self.mass * torch.sum(p * p, dim=-1))
+        return c0, c1, c2
+
+    def system_energy(self, x, x_n, sigma):
+        """Diagnostic total energy in float64: elastic + kinetic +
+        potential (reference: computeSystemEnergy, Optimizer.cpp:1310-1328)."""
+        f64 = torch.float64
+        psi_w = self.mat.psi(tuple(sigma), self.u_e, self.lam_e) * self.vol_w
+        e = torch.sum(psi_w.to(f64))
+        d = (x - x_n).to(f64)
+        e = e + torch.sum(self.mass.to(f64)
+                          * (0.5 * torch.sum(d * d, dim=-1) / self.dt_sq
+                             - (x.to(f64) @ self.gravity.to(f64))))
+        return e
+
+    def warm_start(self, option, x, v, dx_elastic, fixed, x_tilta=None):
+        """Warm starts 0-4 (Optimizer::initX, Optimizer.cpp:441-544)."""
+        if option == 0:
+            return x
+        if option == 1:
+            d = self.dt * v
+        elif option == 2:
+            d = self.dt * v + self.grav_dt_sq
+        elif option == 3:
+            d = self.dt * v + self.grav_dt_sq + dx_elastic
+        elif option == 4:
+            d = self.dt * v + self.grav_dt_sq + 0.5 * dx_elastic
+        else:
+            raise NotImplementedError(f"warmStart {option}")
+        return x + torch.where(fixed[:, None], 0.0, d)
+
+    def compute_x_tilta(self, x_n, v, fixed):
+        """x~ = x^n + dt v + dt^2 g (free), x^n (fixed)
+        (reference: computeXTilta, Optimizer.cpp:584-610)."""
+        return torch.where(fixed[:, None], x_n,
+                           x_n + self.dt * v + self.grav_dt_sq)
+
+    def be_update(self, state, x_new):
+        """Backward-Euler end-of-step update (Optimizer.cpp:354-361), in
+        place on `state`."""
+        dx_el = x_new - state.x_tilta
+        v = (x_new - state.x_n) / self.dt
+        state.x_tilta = self.compute_x_tilta(x_new, v, state.fixed)
+        state.x, state.x_n = x_new, x_new.clone()
+        state.v, state.dx_elastic = v, dx_el
+        return state
+
+
+class System(SystemBase):
     def __init__(self, mesh, cfg, plan, dtype=torch.float32, device="cpu",
                  use_kernels=True, apply_dtype=None, factor_dtype=None,
                  use_coarse=None):
@@ -344,15 +432,6 @@ class System:
         return Hn.to(self.factor_dtype)
 
     # ------------------------------------------------------------------
-    def host(self, *vals):
-        """One device -> host read of 0-d tensors (counted in n_syncs)."""
-        self.n_syncs += 1
-        return torch.stack([v.reshape(()).to(torch.float64)
-                            for v in vals]).tolist()
-
-    def scalar(self, v):
-        return torch.tensor(v, dtype=self.dtype, device=self.device)
-
     def _compute_sqnorm_h_rest(self):
         """||dP/dF(I)||_F^2 with the first element's Lame params, no SPD
         projection (at F = I the rotated-basis M is dP/dF)."""
@@ -370,13 +449,6 @@ class System:
             r = (dpsi[ci] + dpsi[cj]) / (2.0 * (s1[ci] + s1[cj]))
             tot = tot + 2 * (bl[k] + r) ** 2 + 2 * (bl[k] - r) ** 2
         return float(tot[0])
-
-    def target_g_res(self, rel_tol):
-        """targetGRes = eps^2 ||H_rest||^2 ||l||^2 (nFree/nV) dt^4
-        (reference: computeCharNormSq; energyParamSum == 1)."""
-        n_free = self.n_vert - int(np.count_nonzero(self.mesh.fixed_mask))
-        return (rel_tol * rel_tol * self._sqnorm_H_rest * self._sqnorm_l
-                * (n_free / self.n_vert) * self.dt_sq * self.dt_sq)
 
     # ------------------------------------------------------------------
     # energy / gradient / hessian (kernels K1-K4)
@@ -397,21 +469,6 @@ class System:
         _, s = self.k.ls_trial_energy(F, None, None, self.u_e, self.lam_e,
                                       self.vol_w, self.mat, want_sigma=True)
         return s
-
-    def energy(self, x, x_tilta, F):
-        """Incremental potential: dt^2 sum w Psi + 1/2 ||x - xt||_M^2
-        (reference: Optimizer::computeEnergyVal, Optimizer.cpp:1183-1218)."""
-        d = x - x_tilta
-        e_in = 0.5 * torch.sum(self.mass * torch.sum(d * d, dim=-1))
-        return self.elastic_energy(F) + e_in
-
-    def inertia_quad(self, x0, p, x_tilta):
-        """(c0, c1, c2) with  1/2||x0 + a p - xt||_M^2 = c0 + a c1 + a^2 c2."""
-        d0 = x0 - x_tilta
-        c0 = 0.5 * torch.sum(self.mass * torch.sum(d0 * d0, dim=-1))
-        c1 = torch.sum(self.mass * torch.sum(d0 * p, dim=-1))
-        c2 = 0.5 * torch.sum(self.mass * torch.sum(p * p, dim=-1))
-        return c0, c1, c2
 
     def gradient(self, x, x_tilta, fixed):
         """(nV, 3), zero at fixed vertices (Optimizer.cpp:1220-1256)."""
@@ -434,18 +491,6 @@ class System:
         Fp, q_el = self.k.direction_pass(p, self.conn, self.g9, elem_h)
         q_m = torch.sum(self.mass[:, None] * p * p)
         return q_el + q_m, Fp
-
-    def system_energy(self, x, x_n, sigma):
-        """Diagnostic total energy in float64: elastic + kinetic +
-        potential (reference: computeSystemEnergy, Optimizer.cpp:1310-1328)."""
-        f64 = torch.float64
-        psi_w = self.mat.psi(tuple(sigma), self.u_e, self.lam_e) * self.vol_w
-        e = torch.sum(psi_w.to(f64))
-        d = (x - x_n).to(f64)
-        e = e + torch.sum(self.mass.to(f64)
-                          * (0.5 * torch.sum(d * d, dim=-1) / self.dt_sq
-                             - (x.to(f64) @ self.gravity.to(f64))))
-        return e
 
     # ------------------------------------------------------------------
     # subdomain assembly
@@ -949,23 +994,12 @@ class System:
     # warm start (Optimizer::initX, Optimizer.cpp:441-582)
     # ------------------------------------------------------------------
     def warm_start(self, option, x, v, dx_elastic, fixed, x_tilta=None):
-        if option == 0:
-            return x
-        if option == 1:
-            d = self.dt * v
-        elif option == 2:
-            d = self.dt * v + self.grav_dt_sq
-        elif option == 3:
-            d = self.dt * v + self.grav_dt_sq + dx_elastic
-        elif option == 4:
-            d = self.dt * v + self.grav_dt_sq + 0.5 * dx_elastic
-        elif option == 5:
-            # Jacobi-preconditioned first step (Optimizer.cpp:545-582):
-            # d_i = -g_i / H_ii at the last-timestep configuration
-            g = self.gradient(x, x_tilta, fixed)
-            d = -g / self.hessian_diag(self.element_hessians(x))
-        else:
-            raise NotImplementedError(f"warmStart {option}")
+        if option != 5:
+            return super().warm_start(option, x, v, dx_elastic, fixed)
+        # Jacobi-preconditioned first step (Optimizer.cpp:545-582):
+        # d_i = -g_i / H_ii at the last-timestep configuration
+        g = self.gradient(x, x_tilta, fixed)
+        d = -g / self.hessian_diag(self.element_hessians(x))
         return x + torch.where(fixed[:, None], 0.0, d)
 
     def hessian_diag(self, elem_h):
@@ -1094,19 +1128,3 @@ class System:
             lb_t=torch.zeros((m, self.n_vert, 3), dtype=dtype, device=dev),
             lb_rho=torch.ones(m, dtype=dtype, device=dev),
             lb_valid=torch.zeros(m, dtype=dtype, device=dev), kc_chol=kc)
-
-    def compute_x_tilta(self, x_n, v, fixed):
-        """x~ = x^n + dt v + dt^2 g (free), x^n (fixed)
-        (reference: computeXTilta, Optimizer.cpp:584-610)."""
-        return torch.where(fixed[:, None], x_n,
-                           x_n + self.dt * v + self.grav_dt_sq)
-
-    def be_update(self, state, x_new):
-        """Backward-Euler end-of-step update (Optimizer.cpp:354-361), in
-        place on `state`."""
-        dx_el = x_new - state.x_tilta
-        v = (x_new - state.x_n) / self.dt
-        state.x_tilta = self.compute_x_tilta(x_new, v, state.fixed)
-        state.x, state.x_n = x_new, x_new.clone()
-        state.v, state.dx_elastic = v, dx_el
-        return state

@@ -6,7 +6,8 @@ iterate (K3), assembles it on the P = 1 plan of the shared System (K5 when
 that plan is banded), factorizes it exactly (the block scan: no cyclic
 reduction, no bf16; a failed factor is NaN, and the NaN-safe line search
 then stops the step) and solves H p = -g. dot_tpu's lax.while_loop is a
-host loop here, as in quasi_newton.py.
+host loop here, as in quasi_newton.py. dim2.Newton2DStepper runs the same
+loop with the dense whole-mesh factor of a System2D (`direction`).
 """
 
 from __future__ import annotations
@@ -20,13 +21,16 @@ class NewtonStepper:
     name = "Newton"
 
     def __init__(self, system, script_data, warm_start_opt=2):
-        if system.n_parts != 1:
-            raise ValueError("Newton uses the whole-mesh system (a P = 1 "
-                             f"plan), not {system.n_parts} parts")
+        self._check_system(system)
         self.system = system
         self.script_data = script_data
         self.warm_start_opt = warm_start_opt
         self._anim = make_step_fn(script_data, system.dt)
+
+    def _check_system(self, system):
+        if system.n_parts != 1:
+            raise ValueError("Newton uses the whole-mesh system (a P = 1 "
+                             f"plan), not {system.n_parts} parts")
 
     def init_state(self):
         return self.system.init_state(self.script_data)
@@ -55,8 +59,7 @@ class NewtonStepper:
         while sqn_h > tol and it < INNER_ITER_CAP and not stopped:
             # refactorize at the current iterate (solve_oneStep,
             # Optimizer.cpp:702-749)
-            L, d = self.factor(x, fixed)
-            p = sys.h0_apply(L, d, -g)
+            p = self.direction(x, fixed, g)
             Fp = sys.defgrad(p)
             x_new, e_new, alpha, e_new_h, a_h, halv, failed = line_search(
                 sys, x, p, e, e_h, state.x_tilta, sys.scalar(1.0), F, Fp)
@@ -77,6 +80,11 @@ class NewtonStepper:
 
         return finish_step(sys, state, x, e_h, sqn_h, tol, it, n_ls, stopped,
                            failed, rows, syncs0)
+
+    def direction(self, x, fixed, g):
+        """p = -H^{-1} g with H factorized at x."""
+        L, d = self.factor(x, fixed)
+        return self.system.h0_apply(L, d, -g)
 
     def factor(self, x, fixed):
         """(L, d): the exact factor of the Hessian at x."""

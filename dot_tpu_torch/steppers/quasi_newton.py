@@ -72,7 +72,7 @@ def finish_step(sys, state, x, e_h, sqn_h, tol, it, n_ls, stopped, failed,
         stop = "iter_cap"
     stats = StepStats(energy=e_h, sqn_g=sqn_h, inner_iters=it,
                       ls_halvings=n_ls, stop=stop, rows=rows,
-                      syncs=sys.n_syncs - syncs0)
+                      syncs=sys.n_syncs - syncs0, stopped=stopped)
     return state, (stats, sys_e)
 
 

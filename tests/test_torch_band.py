@@ -124,6 +124,62 @@ def test_chol_inv_flags_an_indefinite_block():
     assert _rel((L[0] @ Li[0]).numpy(), eye) <= 1e-12
 
 
+@pytest.mark.parametrize("symmetrize", [True, False], ids=["sym", "lower"])
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_chol_inv_split_above_the_panel_limit(prec, symmetrize):
+    """The host's 2 x 2 split that lifts K6's panel limit, on its own (the
+    leaf is the plain version with a limit of 600, so a 2,000^2 block is
+    split twice): L and L^{-1} of an SPD block equal the unsplit reference's
+    (f64 1e-10, f32 1e-5, norm-wise); a skew part above the diagonal is
+    ignored (lower) or averaged away (symmetrized)."""
+    dtype, tol = {"f64": (torch.float64, 1e-10),
+                  "f32": (torch.float32, 1e-5)}[prec]
+    rng = np.random.default_rng(3)
+    n = 2000
+    G = rng.normal(size=(n, n))
+    A = G @ G.T / n + np.eye(n)
+    skew = np.triu(rng.normal(size=(n, n)), 1) * 1e-3
+    At = torch.as_tensor((A + skew - (skew.T if symmetrize else 0.0))[None],
+                         dtype=dtype)
+    calls = []
+
+    def leaf(B, sym):
+        calls.append(B.shape[-1])
+        assert B.is_contiguous() and sym == symmetrize
+        return band.chol_inv_ref(B, sym)
+
+    L, Li, bad = band.chol_inv_split(At, symmetrize, 600, leaf)
+    Lr, Lir, bad_r = band.chol_inv_ref(torch.as_tensor(A[None], dtype=dtype),
+                                       True)
+    assert calls == [500, 500, 500, 500]
+    assert not bad.any() and not bad_r.any()
+    assert _rel(L.numpy(), Lr.numpy()) <= tol
+    assert _rel(Li.numpy(), Lir.numpy()) <= tol
+    assert torch.equal(L, torch.tril(L)) and torch.equal(Li, torch.tril(Li))
+    # within the limit nothing is split
+    assert band.chol_inv_split(At, symmetrize, n, leaf)[0].shape == At.shape
+    assert calls[-1] == n
+
+
+@pytest.mark.parametrize("where", ["first half", "second half"])
+def test_chol_inv_split_carries_nan_and_bad(where):
+    """An indefinite 2,000^2 block is flagged and NaN in L and L^{-1}
+    whichever half the bad pivot falls into, and its neighbour in the batch
+    stays finite: the H0 rebuild's tiers key on exactly that."""
+    rng = np.random.default_rng(4)
+    n = 2000
+    G = rng.normal(size=(n, n))
+    A = np.stack([G @ G.T / n + np.eye(n)] * 2)
+    k = 100 if where == "first half" else 1900
+    A[1, k, k] = -1.0
+    L, Li, bad = band.chol_inv_split(torch.as_tensor(A), True, 1100,
+                                     band.chol_inv_ref)
+    assert bad.tolist() == [False, True]
+    assert torch.isnan(L[1]).all() and torch.isnan(Li[1]).all()
+    assert torch.isfinite(L[0]).all() and torch.isfinite(Li[0]).all()
+    assert _rel((L[0] @ Li[0]).numpy(), np.eye(n)) <= 1e-10
+
+
 @pytest.mark.parametrize("trans", [False, True], ids=["A", "At"])
 @pytest.mark.parametrize("adtype", [torch.float64, torch.float32,
                                     torch.bfloat16],

@@ -1,10 +1,14 @@
 """The port's kernels on the card (marker `cuda`): each kernel (K1-K4 on
 the per-element passes, K5-K8 on the H0 rebuild and apply of a
 cyclic-reduction plan, K9 on random histories, K10-K11 on a coarse plan,
-K5's compact entry point and K12 on a forced chunked rebuild) against its
-plain PyTorch version on CUDA tensors, and DOT steps on the card against
-the same steps on the CPU (dense, cyclic-reduction, and coarse + chunked
-plans). Skipped where there is no CUDA device; on the GPU machine run
+K5's compact entry point and K12 on a forced chunked rebuild, K13-K16 on
+the other steppers' plans, K17-K20 and the per-slab / from-F entry points
+on the ADMM plans, K6 above its panel limit, the 2D kernels K21-K24 with
+the check entries of their device functions) against its plain PyTorch
+version on CUDA tensors, and time steps on the card against the same steps
+on the CPU or on the plain versions (DOT on dense, cyclic-reduction and
+coarse + chunked plans, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton).
+Skipped where there is no CUDA device; where there is one, run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
@@ -496,3 +500,342 @@ def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
         outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
     assert outs[0][1] == outs[1][1]
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)
+
+
+# ----------------------------------------------------------------------
+# K17-K20 and the per-slab / from-F entry points: the two ADMM steppers
+# ----------------------------------------------------------------------
+def _local_step_inputs(n, dtype, dev, rng):
+    """(Dx, u9), each (9, n): a third random deformation gradients, a third
+    inverted near the identity, a third near rank 1; small duals."""
+    third = n // 3
+    f = np.empty((9, n))
+    f[:, :third] = np.eye(3).reshape(9, 1) + 0.5 * rng.normal(size=(9, third))
+    inv = np.eye(3).reshape(9, 1) + 0.1 * rng.normal(size=(9, third))
+    inv[[0, 3, 6]] *= -1.0
+    f[:, third:2 * third] = inv
+    m = n - 2 * third
+    uv = rng.normal(size=(3, m))[:, None] * rng.normal(size=(3, m))[None]
+    f[:, 2 * third:] = uv.reshape(9, m) + 1e-3 * rng.normal(size=(9, m))
+    return (torch.as_tensor(f, dtype=dtype, device=dev),
+            torch.as_tensor(0.1 * rng.normal(size=(9, n)), dtype=dtype,
+                            device=dev))
+
+
+def _admm_dd_scene():
+    """bar 18x3x3, 3 parts, banded own-element plan (nb >= 3)."""
+    mesh, cfg, sd = _stepper_scene(cells=(18, 3, 3))
+    plan = partition.build_plan(mesh, 3, own_plan=True, pad_elem_to=16,
+                                pad_n3_to=48, band_bs_unit=48, band_min_nb=3)
+    assert plan.band_nb >= 3 and plan.own_band_dest is not None
+    return mesh, cfg, sd, plan, partition.build_admm_dd_plan(mesh, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_admm_kernels_match_plain_versions(cuda, dtype):
+    """K17 (equal loop counts, z and du where they are), its SPD projection,
+    K18 with both epilogues, K19, K20 and its diagonal flag, K1 per slab and
+    K2 from carried F against their plain versions: per-element results f64
+    1e-10 / f32 1e-5, sums f64 1e-12 / f32 1e-5, the scattered gradient and
+    the band norm-wise 1e-4 in f32."""
+    from dot_tpu_torch.kernels import admm as kadmm
+    from dot_tpu_torch.steppers import ADMMDDStepper, ADMMPDStepper
+    f64 = dtype == torch.float64
+    t_el, t_sum, t_n = ((1e-10, 1e-12, 1e-10) if f64 else (1e-5, 1e-5, 1e-4))
+    rng = np.random.default_rng(5)
+    mesh, cfg, sd, plan, ap = _admm_dd_scene()
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    # K17, make_pd3, K18 on the ADMM-PD system (no plan)
+    pdsys = System(mesh, cfg, None, dtype=dtype, device=cuda)
+    pst = ADMMPDStepper(pdsys, sd)
+    n, nv = pdsys.n_elem_p, pdsys.n_vert
+    Dx, u9 = _local_step_inputs(n, dtype, cuda, rng)
+    l_args = (Dx, u9, pst.w_e, pst.vol_dtsq, pdsys.u_e, pdsys.lam_e,
+              pdsys.mat)
+    ops.reset_launches()
+    zk, duk, ck = ops.admm_local_step(*l_args, want_counts=True)
+    zr, dur, cr = kadmm.admm_local_step_ref(*l_args, want_counts=True)
+    ne = mesh.n_elem                  # the padding elements (w = 0) are NaN
+    same = (ck == cr).all(dim=0)[:ne]
+    assert int((~same).sum()) <= (1e-4 if f64 else 1e-3) * ne + 1
+    assert _rel_max(zk[:, :ne][:, same], zr[:, :ne][:, same]) <= t_el
+    assert _rel_max(duk[:, :ne][:, same], dur[:, :ne][:, same]) <= t_el
+    a6 = t(rng.normal(size=(6, n)))
+    assert _rel_max(ops.make_pd3(a6), kadmm.make_pd3_ref(a6)) <= t_el
+    x = t(sd.x0 + 0.02 * rng.normal(size=sd.x0.shape))
+    fixed = torch.as_tensor(sd.fixed0, device=cuda)
+    free = torch.logical_not(fixed).to(dtype)
+    M9 = t(rng.normal(size=(9, n)))
+    base, off = t(rng.normal(size=(2, nv, 3)))
+    s_args = (M9, pdsys.g9, pst.w_e, pdsys.scat_perm, pdsys.scat_segids,
+              pdsys.scat_off, x)
+    for epi in (dict(mass=pdsys.mass),
+                dict(base=base, offset=off, free=free)):
+        assert _rel_max(ops.dtw_scatter(*s_args, **epi),
+                        kadmm.dtw_scatter_ref(*s_args, **epi)) <= t_sum
+    assert ops.launches["admm_local_step"] == 1
+    assert ops.launches["dtw_scatter"] == 2
+
+    # K19, K20 and the two entry points on the banded ADMM-DD plan
+    sysm = System(mesh, cfg, plan, dtype=dtype, device=cuda)
+    dd = ADMMDDStepper(sysm, sd, ap)
+    assert dd.banded_local
+    P, nmax = sysm.n_parts, dd.nmax
+    _, wv, _, _ = dd.update_weights(x, fixed)
+    free3f = dd._free3(fixed).reshape(-1).contiguous()
+    valid = sysm.local_valid[..., None]
+    xl_flat = dd._to_flat(x[sysm.l2g] * valid)
+    eh = sysm.k.elem_hessian(xl_flat, dd.conn_local, sysm.g9, sysm.u_e,
+                             sysm.lam_e, sysm.vol_w, sysm.mat, sysm.dt_sq)
+    freef = sysm._free(fixed).to(dtype).reshape(-1)
+    b_args = (eh, freef, dd.mass_local.reshape(-1).contiguous(),
+              sysm.own_band_plan, wv, free3f, dd.wp)
+    assert _rel(ops.own_band_assemble(*b_args),
+                kadmm.own_band_assemble_ref(*b_args)) <= t_n
+    a = t(rng.normal(size=free3f.shape[0]))
+    assert _rel_max(ops.w_matvec(wv, free3f, a, dd.wp),
+                    kadmm.w_matvec_ref(wv, free3f, a, dd.wp)) <= t_sum
+    assert _rel_max(ops.w_matvec(wv, free3f, None, dd.wp, diag_only=True),
+                    kadmm.w_matvec_ref(wv, free3f, None, dd.wp,
+                                       diag_only=True)) <= t_sum
+    F0 = dd._local_defgrad(xl_flat)
+    p_flat = dd._to_flat(t(0.01 * rng.normal(size=(P, nmax, 3))) * valid)
+    Fp = dd._local_defgrad(p_flat)
+    alpha = t([1.0, 0.5, 0.25][:P])
+    e_args = (F0, Fp, alpha, sysm.u_e, sysm.lam_e, sysm.vol_w, sysm.mat, P)
+    ek = ops.ls_trial_energy_parts(*e_args)
+    er = kadmm.ls_trial_energy_parts_ref(*e_args)
+    assert float(((ek - er).abs() / er.abs()).max()) <= t_el
+    e0k = ops.ls_trial_energy_parts(F0, None, None, *e_args[3:])
+    e0r = kadmm.ls_trial_energy_parts_ref(F0, None, None, *e_args[3:])
+    assert float(((e0k - e0r).abs() / e0r.abs()).max()) <= t_el
+    g_args = (F0, dd.conn_local, sysm.g9, sysm.u_e, sysm.lam_e, sysm.vol_w,
+              sysm.mat, P * nmax)
+    assert _rel(ops.elem_gradient_from_F(*g_args),
+                kadmm.elem_gradient_from_F_ref(*g_args)) <= t_n
+    torch.cuda.synchronize()
+    for k in ("own_band_assemble", "w_matvec", "w_diag",
+              "ls_trial_energy_parts", "elem_gradient_from_F"):
+        assert ops.launches[k] >= 1, k
+
+
+def test_admm_pd_step_on_card_matches_cpu(cuda):
+    """Two ADMM-PD time steps (K17, K18, the PD band on K14 / K15), f64:
+    the card against the CPU's plain versions, equal iteration counts."""
+    from dot_tpu_torch.kernels import pd
+    from dot_tpu_torch.steppers import ADMMPDStepper
+    mesh, cfg, sd = _stepper_scene()
+    out = []
+    for dev in ("cpu", cuda):
+        sysm = System(mesh, cfg, None, dtype=torch.float64, device=dev)
+        sysm._pd_plan = pd.pd_plan(partition.build_pd_band_plan(
+            sysm._conn_scatter_np, mesh.n_vert, bs_unit=16), dev)
+        st = ADMMPDStepper(sysm, sd, max_iter=200)
+        n0 = dict(ops.launches)
+        s = st.init_state()
+        its = []
+        for _ in range(2):
+            s, (stats, e) = st.step(s)
+            its.append(stats.inner_iters)
+            assert stats.stop in ("tol", "iter_cap")
+        if dev != "cpu":
+            assert ops.launches["admm_local_step"] \
+                == n0["admm_local_step"] + sum(its)
+            assert ops.launches["dtw_scatter"] \
+                == n0["dtw_scatter"] + sum(its) + 2
+        out.append((s.x.cpu().numpy(), its, e))
+    assert out[0][1] == out[1][1]
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8, atol=1e-11)
+    assert out[1][2] == pytest.approx(out[0][2], rel=1e-9)
+
+
+def test_admm_dd_step_on_card_matches_cpu(cuda):
+    """One ADMM-DD time step on the banded own-element plan (K19, K20, K1
+    per slab, K2 from F, the exact local factor on K6 / K7), f64: the card
+    against the CPU's plain versions, equal iteration counts."""
+    from dot_tpu_torch.steppers import ADMMDDStepper
+    mesh, cfg, sd, plan, ap = _admm_dd_scene()
+    out = []
+    for dev in ("cpu", cuda):
+        sysm = System(mesh, cfg, plan, dtype=torch.float64, device=dev)
+        st = ADMMDDStepper(sysm, sd, ap)
+        assert st.banded_local
+        n0 = dict(ops.launches)
+        s, (stats, e) = st.step(st.init_state())
+        assert stats.stop in ("tol", "iter_cap") and stats.inner_iters > 0
+        if dev != "cpu":
+            for k in ("own_band_assemble", "w_matvec",
+                      "ls_trial_energy_parts", "elem_gradient_from_F"):
+                assert ops.launches[k] > n0[k], k
+        out.append((s.x.cpu().numpy(), stats.inner_iters, e))
+    assert out[0][1] == out[1][1]
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-7, atol=1e-10)
+    assert out[1][2] == pytest.approx(out[0][2], rel=1e-8)
+
+
+# ----------------------------------------------------------------------
+# K6 above its panel limit
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chol_inv_above_the_panel_limit(cuda, dtype):
+    """A 2,000^2 SPD block factors through K6 on the halves of the host's
+    split (f64 1e-10, f32 1e-5 against the plain version); an indefinite
+    one comes back flagged and NaN."""
+    from dot_tpu_torch.kernels import band
+    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    n = 2000
+    assert n > ops.chol_inv_max_n(dtype)
+    rng = np.random.default_rng(6)
+    G = torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=cuda)
+    A = (G @ G.t() / n + torch.eye(n, dtype=dtype, device=cuda))[None]
+    ops.reset_launches()
+    for sym in (True, False):
+        L, Li, bad = ops.chol_inv(A, sym)
+        Lr, Lir, _ = band.chol_inv_ref(A, sym)
+        assert not bad.any()
+        assert _rel(L, Lr) <= tol and _rel(Li, Lir) <= tol
+    assert ops.launches["chol_inv"] == 4
+    L, Li, bad = ops.chol_inv(A - 2.0 * torch.eye(n, dtype=dtype,
+                                                  device=cuda), True)
+    assert bad.all() and torch.isnan(L).all() and torch.isnan(Li).all()
+
+
+# ----------------------------------------------------------------------
+# K21-K24: the 2D Newton path
+# ----------------------------------------------------------------------
+def _scene_2d(dev, dtype, use_kernels=True, resolution=400):
+    from dot_tpu_torch import dim2
+    cfg = Config(energy="FCR", time_stepper="Newton", dt=0.025, rho=1000.0,
+                 ym=1e5, pr=0.4, script="stretch", handle_ratio=0.03,
+                 shape="spikes", resolution=resolution)
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    return dim2.Newton2DStepper(
+        dim2.System2D(mesh, cfg, dtype=dtype, device=dev,
+                      use_kernels=use_kernels), sd)
+
+
+@pytest.mark.parametrize("name", ["FCR", "SNH", "SNHWL"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dim2_kernels_match_plain_versions(cuda, dtype, name):
+    """The check entries of elem2d.cuh's device functions, defgrad2d and
+    K21-K24 against their plain versions (atan2 / sin / cos of the device
+    library are not torch's bit for bit): f64 1e-10, f32 1e-5, norm-wise
+    1e-4 on the f32 gradient and Hessians. U, V and Q are compared through
+    the products they enter."""
+    from dot_tpu_torch.kernels import soa2d
+    tol, tol_n = TOL[dtype]
+    mat = soa2d.SOA2D_MATERIALS[name]
+    st = _scene_2d(cuda, dtype)
+    sysm = st.system
+    n, nv = sysm.n_elem, sysm.n_vert
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    F0 = rng.normal(size=(4, n))
+    F0[:, 0] = (1.0, 0.0, 0.0, 1.0)             # R = 0
+    F0[:, 1] = (0.0, -2.0, 2.0, 0.0)            # a scaled rotation
+    F0[:, 2] = (1.0, 0.0, 0.0, -2.0)            # inverted
+    F0[:, 3] = 0.0
+    F0, Fp, h3 = t(F0), t(rng.normal(size=(4, n))), t(rng.normal(size=(3, n)))
+
+    def usv(U, s, V):
+        return torch.stack([U[2 * i] * s[0] * V[2 * j]
+                            + U[2 * i + 1] * s[1] * V[2 * j + 1]
+                            for i in range(2) for j in range(2)])
+
+    def qlq(l_, Q):
+        return torch.stack([l_[0] * Q[0] * Q[0] + l_[1] * Q[1] * Q[1],
+                            l_[0] * Q[0] * Q[2] + l_[1] * Q[1] * Q[3],
+                            l_[0] * Q[2] * Q[2] + l_[1] * Q[3] * Q[3]])
+    ops.reset_launches()
+    Uk, sk, Vk = ops.svd2_flip(F0)
+    Ur, sr, Vr = soa2d.svd2_flip_ref(F0)
+    assert _rel_max(sk, sr) <= tol
+    assert _rel_max(usv(Uk, sk, Vk), usv(Ur, sr, Vr)) <= tol
+    assert _rel_max(usv(Uk, sk, Vk), F0) <= 10 * tol
+    (lk, Qk), (lr, Qr) = ops.eigh2(h3), soa2d.eigh2_ref(h3)
+    assert _rel_max(lk, lr) <= tol
+    assert _rel_max(qlq(lk, Qk), qlq(lr, Qr)) <= tol
+    assert _rel_max(ops.make_pd2(h3), soa2d.make_pd2_ref(h3)) <= tol
+    mk = ops.material2d(F0, sysm.u_e, sysm.lam_e, mat)
+    mr = soa2d.material2d_ref(F0, sysm.u_e, sysm.lam_e, mat)
+    scale = mr.abs().amax(dim=1).clamp_min(1e-300)
+    assert float(((mk - mr).abs().amax(dim=1) / scale).max()) <= tol
+
+    x = t(st.script_data.x0)
+    x[:, :2] += t(0.01 * rng.normal(size=(nv, 2)))
+    xt = x.clone()
+    xt[:, :2] += t(0.005 * rng.normal(size=(nv, 2)))
+    free = torch.logical_not(torch.as_tensor(st.script_data.fixed0,
+                                             device=cuda)).to(dtype)
+    el = (sysm.conn, sysm.g4, sysm.u_e, sysm.lam_e, sysm.vol_w, mat)
+    Fk = ops.defgrad2d(x, sysm.conn, sysm.g4)
+    assert _rel_max(Fk, soa2d.defgrad2d_ref(x, sysm.conn, sysm.g4)) <= tol
+    alpha = torch.tensor(0.5, dtype=dtype, device=cuda)
+    ek, sgk = ops.ls_trial_energy2d(F0, Fp, alpha, *el[2:], want_sigma=True)
+    er, sgr = soa2d.ls_trial_energy2d_ref(F0, Fp, alpha, *el[2:],
+                                          want_sigma=True)
+    assert _rel(ek, er) <= tol and _rel_max(sgk, sgr) <= tol
+    g_args = (x, xt, free, sysm.mass, *el, sysm.dt_sq, sysm.scatter_plan)
+    gk, gr = ops.elem_gradient2d(*g_args), soa2d.elem_gradient2d_ref(*g_args)
+    assert _rel(gk, gr) <= tol_n
+    assert float(gk[:, 2].abs().max()) == 0.0
+    assert float(gk[free == 0].abs().max()) == 0.0
+    h_args = (x, *el, sysm.dt_sq)
+    hk, hr = ops.elem_hessian2d(*h_args), soa2d.elem_hessian2d_ref(*h_args)
+    assert _rel(hk, hr) <= tol_n
+    Hk, dk = ops.dense_assemble2d(hr, free, sysm.mass, sysm.scatter_plan)
+    Hr, dr = soa2d.dense_assemble2d_ref(hr, free, sysm.mass,
+                                        sysm.scatter_plan)
+    assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
+    assert torch.equal(Hk, Hk.t())
+    Sr = soa2d.dense_scale2d_ref(Hr, dr, sysm.scatter_plan)
+    Sk = ops.dense_scale2d(Hk, dk, sysm.scatter_plan)
+    assert Sk.data_ptr() == Hk.data_ptr()       # scaled in place
+    assert _rel_max(Sk, Sr) <= tol
+    torch.cuda.synchronize()
+    for k in ("svd2_flip", "eigh2", "make_pd2", "material2d", "defgrad2d",
+              "ls_trial_energy2d", "elem_gradient2d", "elem_hessian2d",
+              "dense_assemble2d", "dense_scale2d"):
+        assert ops.launches[k] == 1, (k, ops.launches[k])
+
+
+def test_newton2d_step_on_card_matches_cpu(cuda):
+    """Three 2D Newton frames of the spikes scene, f64: the card (K21-K24)
+    against the CPU's plain versions, equal iteration counts, z = 0; and
+    the kernels against the plain versions on the same card."""
+    out = []
+    for dev, use in (("cpu", True), (cuda, True), (cuda, False)):
+        st = _scene_2d(dev, torch.float64, use_kernels=use, resolution=200)
+        n0 = dict(ops.launches)
+        s = st.init_state()
+        its, es = [], []
+        for _ in range(3):
+            s, (stats, e) = st.step(s)
+            its.append(stats.inner_iters)
+            es.append(e)
+            assert stats.stop in ("tol", "rel_dec")
+        n_launch = {k: ops.launches[k] - n0[k] for k in ops.KERNELS}
+        if dev != "cpu" and use:
+            assert n_launch["elem_hessian2d"] == sum(its)
+            assert n_launch["dense_assemble2d"] == sum(its)
+            assert n_launch["elem_gradient2d"] == sum(its) + 3
+        else:
+            assert not any(n_launch.values())
+        assert float(s.x[:, 2].abs().max()) == 0.0
+        out.append((s.x.cpu().numpy(), its, es))
+    for other in out[1:]:
+        assert other[1] == out[0][1]
+        np.testing.assert_allclose(other[0], out[0][0], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(other[2], out[0][2], rtol=1e-10)
+    # the recorded golden of tests/test_dim2.py:241-245
+    np.testing.assert_allclose(out[1][2], [3.294256031942e+03,
+                                           3.294256605060e+03,
+                                           3.300416677680e+03], rtol=2e-4)

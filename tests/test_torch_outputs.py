@@ -1,7 +1,8 @@
 """The port's Simulator and CLI on the CPU: a 2-frame run writes the full
-per-run output contract of dot_tpu/sim.py, what the port does not cover
-yet refuses clearly, and without a card the entry points run only when
-the caller asks for the CPU."""
+per-run output contract of dot_tpu/sim.py (log.txt's line-search-failure
+line against a dot_tpu run of the same scene), what the port does not
+cover yet refuses clearly, and without a card the entry points run only
+when the caller asks for the CPU."""
 
 import os
 
@@ -150,3 +151,44 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
     assert sim.device.type == "cpu" and sim.system.dtype == torch.float64
     cli_main(["100", scene, "cpu", "--frames", "1", "--device", "cpu",
               "--output-root", out])
+
+
+LS_FAILED = "\tline search with Armijo's rule failed!!!"
+
+
+@pytest.mark.parametrize("max_iter", [0, 3])
+def test_log_has_the_line_search_failure_line_where_dot_tpu_has(tmp_path,
+                                                                max_iter):
+    """dot_tpu/sim.py:370-371 writes the line after a frame that reports
+    `stopped` with 0 iterations: an ADMM run whose iteration cap is 0 (set
+    on the Config: the scene grammar turns `ADMM 0` into 10). The port's
+    log.txt carries it in the same frames, and nowhere in a run that
+    iterates."""
+    import jax.numpy as jnp
+    from dot_tpu.config import Config as JConfig
+    from dot_tpu.sim import Simulator as JSimulator
+    scene = _scene(tmp_path, "ADMM")
+    logs = []
+    for cfg_cls, sim_cls, kw in (
+            (JConfig, JSimulator, dict(dtype=jnp.float64, render=False)),
+            (Config, Simulator, dict(dtype=torch.float64, device="cpu"))):
+        cfg = cfg_cls.load(scene)
+        cfg.max_iter_apd = max_iter
+        sim = sim_cls(cfg, str(tmp_path / f"out_{sim_cls.__module__}"),
+                      search_dirs=(str(tmp_path),), mute=True, **kw)
+        sim.run(2)
+        sim.finalize()
+        logs.append(open(os.path.join(sim.out, "log.txt")).read()
+                    .splitlines())
+    jlog, tlog = logs
+    assert jlog.count(LS_FAILED) == tlog.count(LS_FAILED) \
+        == (2 if max_iter == 0 else 0)
+    assert [i for i, ln in enumerate(jlog) if ln == LS_FAILED] \
+        == [i for i, ln in enumerate(tlog) if ln == LS_FAILED]
+    assert len(jlog) == len(tlog)
+    for a, b in zip(jlog, tlog):              # the same lines, sysE to 1e-9
+        if a.startswith("sysE = "):
+            assert float(b.split("=")[1]) == pytest.approx(
+                float(a.split("=")[1]), rel=1e-9)
+        else:
+            assert a == b
