@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale,dim2]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale,dim2,dim2dd]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
@@ -9,10 +9,10 @@ result line):
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
            chol_inv.cu, K7 and K15 block_matvec.cu, K8 and K16 h0.cu,
            K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
-           K15's permute passes pd.cu, K17 / K18 / K20 admm.cu; K19 and the
-           per-slab / from-F entry points of K1 / K2 live in band_asm.cu
-           and elem.cu) with nvcc for sm_90a, one nvcc per source, all at
-           once; K4 and K9 with Triton
+           K15's permute passes pd.cu, K17 / K18 / K20 admm.cu, K21-K24
+           elem2d.cu, K25-K28 dd2d.cu; K19 and the per-slab / from-F entry
+           points of K1 / K2 live in band_asm.cu and elem.cu) with nvcc for
+           sm_90a, one nvcc per source, all at once; K4 and K9 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
            tolerances, median times, the time of one PyTorch library call
@@ -41,10 +41,14 @@ result line):
            materials) through their check entries, defgrad2d and K21-K24 at
            the full-size 2D scene's shapes (spikes at resolution 20,000:
            19,873 triangles, 10,171 vertices, a (20,342)^2 dense matrix) on
-           random, inverted, near-degenerate and rest-state deformations
-           (`--phases kernels2d` runs these alone); K6 above its panel limit
-           on a 2,000^2 block (the host's split: 2 launches; an indefinite
-           block flagged and NaN)
+           random, inverted, near-degenerate and rest-state deformations;
+           K6 above its panel limit on a 2,000^2 block (the host's split: 2
+           launches; an indefinite block flagged and NaN); K25-K28 at the
+           dim2dd path's shapes (the same scene on the 4-part element plan:
+           P 4, n2p 5,248; K28 on the 10,171^2 PD matrix) on a deformed
+           configuration, and factorize_fast's global 1e-4 tier on an
+           indefinite subdomain (every subdomain refactored, one host
+           read) (`--phases kernels2d` runs the 2D checks alone)
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -102,10 +106,23 @@ result line):
            the assembly (K23 + K24), the library Cholesky, the triangular
            solves, the line search (K21) and the gradient (K22) timed; the
            same frames with the plain versions (sysE rtol 1e-3)
+  dim2dd   the 2D decomposed path through dim2.Sim2D: the spikes golden
+           under DOT 4 (f64, kernels on: sysE rtol 2e-4, z = 0), 2D Newton's
+           frames at resolution 20,000 (f32) as the yardstick, then the
+           same scene in f32 (f64 with a printed finding where f32 misses
+           relTol) under DOT 4 (1 warm-up + 3 frames and 2 more with the
+           rebuild (K23 / K26 / Cholesky), the apply (K27 / solves), K25,
+           the line search (K21) and the gradient (K22) timed), GSDD 4,
+           LBFGS, LBFGSH, LBFGSHI and LBFGSJH 4 (1 + 2 frames each): every
+           frame finite, stopped by tol or rel_dec, z = 0; iterations
+           (sweeps), halvings, syncs, s/frame, peak memory; K25 once a DOT
+           iteration, K26 once a rebuild, K27 once an H0 apply (GSDD: 2 P
+           a sweep), K28 once an LBFGS run; sysE against the plain path's
+           same frames (rtol 1e-3) and Newton's (1e-3; GSDD, LBFGSJH 5e-3)
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON record (per kernel: launches of all paths' runs and
-launches_by_path {main, steppers, admm, scale, dim2}; times at the bar17
-shapes, the 2D kernels' at the full-size spikes scene's; under "bar135"
+launches_by_path {main, steppers, admm, scale, dim2, dim2dd}; times at the
+bar17 shapes, the 2D kernels' at the full-size spikes scene's; under "bar135"
 K6's and K7's at the bar135 shapes, under "split2000" K6's on the 2,000^2
 block) and {"ok": true, "device": {...}}. Exits non-zero without a result
 line when no CUDA device is present.
@@ -143,7 +160,7 @@ GOLDEN_2D_SPIKES_SYS_E = [
     3.300416677680e+03,
 ]
 SPIKES_SCENE = """energy FCR
-timeStepper Newton
+timeStepper {stepper}
 warmStart 2
 resolution {resolution}
 size 1
@@ -165,6 +182,22 @@ DIM2_KERNELS = ("defgrad2d", "ls_trial_energy2d", "elem_gradient2d",
 # estimate: these kernels are bound by their bytes either way
 ELEM2D_FLOPS = dict(ls_trial_energy2d=120, elem_gradient2d=180,
                     elem_hessian2d=600)
+# the 2D decomposed path (dim2dd): the full-size spikes scene under each
+# stepper of slice 1b: (scene's timeStepper line, timed frames after one
+# warm-up, sysE rtol against 2D Newton's same frames: 1e-3, GSDD and the
+# block-Jacobi LBFGS-JH 5e-3 as at dim 3). DOT 4 is the path's main run.
+DD2D_PARTS = 4
+DIM2DD_RUNS = {
+    "DOT4": ("DOT 4", 3, 1e-3),
+    "GSDD4": ("GSDD 4", 2, 5e-3),
+    "LBFGS": ("LBFGS", 2, 1e-3),
+    "LBFGSH": ("LBFGSH", 2, 1e-3),
+    "LBFGSHI": ("LBFGSHI", 2, 1e-3),
+    "LBFGSJH4": ("LBFGSJH 4", 2, 5e-3),
+}
+DD2D_KERNELS = ("quadratic_form2d", "subdomain_assemble2d",
+                "subdomain_scale2d", "h0_gather2d", "h0_average2d",
+                "local_gather_one2d", "local_scatter_one2d", "pd_assemble2d")
 
 BAR17 = (56, 16, 16)
 SCENE_TMPL = """energy FCR
@@ -258,10 +291,28 @@ SOURCES = {
                          "dot_tpu/dim2.py:486"),
     "dense_scale2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
                       "dot_tpu/dim2.py:494"),
+    "quadratic_form2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                         "dot_tpu/dim2.py:557"),
+    "subdomain_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                             "dot_tpu/dim2.py:588"),
+    "subdomain_scale2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                          "dot_tpu/dim2.py:604"),
+    "h0_gather2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                    "dot_tpu/dim2.py:645"),
+    "h0_average2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                     "dot_tpu/dim2.py:645"),
+    "local_gather_one2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                           "dot_tpu/dim2.py:631"),
+    "local_scatter_one2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                            "dot_tpu/dim2.py:637"),
+    "pd_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                      "dot_tpu/dim2.py:704"),
+    "hessian_diag2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                       "dot_tpu/dim2.py:567"),
 }
-PATHS = ("main", "steppers", "admm", "scale", "dim2")
+PATHS = ("main", "steppers", "admm", "scale", "dim2", "dim2dd")
 ALL_PHASES = ("probe", "build", "kernels", "golden", "main", "steppers",
-              "admm", "scale", "dim2")
+              "admm", "scale", "dim2", "dim2dd")
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
@@ -1687,12 +1738,13 @@ def phase_admm(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _spikes_scene(tmp, resolution, name):
+def _spikes_scene(tmp, resolution, name, stepper="Newton"):
     """Write the 2D spikes stretch scene (the scene of the repo's 2D golden,
-    tests/test_dim2.py:239-260) at `resolution`; return its path."""
+    tests/test_dim2.py:239-260) at `resolution` under `timeStepper
+    <stepper>`; return its path."""
     scene = os.path.join(tmp, f"{name}.txt")
     with open(scene, "w") as f:
-        f.write(SPIKES_SCENE.format(resolution=resolution))
+        f.write(SPIKES_SCENE.format(resolution=resolution, stepper=stepper))
     return scene
 
 
@@ -2162,6 +2214,452 @@ def phase_dim2(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_dd2d_kernels(torch, record):
+    """K25-K28 against their plain versions at the dim2dd path's full-size
+    shapes (spikes at resolution 20,000 on the 4-part element plan; K28 on
+    the (nV)^2 PD matrix), f64 and f32, and factorize_fast's global 1e-4
+    tier on an indefinite subdomain."""
+    from dot_tpu_torch import dim2, plan2d, scripts
+    from dot_tpu_torch.config import Config
+    from dot_tpu_torch.kernels import dd2d, ops, soa2d
+    rng = np.random.default_rng(20261017)
+    cfg = Config(energy="FCR", time_stepper="DOT", shape="spikes",
+                 resolution=SPIKES_FULL, ym=1e5, pr=0.4, rho=1000.0,
+                 handle_ratio=0.03, dt=0.025, script="stretch",
+                 partition_amt=DD2D_PARTS)
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    t0 = time.perf_counter()
+    plan = plan2d.build_plan_2d(mesh, DD2D_PARTS)
+    t_plan = time.perf_counter() - t0
+    n, nv = mesh.n_elem, mesh.n_vert
+    h = float(np.sqrt(mesh.area.mean()))
+    x0 = np.asarray(sd.x0, np.float64).copy()
+    x0[:, :2] += rng.normal(scale=0.3 * h, size=(nv, 2))
+    p0 = np.zeros((nv, 3))
+    p0[:, :2] = rng.normal(scale=0.01, size=(nv, 2))
+    bad = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol = TOL_SCALE[name]
+        sysm = dim2.System2D(mesh, cfg, dtype=dtype, device="cuda",
+                             plan=plan)
+        sz = torch.finfo(dtype).bits // 8
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device="cuda")
+        x, p = t(x0), t(p0)
+        fixed = torch.as_tensor(sd.fixed0, device="cuda")
+        conn, g4, mass = sysm.conn, sysm.g4, sysm.mass
+        eh = soa2d.elem_hessian2d_ref(x, conn, g4, sysm.u_e, sysm.lam_e,
+                                      sysm.vol_w, sysm.mat, sysm.dt_sq)
+        free = torch.logical_and(sysm.local_valid, torch.logical_not(
+            fixed[sysm.l2g])).to(dtype)
+        tab = sysm.asm_tab
+        P, N, n2p = tab.n_parts, tab.n_loc, tab.n
+        n_slot, n_item = tab.udest.shape[0], tab.items.shape[0]
+        res, times, costs = {}, {}, {}
+
+        # ---- K25
+        qk, Fk = ops.quadratic_form2d(p, conn, g4, eh, mass)
+        qr, Fr = dd2d.quadratic_form2d_ref(p, conn, g4, eh, mass)
+        res["quadratic_form2d"] = [
+            ("pHp", _rel_max(qk, qr), tol["elem"], float((qk - qr).abs())),
+            ("F(p)", _rel_max(Fk, Fr), tol["elem"],
+             float((Fk - Fr).abs().max()))]
+        times["quadratic_form2d"] = (
+            lambda: ops.quadratic_form2d(p, conn, g4, eh, mass),
+            lambda: dd2d.quadratic_form2d_ref(p, conn, g4, eh, mass), None)
+        costs["quadratic_form2d"] = (
+            (3 * nv + 4 * n + 36 * n + nv + 4 * n + 1) * sz + 12 * n,
+            (36 * 3 + 16) * n + 9 * nv)
+
+        # ---- K26 and its scaling entry
+        Hk, dk = ops.subdomain_assemble2d(eh, free, sysm.mass_img, tab)
+        Hr, dr = dd2d.subdomain_assemble2d_ref(eh, free, sysm.mass_img, tab)
+        res["subdomain_assemble2d"] = [
+            ("H", _rel_max(Hk, Hr), tol["elem"],
+             float((Hk - Hr).abs().max())),
+            ("d", _rel_max(dk, dr), tol["elem"], None),
+            ("|H - H^T|", float((Hk - Hk.mT).abs().max()), 0.0, None)]
+        Sr = dd2d.subdomain_scale2d_ref(Hr, dr, tab)
+        del Hr
+        Sk = ops.subdomain_scale2d(Hk.clone(), dk, tab)
+        res["subdomain_scale2d"] = [
+            ("(H / d / d) symmetrized", _rel_max(Sk, Sr), tol["elem"],
+             float((Sk - Sr).abs().max())),
+            ("|diag - 1|",
+             float((Sk.diagonal(dim1=1, dim2=2) - 1).abs().max()),
+             4 * torch.finfo(dtype).eps, None)]
+        del Sk, Sr
+        torch.cuda.empty_cache()
+        vals = eh.reshape(-1)[tab.src]
+        flat = torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
+        times["subdomain_assemble2d"] = (
+            lambda: ops.subdomain_assemble2d(eh, free, sysm.mass_img, tab),
+            lambda: dd2d.subdomain_assemble2d_ref(eh, free, sysm.mass_img,
+                                                  tab),
+            lambda: flat.index_add_(0, tab.dest, vals))
+        costs["subdomain_assemble2d"] = (
+            (36 * n + 2 * P * N + P * n2p * n2p + P * n2p) * sz
+            + 8 * (n_item + 2 * n_slot + 1), n_item + 4 * n_slot)
+        Hs = Hk.clone()     # scaled over and over by the timing below
+        times["subdomain_scale2d"] = (
+            lambda: ops.subdomain_scale2d(Hs, dk, tab),
+            lambda: dd2d.subdomain_scale2d_ref(Hs, dk, tab), None)
+        costs["subdomain_scale2d"] = ((2 * n_slot + P * n2p) * sz
+                                      + 8 * n_slot, 6 * n_slot)
+
+        # ---- the global 1e-4 tier: one indefinite subdomain refactors all
+        Hi = Hk.clone()
+        Hi[0, 0, 2] = Hi[0, 2, 0] = 10.0 * torch.sqrt(Hi[0, 0, 0]
+                                                      * Hi[0, 2, 2])
+        Hn = Hk[1:] / dk[1:, :, None] / dk[1:, None, :]
+        Hn = (Hn + Hn.mT) / 2
+        L_plain = torch.linalg.cholesky(Hn)
+        Hn.diagonal(dim1=1, dim2=2).add_(1.0e-4)
+        L_shift = torch.linalg.cholesky(Hn)
+        del Hn
+        s0 = sysm.n_syncs
+        Li, _ = sysm.factorize_fast(Hi, dk.clone())
+        reads = sysm.n_syncs - s0
+        nan0 = bool(torch.isnan(Li[0]).any())
+        fin = bool(torch.isfinite(Li[1:]).all())
+        e_shift = _rel_norm(Li[1:], L_shift)
+        e_plain = _rel_norm(Li[1:], L_plain)
+        lim = 1e-10 if dtype == torch.float64 else 1e-4
+        say(f"kernels: {name} factorize_fast on an indefinite subdomain "
+            f"(P {P}, n2p {n2p}): {reads} host read; subdomain 0 NaN {nan0}, "
+            f"the other {P - 1} finite {fin}: rel to cholesky(Hn + 1e-4 I) "
+            f"{e_shift:.3e} (tol {lim:g}), to the unshifted factor "
+            f"{e_plain:.3e}")
+        if not (reads == 1 and nan0 and fin and e_shift <= lim
+                and e_plain > e_shift):
+            bad.append(f"global 1e-4 tier {name}: reads {reads}, NaN {nan0}, "
+                       f"finite {fin}, {e_shift:.3e} / {e_plain:.3e}")
+        del Hi, Li, L_plain, L_shift
+        torch.cuda.empty_cache()
+
+        # ---- K27: the H0 apply's gather / averaging, one subdomain's
+        # gather / scatter, around the library solves of a real factor
+        L, d = sysm.factorize_fast(Hk, dk)
+        del Hk
+        l2g, valid = sysm.l2g, sysm.local_valid
+        rk = ops.h0_gather2d(p, l2g, valid, d)
+        rr = dd2d.h0_gather2d_ref(p, l2g, valid, d)
+        z = sysm.solve_local(L, rr).contiguous()
+        avg = (z, d, sysm.gath_perm, sysm.gath_segids, sysm.gath_off,
+               sysm.dup)
+        ak, ar = ops.h0_average2d(*avg), dd2d.h0_average2d_ref(*avg)
+        i = 1
+        gk = ops.local_gather_one2d(p, l2g, valid, d, i)
+        gr = dd2d.local_gather_one2d_ref(p, l2g, valid, d, i)
+        zi = z[i].contiguous()
+        sk = ops.local_scatter_one2d(zi, d, l2g, valid, i, nv)
+        sr = dd2d.local_scatter_one2d_ref(zi, d, l2g, valid, i, nv)
+        local = torch.zeros(nv, dtype=torch.bool, device="cuda")
+        local[l2g[i][valid[i]]] = True
+        outside = float(sk[~local].abs().max())
+        res["h0_gather2d"] = [("r", _rel_max(rk, rr), tol["elem"],
+                               float((rk - rr).abs().max()))]
+        res["h0_average2d"] = [
+            ("p", _rel_max(ak, ar), tol["elem"], float((ak - ar).abs().max())),
+            ("|z|", float(ak[:, 2].abs().max()), 0.0, None)]
+        res["local_gather_one2d"] = [("r_i", _rel_max(gk, gr), tol["elem"],
+                                      float((gk - gr).abs().max()))]
+        res["local_scatter_one2d"] = [
+            ("p_i", _rel_max(sk, sr), tol["elem"],
+             float((sk - sr).abs().max())),
+            ("|p| off subdomain 1", outside, 0.0, None)]
+        p_l = (z / d).reshape(-1, 2)[sysm.gath_perm]
+        acc = torch.zeros((nv + 1, 2), dtype=dtype, device="cuda")
+        times["h0_gather2d"] = (
+            lambda: ops.h0_gather2d(p, l2g, valid, d),
+            lambda: dd2d.h0_gather2d_ref(p, l2g, valid, d), None)
+        times["h0_average2d"] = (
+            lambda: ops.h0_average2d(*avg),
+            lambda: dd2d.h0_average2d_ref(*avg),
+            lambda: acc.index_add_(0, sysm.gath_segids, p_l))
+        times["local_gather_one2d"] = (
+            lambda: ops.local_gather_one2d(p, l2g, valid, d, i),
+            lambda: dd2d.local_gather_one2d_ref(p, l2g, valid, d, i), None)
+        times["local_scatter_one2d"] = (
+            lambda: ops.local_scatter_one2d(zi, d, l2g, valid, i, nv),
+            lambda: dd2d.local_scatter_one2d_ref(zi, d, l2g, valid, i, nv),
+            None)
+        PN = P * N
+        costs["h0_gather2d"] = ((2 * PN + 2 * PN + 2 * PN) * sz + 9 * PN,
+                                4 * PN)
+        costs["h0_average2d"] = ((4 * PN + nv + 3 * nv) * sz + 8 * PN
+                                 + 8 * (nv + 2), 2 * PN + 2 * nv)
+        costs["local_gather_one2d"] = (6 * N * sz + 9 * N, 4 * N)
+        costs["local_scatter_one2d"] = ((4 * N + 3 * nv) * sz + 9 * N, 2 * N)
+        del L
+
+        # ---- K28: the (nV)^2 PD matrix and the Hessian diagonal
+        w = sysm.scalar(sysm.dt_sq) * sysm.vol_w * (2.0 * sysm.u_e
+                                                    + sysm.lam_e)
+        ptab = dd2d.pd_tables(mesh.conn, nv, "cuda")
+        fv = torch.logical_not(fixed).to(dtype)
+        Pk, pk = ops.pd_assemble2d(g4, w, fv, mass, ptab)
+        Pr, pr = dd2d.pd_assemble2d_ref(g4, w, fv, mass, ptab)
+        res["pd_assemble2d"] = [
+            ("S", _rel_max(Pk, Pr), tol["elem"], float((Pk - Pr).abs().max())),
+            ("d", _rel_max(pk, pr), tol["elem"], None),
+            ("|S - S^T|", float((Pk - Pk.t()).abs().max()), 0.0, None)]
+        del Pk, Pr
+        hk = ops.hessian_diag2d(eh, mass, sysm.scatter_plan)
+        hr = dd2d.hessian_diag2d_ref(eh, mass, sysm.scatter_plan)
+        res["hessian_diag2d"] = [
+            ("diag", _rel_max(hk, hr), tol["elem"],
+             float((hk - hr).abs().max())),
+            ("|z - 1|", float((hk[:, 2] - 1).abs().max()), 0.0, None)]
+        pvals = dd2d.pd_pair_vals2d(g4, w).reshape(-1)[ptab.src]
+        pflat = torch.zeros(nv * nv, dtype=dtype, device="cuda")
+        dvals = eh[torch.arange(6, device="cuda") * 7].t().reshape(-1)
+        dacc = torch.zeros(2 * nv, dtype=dtype, device="cuda")
+        times["pd_assemble2d"] = (
+            lambda: ops.pd_assemble2d(g4, w, fv, mass, ptab),
+            lambda: dd2d.pd_assemble2d_ref(g4, w, fv, mass, ptab),
+            lambda: pflat.index_add_(0, ptab.dest, pvals))
+        times["hessian_diag2d"] = (
+            lambda: ops.hessian_diag2d(eh, mass, sysm.scatter_plan),
+            lambda: dd2d.hessian_diag2d_ref(eh, mass, sysm.scatter_plan),
+            lambda: dacc.index_add_(0, sysm.scatter_plan.gdest, dvals))
+        p_slot, p_item = ptab.udest.shape[0], ptab.items.shape[0]
+        costs["pd_assemble2d"] = (
+            (4 * n + n + 2 * nv + nv * nv + nv) * sz
+            + 8 * (p_item + 2 * p_slot + 1), 45 * n + p_item + 4 * p_slot)
+        costs["hessian_diag2d"] = ((6 * n + nv + 3 * nv) * sz + 8 * 3 * n
+                                   + 8 * (nv + 1), 6 * n + 2 * nv)
+        torch.cuda.synchronize()
+        for kname, checks in res.items():
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record, plain_reps=5)
+        say(f"kernels: {name} 2D decomposed shapes: spikes resolution "
+            f"{SPIKES_FULL}, plan {t_plan:.2f} s: P {P}, n2p {n2p} "
+            f"({P * n2p * n2p * sz / 1e9:.3f} GB of subdomain matrices), "
+            f"{n_slot} assembled slots from {n_item} entries; the PD matrix "
+            f"{nv}^2 ({nv * nv * sz / 1e9:.3f} GB), {p_slot} slots")
+        del flat, pflat, vals, pvals, eh, sysm, Hs, times
+        torch.cuda.empty_cache()
+    if bad:
+        raise Fail("kernel disagrees with its plain version: "
+                   + "; ".join(bad))
+
+
+def _dd2d_split(sim, frames):
+    """ms/frame of the parts of a DOT 2D frame over `frames` more frames,
+    each call wrapped in synchronised host timers: the H0 rebuild (K23,
+    K26 and the library Cholesky), the H0 apply (K27 and the library
+    solves), K25, the line-search trials (K21) and the gradient (K22)."""
+    import collections
+    import torch
+    from dot_tpu_torch.profiling import wrap_timed
+    acc = collections.Counter()
+    sysm = sim.system
+    names = ("rebuild_h0", "element_hessians", "assemble_subdomains",
+             "factorize_fast", "h0_apply", "solve_local", "quadratic_form",
+             "elastic_energy", "gradient")
+    for name in names:
+        wrap_timed(sysm, name, acc)
+    chol = wrap_timed(None, "cholesky_ex", acc, module=torch.linalg,
+                      label="cholesky")
+    try:
+        sim.run(frames)
+    finally:
+        torch.linalg.cholesky_ex = chol
+        for name in names:
+            delattr(sysm, name)
+    return {k: acc[k] / frames * 1e3 for k in names + ("cholesky",)}
+
+
+def _dd2d_launch_problems(tag, sysm, launches, fr):
+    """The launches each run of the dim2dd path must show: K25 once a DOT
+    iteration; K26 once a rebuild (the initial state + once a frame); K27's
+    gather and averaging once an H0 apply (one an iteration), GSDD's
+    one-subdomain pair P times a sweep; K28 once a run (LBFGS-PD)."""
+    iters = sum(r["iters"] for r in fr)
+    rebuilds = len(fr) + 1
+    k = launches
+    want = dict.fromkeys(DD2D_KERNELS, 0)
+    if tag == "LBFGS":
+        want.update(pd_assemble2d=1, subdomain_scale2d=1)
+    else:
+        want.update(subdomain_assemble2d=rebuilds, subdomain_scale2d=rebuilds)
+        if tag == "GSDD4":
+            want.update(local_gather_one2d=sysm.n_parts * iters,
+                        local_scatter_one2d=sysm.n_parts * iters)
+        else:
+            want.update(h0_gather2d=iters, h0_average2d=iters)
+        if tag == "DOT4":
+            want.update(quadratic_form2d=iters)
+    got = {name: k[name] for name in DD2D_KERNELS}
+    return [] if got == want else [f"{tag}: launches {got}, want {want}"]
+
+
+def phase_dim2dd(torch, launches_out):
+    """The 2D decomposed path through Sim2D: the spikes golden under DOT 4
+    (f64, kernels on), then the full-size scene under DOT 4 (the main run),
+    GSDD 4, LBFGS, LBFGSH, LBFGSHI and LBFGSJH 4 in f32 (f64 with a printed
+    finding where f32 misses relTol), each against its plain-path run and
+    against 2D Newton's frames."""
+    from dot_tpu_torch.kernels import ops
+    tmp = tempfile.mkdtemp(prefix="dot_dim2dd_")
+    try:
+        out_root = os.path.join(tmp, "out")
+        # ---- golden: DOT 4 at resolution 200, f64, kernels on
+        ops.reset_launches()
+        gold = _sim2d(torch, _spikes_scene(tmp, 200, "spikes200dot", "DOT 4"),
+                      out_root, torch.float64)
+        gold.run(len(GOLDEN_2D_SPIKES_SYS_E))
+        g_launch = {k: ops.launches[k] for k in DD2D_KERNELS if
+                    ops.launches[k]}
+        gold.finalize()
+        vals = np.asarray([r["sys_e"] for r in gold.frames])
+        rel = np.abs(vals / np.asarray(GOLDEN_2D_SPIKES_SYS_E) - 1.0)
+        z_max = float(gold.state.x[:, 2].abs().max())
+        say(f"dim2dd: golden spikes 200 DOT 4 f64, kernels on: sysE "
+            f"{['%.10e' % v for v in vals]}, max rel {rel.max():.3e} (tol "
+            f"2e-4); iters {[r['iters'] for r in gold.frames]}, stops "
+            f"{[r['stop'] for r in gold.frames]}; max |z| {z_max:g}; "
+            f"launches {g_launch}")
+        problems = _dd2d_launch_problems("DOT4", gold.system, ops.launches,
+                                         gold.frames)
+        if not rel.max() <= 2e-4:
+            problems.append(f"golden sysE off by {rel.max():.3e}")
+        if z_max != 0.0:
+            problems.append(f"golden z moved: {z_max:g}")
+        del gold
+        if problems:
+            raise Fail("dim2dd path: " + "; ".join(problems))
+
+        # ---- 2D Newton's frames at full size: the yardstick
+        n_max = 1 + max(v[1] for v in DIM2DD_RUNS.values())
+        newton = _sim2d(torch, _spikes_scene(tmp, SPIKES_FULL, "newton"),
+                        out_root, torch.float32, save_every=10 ** 9)
+        newton.run(n_max)
+        newton.finalize()
+        e_newton = np.asarray([r["sys_e"] for r in newton.frames])
+        say(f"dim2dd: Newton f32 yardstick: iters "
+            f"{[r['iters'] for r in newton.frames]}, sysE "
+            + " ".join("%.10e" % v for v in e_newton))
+        del newton
+        torch.cuda.empty_cache()
+
+        total = dict.fromkeys(ops.KERNELS, 0)
+        for tag, (stepper, frames, e_tol) in DIM2DD_RUNS.items():
+            scene = _spikes_scene(tmp, SPIKES_FULL, tag, stepper)
+            for dtype in (torch.float32, torch.float64):
+                name = str(dtype).split(".")[-1]
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                sim = _sim2d(torch, scene, out_root, dtype,
+                             suffix=f"{tag}_{name}", save_every=10 ** 9)
+                t1 = time.perf_counter()
+                sim.run(1 + frames)
+                launches = dict(ops.launches)
+                peak = torch.cuda.max_memory_allocated()
+                fr = list(sim.frames)
+                ok = all(np.isfinite(r["sys_e"])
+                         and r["stop"] in ("tol", "rel_dec") for r in fr)
+                if ok or dtype == torch.float64:
+                    break
+                say(f"dim2dd: FINDING: {tag} {name} does not reach relTol "
+                    f"1e-5 at this size (stops {[r['stop'] for r in fr]}); "
+                    "the run repeats in float64")
+                sim.finalize()
+                del sim
+            for k, v in launches.items():
+                total[k] += v
+            sysm = sim.system
+            timed = fr[1:]
+            n2p = sysm.n2p if sysm.plan is not None else sysm.n_vert
+            what = "sweeps" if tag == "GSDD4" else "iters"
+            say(f"dim2dd: {tag} {name}: {type(sim.stepper).__name__}, P "
+                f"{sysm.n_parts}, n2p {n2p}, factor "
+                f"{str(sim.state.chol.dtype).split('.')[-1]} "
+                f"{tuple(sim.state.chol.shape)}; Sim2D {t1 - t0:.2f} s; "
+                f"s/frame {np.mean([r['seconds'] for r in timed]):.5f} "
+                f"({frames} timed frames after 1 warm-up of "
+                f"{fr[0]['seconds']:.3f} s); {what}/frame "
+                f"{np.mean([r['iters'] for r in timed]):.2f}; LS "
+                f"halvings/frame {np.mean([r['halvings'] for r in timed]):.2f};"
+                f" syncs/frame {np.mean([r['syncs'] for r in timed]):.2f}; "
+                f"peak {peak / 2**20:.1f} MiB")
+            say(f"dim2dd: {tag}: per frame ({what}, halvings, syncs, stop, s): "
+                + "; ".join(f"{r['iters']},{r['halvings']},{r['syncs']},"
+                            f"{r['stop']},{r['seconds']:.3f}" for r in fr))
+            n_fr = len(fr)
+            say(f"dim2dd: {tag}: launches per frame "
+                + ", ".join(f"{k} {launches[k] / n_fr:.2f}"
+                            for k in DD2D_KERNELS if launches[k])
+                + f"; all { {k: v for k, v in launches.items() if v} }")
+            problems = _dd2d_launch_problems(tag, sysm, launches, fr)
+            if not ok:
+                problems.append(f"{tag}: a frame is not finite or stopped by "
+                                f"{[r['stop'] for r in fr]}")
+            z_max = float(sim.state.x[:, 2].abs().max())
+            if z_max != 0.0:
+                problems.append(f"{tag}: z moved: {z_max:g}")
+            if tag == "LBFGSHI" and sysm._solve_dtype != torch.float32:
+                problems.append(f"LBFGSHI: factor dtype {sysm._solve_dtype}")
+            if tag == "DOT4":
+                s = _dd2d_split(sim, 2)
+                more = sim.frames[n_fr:]
+                it2 = max(sum(r["iters"] for r in more), 1) / 2
+                say(f"dim2dd: DOT4 synchronised split over 2 more frames "
+                    f"(iters {[r['iters'] for r in more]}), ms/frame: "
+                    f"rebuild {s['rebuild_h0']:.2f} (K23 "
+                    f"{s['element_hessians']:.3f}, K26 assembly "
+                    f"{s['assemble_subdomains']:.3f}, factorize_fast "
+                    f"{s['factorize_fast']:.2f} of which Cholesky "
+                    f"{s['cholesky']:.2f}); apply {s['h0_apply']:.2f} (solves "
+                    f"{s['solve_local']:.2f}, K27 "
+                    f"{s['h0_apply'] - s['solve_local']:.3f}); K25 "
+                    f"{s['quadratic_form']:.3f}; line search (K21) "
+                    f"{s['elastic_energy']:.2f}; gradient (K22) "
+                    f"{s['gradient']:.2f}; per iteration: apply "
+                    f"{s['h0_apply'] / it2:.3f}, K25 "
+                    f"{s['quadratic_form'] / it2:.3f}")
+            sim.finalize()
+            a = np.asarray([r["sys_e"] for r in fr])
+            rel_n = np.abs(a / e_newton[:len(a)] - 1.0).max()
+            del sim, sysm
+            torch.cuda.empty_cache()
+
+            ref = _sim2d(torch, scene, out_root, dtype, suffix=f"{tag}_plain",
+                         use_kernels=False, save_every=10 ** 9)
+            ref.run(len(fr))
+            ref.finalize()
+            b = np.asarray([r["sys_e"] for r in ref.frames])
+            rel = np.abs(a / b - 1.0).max()
+            say(f"dim2dd: {tag}: sysE " + " ".join("%.10e" % v for v in a)
+                + f"; vs plain path max rel {rel:.3e} (tol 1e-3; plain "
+                f"{what} {[r['iters'] for r in ref.frames]}, s/frame "
+                f"{np.mean([r['seconds'] for r in ref.frames[1:]]):.5f}); vs "
+                f"Newton max rel {rel_n:.3e} (tol {e_tol:g})")
+            if not rel <= 1e-3:
+                problems.append(f"{tag}: kernel and plain paths disagree: "
+                                f"{rel:.3e}")
+            if not rel_n <= e_tol:
+                problems.append(f"{tag}: sysE off Newton's by {rel_n:.3e}")
+            del ref
+            torch.cuda.empty_cache()
+            if problems:
+                raise Fail("dim2dd path: " + "; ".join(problems))
+        launches_out["dim2dd"] = total
+        missing = [k for k in DD2D_KERNELS if total[k] <= 0]
+        if missing:
+            raise Fail(f"dim2dd path: kernels never launched: {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
     """K9-K12 and K5's compact entry point against their plain versions on
     the bar135 plan (f64 and f32), timed with library call and bound."""
@@ -2536,6 +3034,7 @@ def main(argv=None):
             phase_admm_kernels(torch, record)
         if "kernels" in phases or "kernels2d" in phases:
             phase_dim2_kernels(torch, record)
+            phase_dd2d_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)
         if "main" in phases:
@@ -2548,6 +3047,8 @@ def main(argv=None):
             phase_scale(torch, record, launches)
         if "dim2" in phases:
             phase_dim2(torch, launches)
+        if "dim2dd" in phases:
+            phase_dim2dd(torch, launches)
     except Exception as exc:  # report the phase's failure and exit non-zero
         import traceback
         traceback.print_exc()

@@ -1,8 +1,8 @@
 """Carry a dot_tpu plan and state across to the port, as plain numpy.
 
 The tests build one numpy SubdomainPlan (with either package's
-partition.build_plan) and one initial state, and hand both to dot_tpu and
-to the port, so that the two start from identical data.
+partition.build_plan) or Plan2D and one initial state, and hand both to
+dot_tpu and to the port, so that the two start from identical data.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from .dim2 import Sim2DState
+from .kernels.dd2d import BLOCK_TO_ROW
+from .plan2d import Plan2D
 from .steppers.admm import ADMMState
 from .steppers.admm_dd import ADMMDDState
 from .steppers.core import (APPLY_DTYPES, BTDFactor, CoarseFactor, CRFactor,
@@ -130,3 +132,30 @@ def sim2d_state_from_numpy(d, system):
     dtype."""
     _, common = _common_fields(d, system)
     return Sim2DState(**common)
+
+
+def plan2d_from_numpy(p):
+    """The port's plan2d.Plan2D from dot_tpu's (the same fields)."""
+    return Plan2D(**{f: (int(getattr(p, f)) if f in ("n_parts",
+                                                        "n_local_max", "n2")
+                         else np.asarray(getattr(p, f)))
+                     for f in Plan2D._fields})
+
+
+def state2d_from_numpy(d, system):
+    """The port's SimState from a dot_tpu 2D quasi-Newton SimState whose
+    leaves went through np.asarray, on `system`'s (a dim2.System2D's)
+    device: dot_tpu's block-major (36, nE) element Hessians permuted to
+    K23's row-major order (LBFGS-PD's unused (1, 1) placeholder as it is),
+    the dense factor ((P, n2p, n2p), or LBFGS-PD's (nV, nV)) in the solve
+    dtype."""
+    t, common = _common_fields(d, system)
+    eh = np.asarray(d.elem_h)
+    if eh.shape[0] == 36:
+        eh = eh[np.argsort(BLOCK_TO_ROW)]
+    return SimState(
+        elem_h=t(eh),
+        chol=torch.as_tensor(np.asarray(d.chol), device=system.device,
+                             dtype=system._solve_dtype),
+        equil=t(d.equil), lb_s=t(d.lb_s), lb_t=t(d.lb_t),
+        lb_rho=t(d.lb_rho), lb_valid=t(d.lb_valid), **common)

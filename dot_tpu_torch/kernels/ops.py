@@ -1,4 +1,4 @@
-"""Wrappers of the twenty-four hand-written kernels of the steppers' paths.
+"""Wrappers of the twenty-eight hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
@@ -6,13 +6,15 @@ Each wrapper checks device, dtype, shape and contiguity, then
   kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16,
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
-  check entries of their device functions) for CPU tensors;
+  check entries of their device functions, kernels/dd2d.py for the 2D
+  decomposed path's K25-K28) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
   csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
   K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
   passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
-  K21-K24: csrc/elem2d.cu, all through ctypes; K4: triton_qf.py, K9:
+  K21-K24: csrc/elem2d.cu, K25-K28: csrc/dd2d.cu, all through ctypes;
+  K4: triton_qf.py, K9:
   triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
   its count in `launches`;
 - raises for any other device.
@@ -30,7 +32,7 @@ import types
 
 import torch
 
-from . import admm, band, coarse, lbfgs, pd, soa, soa2d
+from . import admm, band, coarse, dd2d, lbfgs, pd, soa, soa2d
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
@@ -43,7 +45,10 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "w_matvec", "w_diag", "ls_trial_energy_parts",
            "elem_gradient_from_F", "defgrad2d", "ls_trial_energy2d",
            "elem_gradient2d", "elem_hessian2d", "dense_assemble2d",
-           "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d")
+           "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d",
+           "quadratic_form2d", "subdomain_assemble2d", "subdomain_scale2d",
+           "h0_gather2d", "h0_average2d", "local_gather_one2d",
+           "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -87,7 +92,16 @@ plain = types.SimpleNamespace(
     svd2_flip=soa2d.svd2_flip_ref,
     eigh2=soa2d.eigh2_ref,
     make_pd2=soa2d.make_pd2_ref,
-    material2d=soa2d.material2d_ref)
+    material2d=soa2d.material2d_ref,
+    quadratic_form2d=dd2d.quadratic_form2d_ref,
+    subdomain_assemble2d=dd2d.subdomain_assemble2d_ref,
+    subdomain_scale2d=dd2d.subdomain_scale2d_ref,
+    h0_gather2d=dd2d.h0_gather2d_ref,
+    h0_average2d=dd2d.h0_average2d_ref,
+    local_gather_one2d=dd2d.local_gather_one2d_ref,
+    local_scatter_one2d=dd2d.local_scatter_one2d_ref,
+    pd_assemble2d=dd2d.pd_assemble2d_ref,
+    hessian_diag2d=dd2d.hessian_diag2d_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -167,6 +181,20 @@ def _load():
             ("elem2d", "dot_svd2_flip"): [I, P, I, P, P, P, P],
             ("elem2d", "dot_eigh2"): [I, P, I, P, P, P, P],
             ("elem2d", "dot_material2d"): [I, I, P, P, P, I, P, P],
+            ("dd2d", "dot_qf2d_partials"): [I, LL],
+            ("dd2d", "dot_quadratic_form2d"): [I] + [P] * 5 + [I, LL]
+            + [P] * 4,
+            ("dd2d", "dot_subdomain_assemble2d"): [I] + [P] * 4 + [LL, P, P,
+                                                                  LL, LL, LL,
+                                                                  I, P, P, P],
+            ("dd2d", "dot_subdomain_scale2d"): [I, P, P, P, LL, LL, P],
+            ("dd2d", "dot_pd_assemble2d"): [I, P, P, I] + [P] * 4
+            + [LL, P, P, LL, P, P, P],
+            ("dd2d", "dot_h0_gather2d"): [I] + [P] * 4 + [LL, LL, P, P],
+            ("dd2d", "dot_h0_average2d"): [I] + [P] * 5 + [LL, P, P],
+            ("dd2d", "dot_local_scatter_one2d"): [I] + [P] * 4
+            + [LL, LL, LL, P, P],
+            ("dd2d", "dot_hessian_diag2d"): [I, P, LL, P, P, P, LL, P, P],
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -1329,5 +1357,237 @@ def material2d(F, u, lam, mat):
     out = torch.empty((11, n), dtype=F.dtype, device=F.device)
     err = lib.material2d(_DTYPES[F.dtype], mat.code, _ptr(F), _ptr(u),
                          _ptr(lam), n, _ptr(out), _stream(F))
+    _ok(name, err)
+    return out
+
+
+# ----------------------------------------------------------------------
+# K25-K28: the 2D decomposed path (DOT, GSDD, LBFGS-PD / H / HI / JH)
+# ----------------------------------------------------------------------
+def quadratic_form2d(p, conn, g4, elem_h, mass):
+    """K25: (p^T H p + sum m |p|^2 (0-d), F(p) (4, N)) from one corner
+    gather of the direction p (nV, 3); elem_h (36, N) row-major (K23's),
+    mass (nV,). The sum is taken in a fixed order (no atomics)."""
+    name = "quadratic_form2d"
+    dt, n = _elem2d(name, p, conn, g4, None, None, None)
+    nv, dev = p.shape[0], p.device
+    _need(name, "elem_h", elem_h, dev, dt, (36, n))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    if not _route(name, p):
+        return dd2d.quadratic_form2d_ref(p, conn, g4, elem_h, mass)
+    lib = _load()
+    Fp = torch.empty((4, n), dtype=dt, device=dev)
+    part = torch.empty(lib.qf2d_partials(n, nv), dtype=dt, device=dev)
+    out = torch.empty((), dtype=dt, device=dev)
+    err = lib.quadratic_form2d(_DTYPES[dt], _ptr(p), _ptr(conn), _ptr(g4),
+                               _ptr(elem_h), _ptr(mass), n, nv, _ptr(Fp),
+                               _ptr(part), _ptr(out), _stream(p))
+    _ok(name, err)
+    return out, Fp
+
+
+def _slot_tables(name, dev, tab):
+    """The SlotTables' tensors on `dev`, int64, contiguous."""
+    i64 = torch.int64
+    n_slot = tab.udest.shape[0]
+    _need(name, "items", tab.items, dev, i64, (None,))
+    _need(name, "seg_off", tab.seg_off, dev, i64, (n_slot + 1,))
+    _need(name, "udest", tab.udest, dev, i64, (n_slot,))
+    _need(name, "src", tab.src, dev, i64, tab.items.shape)
+    _need(name, "dest", tab.dest, dev, i64, tab.items.shape)
+    return n_slot
+
+
+def subdomain_assemble2d(elem_h, free, mass_img, tab):
+    """K26: (Hd (P, n2p, n2p), d (P, n2p)): the subdomain Hessians with
+    interface completion summed by slot in plan order, the free mask on
+    rows and columns, mass_img f + (1 - f) on the diagonal; d =
+    sqrt(diag). elem_h (36, N) row-major; free, mass_img (P, N); tab: a
+    dd2d.SlotTables of the plan (dd2d.subdomain_tables)."""
+    name, dev = "subdomain_assemble2d", elem_h.device
+    dt = _float(name, elem_h)
+    P, N, n = tab.n_parts, tab.n_loc, tab.n
+    _need(name, "elem_h", elem_h, dev, dt, (36, None))
+    _need(name, "free", free, dev, dt, (P, N))
+    _need(name, "mass_img", mass_img, dev, dt, (P, N))
+    n_slot = _slot_tables(name, dev, tab)
+    if tab.dof != 2:
+        raise ValueError(f"{name}: tables of {tab.dof} dofs per vertex")
+    if not _route(name, elem_h):
+        return dd2d.subdomain_assemble2d_ref(elem_h, free, mass_img, tab)
+    lib = _load()
+    H = torch.empty((P, n, n), dtype=dt, device=dev)
+    d = torch.empty((P, n), dtype=dt, device=dev)
+    err = lib.subdomain_assemble2d(
+        _DTYPES[dt], _ptr(elem_h), _ptr(tab.items), _ptr(tab.seg_off),
+        _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass_img), N, n, P, 2,
+        _ptr(H), _ptr(d), _stream(elem_h))
+    _ok(name, err)
+    return H, d
+
+
+def subdomain_scale2d(H, d, tab):
+    """K26's second entry: the Jacobi-equilibrated, symmetrized
+    (H / d_r / d_c + H / d_c / d_r) / 2 of the assembled slots (the matrix
+    jnp.linalg.cholesky factors in dot_tpu). H (P, n, n), d (P, n), tab the
+    SlotTables H was assembled with (K26's or K28's). On the card H is
+    scaled in place and returned (every other entry is 0); the plain
+    version returns a new tensor."""
+    name, dev = "subdomain_scale2d", H.device
+    dt = _float(name, H)
+    P, n = tab.n_parts, tab.n
+    _need(name, "H", H, dev, dt, (P, n, n))
+    _need(name, "d", d, dev, dt, (P, n))
+    n_slot = _slot_tables(name, dev, tab)
+    if not _route(name, H):
+        return dd2d.subdomain_scale2d_ref(H, d, tab)
+    lib = _load()
+    err = lib.subdomain_scale2d(_DTYPES[dt], _ptr(H), _ptr(d),
+                                _ptr(tab.udest), n_slot, n, _stream(H))
+    _ok(name, err)
+    return H
+
+
+def pd_assemble2d(g4, w, free, mass, tab):
+    """K28: (S (nV, nV), d (nV,)) of M + dt^2 D^T W D at dim 2: the nine
+    corner pairs' w_e (D_a . D_b) summed by slot in element order, the
+    free mask on rows and columns, mass f + (1 - f) on the diagonal; d =
+    sqrt(diag). g4 (4, N) restTriInv; w (N,) element weights; free, mass
+    (nV,); tab: dd2d.pd_tables."""
+    name, dev = "pd_assemble2d", g4.device
+    dt = _float(name, g4)
+    n, nv = g4.shape[-1], tab.n
+    _need(name, "g4", g4, dev, dt, (4, n))
+    _need(name, "w", w, dev, dt, (n,))
+    _need(name, "free", free, dev, dt, (nv,))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    n_slot = _slot_tables(name, dev, tab)
+    if tab.dof != 1 or tab.n_parts != 1:
+        raise ValueError(f"{name}: tables of {tab.n_parts} parts, "
+                         f"{tab.dof} dofs per vertex")
+    if not _route(name, g4):
+        return dd2d.pd_assemble2d_ref(g4, w, free, mass, tab)
+    lib = _load()
+    vals = torch.empty((9, n), dtype=dt, device=dev)
+    S = torch.empty((nv, nv), dtype=dt, device=dev)
+    d = torch.empty(nv, dtype=dt, device=dev)
+    err = lib.pd_assemble2d(
+        _DTYPES[dt], _ptr(g4), _ptr(w), n, _ptr(vals), _ptr(tab.items),
+        _ptr(tab.seg_off), _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass),
+        nv, _ptr(S), _ptr(d), _stream(g4))
+    _ok(name, err)
+    return S, d
+
+
+def hessian_diag2d(elem_h, mass, plan):
+    """K28's second entry: the (nV, 3) diagonal of M + dt^2 H at dim 2 (the
+    (c, c) diagonal entries of the (36, N) row-major element Hessians
+    summed per vertex in incidence order, + mass; z column 1). plan: a
+    soa2d.Scatter2DPlan (its vertex-sorted incidences)."""
+    name, dev = "hessian_diag2d", elem_h.device
+    dt = _float(name, elem_h)
+    n, nv = elem_h.shape[-1], mass.shape[0]
+    _need(name, "elem_h", elem_h, dev, dt, (36, n))
+    _need(name, "mass", mass, dev, dt, (nv,))
+    _need(name, "gdest", plan.gdest, dev, torch.int64, (6 * n,))
+    _need(name, "inc_perm", plan.inc_perm, dev, torch.int64, (3 * n,))
+    _need(name, "inc_off", plan.inc_off, dev, torch.int64, (nv + 1,))
+    if not _route(name, elem_h):
+        return dd2d.hessian_diag2d_ref(elem_h, mass, plan)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.hessian_diag2d(_DTYPES[dt], _ptr(elem_h), n,
+                             _ptr(plan.inc_perm), _ptr(plan.inc_off),
+                             _ptr(mass), nv, _ptr(out), _stream(elem_h))
+    _ok(name, err)
+    return out
+
+
+def _local_tables2d(name, ref, l2g, valid, d):
+    P, N = l2g.shape
+    _need(name, "l2g", l2g, ref.device, torch.int64, (P, N))
+    _need(name, "valid", valid, ref.device, torch.bool, (P, N))
+    _need(name, "d", d, ref.device, ref.dtype, (P, 2 * N))
+    return P, N
+
+
+def h0_gather2d(rhs, l2g, valid, d):
+    """K27 (gather): r = rhs[l2g][:, :2] * valid / d, (P, 2N). rhs (nV, 3);
+    l2g (P, N) int64; valid (P, N) bool; d (P, 2N)."""
+    name = "h0_gather2d"
+    dt = _float(name, rhs)
+    _need(name, "rhs", rhs, rhs.device, dt, (None, 3))
+    P, N = _local_tables2d(name, rhs, l2g, valid, d)
+    if not _route(name, rhs):
+        return dd2d.h0_gather2d_ref(rhs, l2g, valid, d)
+    lib = _load()
+    r = torch.empty((P, 2 * N), dtype=dt, device=rhs.device)
+    err = lib.h0_gather2d(_DTYPES[dt], _ptr(rhs), _ptr(l2g), _ptr(valid),
+                          _ptr(d), 0, P * N, _ptr(r), _stream(rhs))
+    _ok(name, err)
+    return r
+
+
+def h0_average2d(z, d, perm, segids, seg_off, dup):
+    """K27 (average): (nV, 3) z / d gathered by `perm`, summed over the
+    runs of the sorted vertex ids `segids` (CSR offsets `seg_off`, (nV+2,);
+    id nV is the padding's dump) in order, divided by dup (nV,); z = 0.
+    z, d: (P, 2N)."""
+    name = "h0_average2d"
+    dt = _float(name, z)
+    nv = dup.shape[0]
+    _need(name, "z", z, z.device, dt, (None, None))
+    _need(name, "d", d, z.device, dt, tuple(z.shape))
+    _need(name, "perm", perm, z.device, torch.int64, (z.numel() // 2,))
+    _need(name, "segids", segids, z.device, torch.int64, perm.shape)
+    _need(name, "seg_off", seg_off, z.device, torch.int64, (nv + 2,))
+    _need(name, "dup", dup, z.device, dt, (nv,))
+    if not _route(name, z):
+        return dd2d.h0_average2d_ref(z, d, perm, segids, seg_off, dup)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=z.device)
+    err = lib.h0_average2d(_DTYPES[dt], _ptr(z), _ptr(d), _ptr(perm),
+                           _ptr(seg_off), _ptr(dup), nv, _ptr(out),
+                           _stream(z))
+    _ok(name, err)
+    return out
+
+
+def local_gather_one2d(rhs, l2g, valid, d, part):
+    """K27 (one subdomain's gather): (2N,) rhs[l2g[part]][:, :2] *
+    valid[part] / d[part]."""
+    name = "local_gather_one2d"
+    dt = _float(name, rhs)
+    _need(name, "rhs", rhs, rhs.device, dt, (None, 3))
+    P, N = _local_tables2d(name, rhs, l2g, valid, d)
+    if not 0 <= part < P:
+        raise ValueError(f"{name}: subdomain {part} of {P}")
+    if not _route(name, rhs):
+        return dd2d.local_gather_one2d_ref(rhs, l2g, valid, d, part)
+    lib = _load()
+    r = torch.empty(2 * N, dtype=dt, device=rhs.device)
+    err = lib.h0_gather2d(_DTYPES[dt], _ptr(rhs), _ptr(l2g), _ptr(valid),
+                          _ptr(d), part, N, _ptr(r), _stream(rhs))
+    _ok(name, err)
+    return r
+
+
+def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
+    """K27 (one subdomain's scatter): the zero (nV, 3) direction holding
+    subdomain `part`'s z / d (z (2N,)) at its valid local vertices; padded
+    slots write nothing."""
+    name = "local_scatter_one2d"
+    dt = _float(name, z)
+    P, N = _local_tables2d(name, z, l2g, valid, d)
+    _need(name, "z", z, z.device, dt, (2 * N,))
+    if not 0 <= part < P:
+        raise ValueError(f"{name}: subdomain {part} of {P}")
+    if not _route(name, z):
+        return dd2d.local_scatter_one2d_ref(z, d, l2g, valid, part, n_vert)
+    lib = _load()
+    out = torch.empty((n_vert, 3), dtype=dt, device=z.device)
+    err = lib.local_scatter_one2d(_DTYPES[dt], _ptr(z), _ptr(d), _ptr(l2g),
+                                  _ptr(valid), part, N, n_vert, _ptr(out),
+                                  _stream(z))
     _ok(name, err)
     return out

@@ -9,13 +9,15 @@ Per run directory:
   status<n>         restartable plain-text state (timestep/position/
                     velocity/dx_Elastic — same token format as reference)
   iterStats.txt     per-iteration rows (step, alpha, E, ||g||^2)
-  info.txt          mesh size, iteration totals, timing buckets
+  info.txt          mesh size, iteration totals, timing buckets (the lines
+                    of dot_tpu's info.txt)
   log.txt           tolerances, inner iter counts, sysE per step
   finalResult_mesh.msh
 
 2D scenes (a primitive `shape`) go through dim2.Sim2D, which shares this
-frame loop and writes the same files but the .msh; only `timeStepper
-Newton` runs there so far.
+frame loop and writes the same files but the .msh and, as dot_tpu's 2D
+run, an info.txt without the timing block; it runs Newton, DOT, GSDD and
+the four LBFGS steppers.
 
 This port runs all nine steppers at dim 3: `timeStepper DOT | GSDD | Newton
 | LBFGS | LBFGSH | LBFGSHI | LBFGSJH | ADMM | ADMMDD`, the quasi-Newton ones
@@ -102,9 +104,10 @@ def _unsupported(what):
         f"{what} is not ported to dot_tpu_torch yet (ROADMAP.md queue 1); "
         "the port runs 'timeStepper DOT, GSDD, Newton, LBFGS, LBFGSH, "
         "LBFGSHI, LBFGSJH, ADMM, ADMMDD' at dim 3, the quasi-Newton steppers "
-        "with 'h0Refresh 1', and 'timeStepper Newton' on the 2D shapes "
-        "(grid, square, rectangle, cylinder, spikes, Sharkey) with warmStart "
-        "0-4; no restart at either dimension")
+        "with 'h0Refresh 1', and 'timeStepper Newton, DOT, GSDD, LBFGS, "
+        "LBFGSH, LBFGSHI, LBFGSJH' on the 2D shapes (grid, square, "
+        "rectangle, cylinder, spikes, Sharkey) with warmStart 0-4; no "
+        "restart at either dimension")
 
 
 STEPPERS = {"DOT": DOTStepper, "GSDD": GSDDStepper, "Newton": NewtonStepper,
@@ -115,6 +118,8 @@ QUASI_NEWTON = ("DOT", "GSDD", "LBFGS", "LBFGSH", "LBFGSHI", "LBFGSJH")
 
 
 class Simulator:
+    timing_in_info = True     # dot_tpu's 3D info.txt ends in the timing block
+
     def __init__(self, cfg: Config, output_dir: str, dtype=None, device=None,
                  search_dirs=(), save_every=1, mute=False, use_kernels=True,
                  plan=None):
@@ -148,7 +153,9 @@ class Simulator:
         self._surf_verts = surf_verts
         self._surf_faces = remap[sf]
 
-        self.timer.start("partition+build")
+        # dot_tpu's name for this bucket: on the card it also holds the
+        # kernels' build at their first launch (the first H0)
+        self.timer.start("partition+compile")
         dtype = dtype if dtype is not None else pick_dtype(None, self.device)
         # the plan each stepper runs on (dot_tpu/sim.py:131-196): DOT and
         # GSDD the element partition, Newton and LBFGS-H/HI the whole mesh
@@ -269,7 +276,7 @@ class Simulator:
             self.frame += 1
         wall = time.perf_counter() - t_begin
         if not self.mute:
-            print(f"ran {n} frames in {wall:.3f}s "
+            print(f"ran {n} frames on {self.device} in {wall:.3f}s "
                   f"({wall / max(n, 1):.4f} s/frame)")
         return wall / max(n, 1)
 
@@ -332,9 +339,9 @@ class Simulator:
             f.write(f"frames {self.frame}\n")
             f.write(f"innerIterTotal {self.inner_iter_total}\n")
             f.write(f"lineSearchTotal {self.ls_total}\n")
-            f.write(f"device {self.device}\n")
-            f.write("--- timing (s) ---\n")
-            f.write(self.timer.report() + "\n")
+            if self.timing_in_info:
+                f.write("--- timing (s) ---\n")
+                f.write(self.timer.report() + "\n")
         self._iter_stats.close()
         self._log.close()
 

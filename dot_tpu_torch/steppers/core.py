@@ -165,10 +165,24 @@ class StepStats:
 class SystemBase:
     """What the 3D System and the 2D System2D (dim2.py) share: the host
     read, the tolerance, the inertia terms, the warm starts 0-4, the
-    Backward-Euler update and the float64 energy diagnostic. A subclass sets
-    dtype, device, dt, dt_sq, n_vert, n_syncs, mesh, mat, mass, vol_w (the
-    per-element rest measure), u_e, lam_e, gravity, grav_dt_sq,
-    _sqnorm_H_rest and _sqnorm_l, and offers elastic_energy."""
+    Backward-Euler update, the float64 energy diagnostic and the factor
+    dtype. A subclass sets dtype, factor_dtype, device, dt, dt_sq, n_vert,
+    n_syncs, mesh, mat, mass, vol_w (the per-element rest measure), u_e,
+    lam_e, gravity, grav_dt_sq, _sqnorm_H_rest and _sqnorm_l, and offers
+    elastic_energy."""
+
+    @property
+    def _solve_dtype(self):
+        return (torch.float32 if self.factor_dtype == torch.bfloat16
+                else self.factor_dtype)
+
+    def _to_factor_dtype(self, Hn):
+        """A bfloat16 factor dtype means: round the matrix to bf16 and
+        factorize in f32 (LBFGS-HI's stand-in for the reference's
+        incomplete Cholesky; dot_tpu core.py:776-783)."""
+        if self.factor_dtype == torch.bfloat16:
+            return Hn.to(torch.bfloat16).to(torch.float32)
+        return Hn.to(self.factor_dtype)
 
     def host(self, *vals):
         """One device -> host read of 0-d tensors (counted in n_syncs)."""
@@ -418,18 +432,6 @@ class System(SystemBase):
         if self.use_coarse:
             self.coarse_plan = coarse.build_plan(mesh, p, dtype, self.device)
 
-    @property
-    def _solve_dtype(self):
-        return (torch.float32 if self.factor_dtype == torch.bfloat16
-                else self.factor_dtype)
-
-    def _to_factor_dtype(self, Hn):
-        """A bfloat16 factor dtype means: round the matrix to bf16 and
-        factorize in f32 (LBFGS-HI's stand-in for the reference's
-        incomplete Cholesky; dot_tpu core.py:776-783)."""
-        if self.factor_dtype == torch.bfloat16:
-            return Hn.to(torch.bfloat16).to(torch.float32)
-        return Hn.to(self.factor_dtype)
 
     # ------------------------------------------------------------------
     def _compute_sqnorm_h_rest(self):

@@ -839,3 +839,136 @@ def test_newton2d_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out[1][2], [3.294256031942e+03,
                                            3.294256605060e+03,
                                            3.300416677680e+03], rtol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# K25-K28: the 2D decomposed path (DOT, GSDD, LBFGS-PD / H / HI / JH)
+# ----------------------------------------------------------------------
+def _dd_system_2d(dev, dtype, stepper="DOT", resolution=400, plan="element",
+                  parts=4, use_kernels=True):
+    from dot_tpu_torch import dim2, plan2d
+    from dot_tpu_torch.sim import STEPPERS
+    cfg = Config(energy="FCR", time_stepper=stepper, dt=0.025, rho=1000.0,
+                 ym=1e5, pr=0.4, script="stretch", handle_ratio=0.03,
+                 shape="spikes", resolution=resolution, partition_amt=parts)
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    p = {"element": lambda: plan2d.build_plan_2d(mesh, parts),
+         "node": lambda: plan2d.build_node_plan_2d(mesh, parts),
+         None: lambda: None}[plan]()
+    sysm = dim2.System2D(mesh, cfg, dtype=dtype, device=dev, plan=p,
+                         use_kernels=use_kernels)
+    return STEPPERS[stepper](sysm, sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dd2d_kernels_match_plain_versions(cuda, dtype):
+    """K25-K28 against their plain versions (kernels/dd2d.py) on the 4-part
+    element plan of the spikes scene: f64 1e-12, f32 1e-5 max-rel (sums in
+    the same order; K25's in a fixed order of its own, 1e-4 in f32); K26's
+    matrices symmetric bit for bit and scaled in place; the one-subdomain
+    scatter leaves every other vertex at 0; one launch each."""
+    from dot_tpu_torch.kernels import dd2d
+    tol = TOL_NEW[dtype][0]
+    st = _dd_system_2d(cuda, dtype)
+    sysm = st.system
+    nv = sysm.n_vert
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+
+    x = t(st.script_data.x0)
+    x[:, :2] += t(0.01 * rng.normal(size=(nv, 2)))
+    p = torch.zeros((nv, 3), dtype=dtype, device=cuda)
+    p[:, :2] = t(rng.normal(size=(nv, 2)))
+    fixed = torch.as_tensor(st.script_data.fixed0, device=cuda)
+    eh = sysm.element_hessians(x)
+    free = torch.logical_and(sysm.local_valid,
+                             torch.logical_not(fixed[sysm.l2g])).to(dtype)
+    ops.reset_launches()
+    qk, Fk = ops.quadratic_form2d(p, sysm.conn, sysm.g4, eh, sysm.mass)
+    qr, Fr = dd2d.quadratic_form2d_ref(p, sysm.conn, sysm.g4, eh, sysm.mass)
+    assert _rel0(qk, qr) <= TOL_NEW[dtype][1] and _rel_max(Fk, Fr) <= tol
+    Hk, dk = ops.subdomain_assemble2d(eh, free, sysm.mass_img, sysm.asm_tab)
+    Hr, dr = dd2d.subdomain_assemble2d_ref(eh, free, sysm.mass_img,
+                                           sysm.asm_tab)
+    assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
+    assert torch.equal(Hk, Hk.mT)
+    Sr = dd2d.subdomain_scale2d_ref(Hr, dr, sysm.asm_tab)
+    Sk = ops.subdomain_scale2d(Hk, dk, sysm.asm_tab)
+    assert Sk.data_ptr() == Hk.data_ptr() and _rel_max(Sk, Sr) <= tol
+    L, d = sysm.factorize_fast(Hr.clone(), dr)
+    q = p.clone()
+    rk = ops.h0_gather2d(q, sysm.l2g, sysm.local_valid, d)
+    rr = dd2d.h0_gather2d_ref(q, sysm.l2g, sysm.local_valid, d)
+    assert torch.equal(rk, rr)
+    z = sysm.solve_local(L, rr).contiguous()
+    ak = ops.h0_average2d(z, d, sysm.gath_perm, sysm.gath_segids,
+                          sysm.gath_off, sysm.dup)
+    ar = dd2d.h0_average2d_ref(z, d, sysm.gath_perm, sysm.gath_segids,
+                               sysm.gath_off, sysm.dup)
+    assert _rel_max(ak, ar) <= tol and float(ak[:, 2].abs().max()) == 0.0
+    for i in range(sysm.n_parts):
+        gk = ops.local_gather_one2d(q, sysm.l2g, sysm.local_valid, d, i)
+        gr = dd2d.local_gather_one2d_ref(q, sysm.l2g, sysm.local_valid, d, i)
+        assert torch.equal(gk, gr)
+        sk_ = ops.local_scatter_one2d(gr, d, sysm.l2g, sysm.local_valid, i,
+                                      nv)
+        sr_ = dd2d.local_scatter_one2d_ref(gr, d, sysm.l2g, sysm.local_valid,
+                                           i, nv)
+        assert torch.equal(sk_, sr_)
+    w = sysm.scalar(sysm.dt_sq) * sysm.vol_w * (2.0 * sysm.u_e + sysm.lam_e)
+    tab = dd2d.pd_tables(sysm.mesh.conn, nv, cuda)
+    fv = torch.logical_not(fixed).to(dtype)
+    Pk, pk = ops.pd_assemble2d(sysm.g4, w, fv, sysm.mass, tab)
+    Pr, pr = dd2d.pd_assemble2d_ref(sysm.g4, w, fv, sysm.mass, tab)
+    assert _rel_max(Pk, Pr) <= tol and _rel_max(pk, pr) <= tol
+    assert torch.equal(Pk, Pk.t())
+    hk = ops.hessian_diag2d(eh, sysm.mass, sysm.scatter_plan)
+    hr = dd2d.hessian_diag2d_ref(eh, sysm.mass, sysm.scatter_plan)
+    assert _rel_max(hk, hr) <= tol and bool((hk[:, 2] == 1).all())
+    torch.cuda.synchronize()
+    for k in ("quadratic_form2d", "subdomain_assemble2d", "h0_gather2d",
+              "h0_average2d", "pd_assemble2d", "hessian_diag2d"):
+        assert ops.launches[k] == 1, (k, ops.launches[k])
+    assert ops.launches["subdomain_scale2d"] == 2      # + factorize_fast
+    assert ops.launches["local_gather_one2d"] == sysm.n_parts
+    assert ops.launches["local_scatter_one2d"] == sysm.n_parts
+
+
+def test_dot2d_step_on_card_matches_cpu(cuda):
+    """Three DOT 4 frames of the 2D spikes scene, f64: the card (K21-K28)
+    against the CPU's plain versions and against the plain versions on the
+    same card, equal iteration counts, z = 0; K25 once an iteration, K26
+    once a rebuild, K27 once an H0 apply."""
+    out = []
+    for dev, use in (("cpu", True), (cuda, True), (cuda, False)):
+        st = _dd_system_2d(dev, torch.float64, resolution=200,
+                           use_kernels=use)
+        n0 = dict(ops.launches)
+        s = st.init_state()
+        its, es = [], []
+        for _ in range(3):
+            s, (stats, e) = st.step(s)
+            its.append(stats.inner_iters)
+            es.append(e)
+            assert stats.stop in ("tol", "rel_dec")
+        n_launch = {k: ops.launches[k] - n0[k] for k in ops.KERNELS}
+        if dev != "cpu" and use:
+            assert n_launch["quadratic_form2d"] == sum(its)
+            assert n_launch["subdomain_assemble2d"] == 4    # init + 3 frames
+            assert n_launch["h0_gather2d"] == n_launch["h0_average2d"] \
+                == sum(its)
+        else:
+            assert not any(n_launch.values())
+        assert float(s.x[:, 2].abs().max()) == 0.0
+        out.append((s.x.cpu().numpy(), its, es))
+    for other in out[1:]:
+        assert other[1] == out[0][1]
+        np.testing.assert_allclose(other[0], out[0][0], rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(other[2], out[0][2], rtol=1e-10)
+    np.testing.assert_allclose(out[1][2], [3.294256031942e+03,
+                                           3.294256605060e+03,
+                                           3.300416677680e+03], rtol=2e-4)

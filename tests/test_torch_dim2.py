@@ -390,10 +390,11 @@ def test_2d_entry_points_need_a_card_unless_cpu_is_asked(tmp_path,
 
 
 @pytest.mark.parametrize("stepper,extra", [
-    ("DOT 4", ""), ("GSDD 4", ""), ("LBFGS", ""), ("LBFGSH", ""),
-    ("LBFGSHI", ""), ("LBFGSJH 4", ""), ("ADMM", ""), ("ADMMDD 4", ""),
-    ("Newton", "restart status0")])
+    ("ADMM", ""), ("ADMMDD 4", ""), ("Newton", "restart status0"),
+    ("DOT 4", "restart status0")])
 def test_unported_2d_configurations_raise(tmp_path, stepper, extra):
+    """ADMM, ADMM-DD and restart at dim 2 (the six quasi-Newton 2D
+    steppers run: tests/test_torch_dim2_steppers.py)."""
     cfg = Config.load(_scene(tmp_path, stepper, extra=extra))
     with pytest.raises(NotImplementedError, match="not ported .* yet"):
         dim2.Sim2D(cfg, str(tmp_path / "out"), device="cpu", mute=True)

@@ -5,6 +5,7 @@ cover yet refuses clearly, and without a card the entry points run only
 when the caller asks for the CPU."""
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -64,7 +65,8 @@ def test_two_frame_run_writes_output_contract(tmp_path):
     np.testing.assert_allclose(x, sim.state.x.numpy(), rtol=1e-6,
                                atol=1e-9)
     info = open(os.path.join(sim.out, "info.txt")).read()
-    assert "innerIterTotal" in info and "device cpu" in info
+    assert "innerIterTotal" in info and "device" not in info
+    assert re.search(r"^step (\S+)", info, re.M)    # tools/results_table.py
     cfg = Config.load(os.path.join(sim.out, "config.txt"))
     assert cfg.time_stepper == "DOT" and cfg.partition_amt == 2
 
@@ -192,3 +194,32 @@ def test_log_has_the_line_search_failure_line_where_dot_tpu_has(tmp_path,
                 float(a.split("=")[1]), rel=1e-9)
         else:
             assert a == b
+
+
+def test_info_txt_lines_match_dot_tpu(tmp_path):
+    """info.txt carries dot_tpu's lines (dot_tpu/sim.py:421-427): the five
+    counts, equal on this scene, then the timing block with the same
+    activity names in the same order (no device line: the device goes to
+    stdout)."""
+    import jax.numpy as jnp
+    from dot_tpu.config import Config as JConfig
+    from dot_tpu.sim import Simulator as JSimulator
+    scene = _scene(tmp_path)
+    lines = []
+    for cfg_cls, sim_cls, kw in (
+            (JConfig, JSimulator, dict(dtype=jnp.float64, render=False)),
+            (Config, Simulator, dict(dtype=torch.float64, device="cpu"))):
+        sim = sim_cls(cfg_cls.load(scene),
+                      str(tmp_path / f"out_{sim_cls.__module__}"),
+                      search_dirs=(str(tmp_path),), mute=True, **kw)
+        sim.run(2)
+        sim.finalize()
+        lines.append(open(os.path.join(sim.out, "info.txt")).read()
+                     .splitlines())
+    jlines, tlines = lines
+    assert [ln.split()[0] for ln in tlines] == [ln.split()[0]
+                                                for ln in jlines]
+    assert tlines[:5] == jlines[:5]
+    assert tlines[5] == "--- timing (s) ---"
+    assert [ln.split()[0] for ln in tlines[:5]] == [
+        "vertAmt", "elemAmt", "frames", "innerIterTotal", "lineSearchTotal"]
