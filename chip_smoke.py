@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the dot_tpu_torch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale,dim2,dim2dd]
+    python3 chip_smoke.py [--phases probe,build,kernels,golden,main,steppers,admm,scale,dim2,dim2dd,dim2admm]
 
 Phases (each prints its lines; any failure exits non-zero before the
 result line):
@@ -10,13 +10,18 @@ result line):
            chol_inv.cu, K7 and K15 block_matvec.cu, K8 and K16 h0.cu,
            K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
            K15's permute passes pd.cu, K17 / K18 / K20 admm.cu, K21-K24
-           elem2d.cu, K25-K28 dd2d.cu; K19 and the per-slab / from-F entry
-           points of K1 / K2 live in band_asm.cu and elem.cu) with nvcc for
+           elem2d.cu, K25-K28 dd2d.cu, K29 / K30 admm2d.cu; K19 and the
+           per-slab / from-F entry points of K1 / K2 live in band_asm.cu
+           and elem.cu, those of K21 / K22 in elem2d.cu, K26's W and
+           local-Hessian entries in dd2d.cu) with nvcc for
            sm_90a, one nvcc per source, all at once; K4 and K9 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
            tolerances, median times, the time of one PyTorch library call
-           computing the same function where there is one, and the bound
+           computing the same function where there is one (where the one
+           call covers only the scatter of values computed outside it, the
+           record holds library_ms null and the call's time as
+           library_partial_ms), and the bound
            (the larger of bytes / 3.35 TB/s and operations / the unit's
            peak): K1-K4 on random, inverted and near-degenerate
            deformations of the bar17 mesh (86,016 tets, 16,473 vertices)
@@ -48,7 +53,11 @@ result line):
            P 4, n2p 5,248; K28 on the 10,171^2 PD matrix) on a deformed
            configuration, and factorize_fast's global 1e-4 tier on an
            indefinite subdomain (every subdomain refactored, one host
-           read) (`--phases kernels2d` runs the 2D checks alone)
+           read); K29 (with its loop counts, which set its bound) and K30
+           with both epilogues on the full-size scene's triangles, and the
+           per-slab / from-F entries of K21 / K22 and K26's W / consensus
+           and local-Hessian entries on its 4-part ADMM-DD tables
+           (`--phases kernels2d` runs the 2D checks alone)
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -119,9 +128,19 @@ result line):
            iteration, K26 once a rebuild, K27 once an H0 apply (GSDD: 2 P
            a sweep), K28 once an LBFGS run; sysE against the plain path's
            same frames (rtol 1e-3) and Newton's (1e-3; GSDD, LBFGSJH 5e-3)
+  dim2admm the 2D ADMM family through dim2.Sim2D: the spikes golden under
+           ADMM and ADMMDD 4 (f64, kernels on: sysE rtol 2e-4, z = 0),
+           then the full-size scene in f32 under ADMM (1 warm-up + 2
+           frames) and ADMMDD 4 (1 + 1): every frame finite and stopped by
+           tol or at its cap (printed), iterations, syncs, s/frame, peak
+           memory, the launches of K29 / K30 (once an ADMM-PD iteration)
+           and of the four ADMM-DD entries, sysE against the plain path's
+           first frame (rtol 1e-3) and against 2D Newton's frames (1e-3
+           where every frame stopped by tol, printed otherwise)
 The last three lines are nvidia-smi's name and power limit, the kernels'
 JSON record (per kernel: launches of all paths' runs and
-launches_by_path {main, steppers, admm, scale, dim2, dim2dd}; times at the
+launches_by_path {main, steppers, admm, scale, dim2, dim2dd, dim2admm};
+times at the
 bar17 shapes, the 2D kernels' at the full-size spikes scene's; under "bar135"
 K6's and K7's at the bar135 shapes, under "split2000" K6's on the 2,000^2
 block) and {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -198,6 +217,18 @@ DIM2DD_RUNS = {
 DD2D_KERNELS = ("quadratic_form2d", "subdomain_assemble2d",
                 "subdomain_scale2d", "h0_gather2d", "h0_average2d",
                 "local_gather_one2d", "local_scatter_one2d", "pd_assemble2d")
+# the 2D ADMM family (dim2admm): the full-size spikes scene under each ADMM
+# stepper: (scene's timeStepper line, timed frames after one warm-up)
+DIM2ADMM_RUNS = {"ADMM": ("ADMM", 2), "ADMMDD4": ("ADMMDD 4", 1)}
+ADMM2D_KERNELS = ("admm_local_step2d", "dtw_scatter2d",
+                  "ls_trial_energy2d_parts", "elem_gradient2d_from_F",
+                  "w_assemble2d", "local_h_assemble2d")
+# K29 per triangle, counted from kernels/csrc/admm2d.cu and elem2d.cuh: the
+# flip-SVD (two atan2, two sincos) once, then per Newton iteration dpsi,
+# d2psi, the 2x2 eigendecomposition of make_pd2 (one atan2, one sincos) and
+# the adjugate solve, and per energy evaluation psi and the distance term;
+# multiplied by the counts the kernel reports
+K29_FLOPS = dict(svd=120, newton=110, energy=15)
 
 BAR17 = (56, 16, 16)
 SCENE_TMPL = """energy FCR
@@ -309,10 +340,31 @@ SOURCES = {
                       "dot_tpu/dim2.py:704"),
     "hessian_diag2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
                        "dot_tpu/dim2.py:567"),
+    "admm_local_step2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
+                          "dot_tpu/steppers/admm.py:142"),
+    "dtw_scatter2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
+                      "dot_tpu/dim2.py:823"),
+    "ls_trial_energy2d_parts": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                                "dot_tpu/dim2.py:1173"),
+    "elem_gradient2d_from_F": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+                               "dot_tpu/dim2.py:1182"),
+    "w_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                     "dot_tpu/dim2.py:1123"),
+    "local_h_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
+                           "dot_tpu/dim2.py:1206"),
 }
-PATHS = ("main", "steppers", "admm", "scale", "dim2", "dim2dd")
+PATHS = ("main", "steppers", "admm", "scale", "dim2", "dim2dd", "dim2admm")
 ALL_PHASES = ("probe", "build", "kernels", "golden", "main", "steppers",
-              "admm", "scale", "dim2", "dim2dd")
+              "admm", "scale", "dim2", "dim2dd", "dim2admm")
+# kernels whose one library call covers only the scatter of values computed
+# outside the timed call (per-element forces, gathered or scaled values):
+# no PyTorch call computes their function, so the record holds
+# library_ms null and that call's time as library_partial_ms
+PARTIAL_LIBRARY = ("elem_gradient", "h0_average", "hessian_diag",
+                   "pd_assemble", "dtw_scatter", "w_matvec", "w_diag",
+                   "elem_gradient_from_F", "elem_gradient2d", "h0_average2d",
+                   "hessian_diag2d", "coarse_restrict", "band_compact",
+                   "dtw_scatter2d", "elem_gradient2d_from_F")
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
@@ -554,18 +606,22 @@ def _report(torch, tag, kname, checks, fns, cost, bad, record,
             plain_reps=15):
     """Time kernel / plain / library (fns: (kernel, plain, library or
     None)), print the checks against their limits and the times, and keep
-    the f32 record (max_abs_err, ms, plain_ms, library_ms, bound).
-    `plain_reps`: timed calls of the plain version per round (fewer for one
-    that takes seconds)."""
+    the f32 record (max_abs_err, ms, plain_ms, library_ms, bound; a
+    PARTIAL_LIBRARY kernel's call as library_partial_ms). `plain_reps`:
+    timed calls of the plain version per round (fewer for one that takes
+    seconds)."""
     ms, plain_ms = _time_pair(torch, fns[0], fns[1], plain_reps)
     lib_ms = _median_ms(torch, fns[2]) if fns[2] is not None else None
+    partial = kname.split("@")[0] in PARTIAL_LIBRARY
     bound_ms, bound_by = _bound(*cost)
     parts = []
     for what, err, lim, _abs in checks:
         parts.append(f"{what} rel {err:.3e} (tol {lim:g})")
         if not err <= lim:
             bad.append(f"{kname} {tag} {what}: {err:.3e} > {lim:g}")
-    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+    lib = "none" if lib_ms is None else (
+        f"none (partial: index_add_ {lib_ms:.4f} ms)" if partial
+        else f"{lib_ms:.4f} ms")
     say(f"kernels: {tag} {kname}: " + ", ".join(parts)
         + f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms, library {lib}, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {cost[0] / 1e6:.1f} MB, "
@@ -574,7 +630,9 @@ def _report(torch, tag, kname, checks, fns, cost, bad, record,
         abs_err = max(a for _, _, _, a in checks if a is not None)
         record[kname] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
-                             library_ms=lib_ms)
+                             library_ms=None if partial else lib_ms)
+        if partial:
+            record[kname]["library_partial_ms"] = lib_ms
 
 
 def phase_kernels(torch, record):
@@ -1967,12 +2025,14 @@ def phase_dim2_kernels(torch, record):
         del Sk, Sr
         torch.cuda.empty_cache()
         vals = hr.t().reshape(-1).contiguous()
-        flat = torch.zeros(n2 * n2, dtype=dtype, device="cuda")
+        # the library yardstick of an assembly: the zero-filled matrix and
+        # its index_add_, both inside the timed call
         times["dense_assemble2d"] = (
             lambda: ops.dense_assemble2d(hr, d["free"], d["mass"], plan),
             lambda: soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"],
                                                plan),
-            lambda: flat.index_add_(0, plan.hdest, vals))
+            lambda: torch.zeros(n2 * n2, dtype=dtype, device="cuda")
+            .index_add_(0, plan.hdest, vals))
         costs["dense_assemble2d"] = (
             (36 * n + 2 * nv + n2 * n2 + n2) * sz + 8 * 36 * n
             + 8 * (2 * n_slot + 1), 36 * n + 4 * n_slot)
@@ -1991,7 +2051,7 @@ def phase_dim2_kernels(torch, record):
             f"{n} triangles, {nv} vertices, dense matrix {n2}^2 "
             f"({n2 * n2 * sz / 1e9:.3f} GB), {n_slot} assembled slots from "
             f"{36 * n} entries")
-        del Hk, flat, vals, hk, hr, d
+        del Hk, vals, hk, hr, d
         torch.cuda.empty_cache()
 
         # ---- K6 above its panel limit: the host's 2 x 2 split
@@ -2069,7 +2129,8 @@ def _dim2_split(sim, frames):
 
 def phase_dim2(torch, launches_out):
     """The 2D path through Sim2D on scene files written here: the golden
-    (spikes, resolution 200, f64, kernels on), then the full-size run."""
+    (spikes, resolution 200, f64, kernels on), then the full-size run.
+    Returns the full-size frames' sysE and their dtype."""
     from dot_tpu_torch.kernels import ops
     tmp = tempfile.mkdtemp(prefix="dot_dim2_")
     try:
@@ -2209,7 +2270,7 @@ def phase_dim2(torch, launches_out):
         if not rel.max() <= 1e-3:
             raise Fail(f"dim2 kernel path and plain path disagree: "
                        f"{rel.max():.3e}")
-        return spf
+        return a, dtype_run
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2296,12 +2357,12 @@ def phase_dd2d_kernels(torch, record):
         del Sk, Sr
         torch.cuda.empty_cache()
         vals = eh.reshape(-1)[tab.src]
-        flat = torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
         times["subdomain_assemble2d"] = (
             lambda: ops.subdomain_assemble2d(eh, free, sysm.mass_img, tab),
             lambda: dd2d.subdomain_assemble2d_ref(eh, free, sysm.mass_img,
                                                   tab),
-            lambda: flat.index_add_(0, tab.dest, vals))
+            lambda: torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
+            .index_add_(0, tab.dest, vals))
         costs["subdomain_assemble2d"] = (
             (36 * n + 2 * P * N + P * n2p * n2p + P * n2p) * sz
             + 8 * (n_item + 2 * n_slot + 1), n_item + 4 * n_slot)
@@ -2417,13 +2478,13 @@ def phase_dd2d_kernels(torch, record):
              float((hk - hr).abs().max())),
             ("|z - 1|", float((hk[:, 2] - 1).abs().max()), 0.0, None)]
         pvals = dd2d.pd_pair_vals2d(g4, w).reshape(-1)[ptab.src]
-        pflat = torch.zeros(nv * nv, dtype=dtype, device="cuda")
         dvals = eh[torch.arange(6, device="cuda") * 7].t().reshape(-1)
         dacc = torch.zeros(2 * nv, dtype=dtype, device="cuda")
         times["pd_assemble2d"] = (
             lambda: ops.pd_assemble2d(g4, w, fv, mass, ptab),
             lambda: dd2d.pd_assemble2d_ref(g4, w, fv, mass, ptab),
-            lambda: pflat.index_add_(0, ptab.dest, pvals))
+            lambda: torch.zeros(nv * nv, dtype=dtype, device="cuda")
+            .index_add_(0, ptab.dest, pvals))
         times["hessian_diag2d"] = (
             lambda: ops.hessian_diag2d(eh, mass, sysm.scatter_plan),
             lambda: dd2d.hessian_diag2d_ref(eh, mass, sysm.scatter_plan),
@@ -2443,7 +2504,7 @@ def phase_dd2d_kernels(torch, record):
             f"({P * n2p * n2p * sz / 1e9:.3f} GB of subdomain matrices), "
             f"{n_slot} assembled slots from {n_item} entries; the PD matrix "
             f"{nv}^2 ({nv * nv * sz / 1e9:.3f} GB), {p_slot} slots")
-        del flat, pflat, vals, pvals, eh, sysm, Hs, times
+        del vals, pvals, eh, sysm, Hs, times
         torch.cuda.empty_cache()
     if bad:
         raise Fail("kernel disagrees with its plain version: "
@@ -2656,6 +2717,471 @@ def phase_dim2dd(torch, launches_out):
         missing = [k for k in DD2D_KERNELS if total[k] <= 0]
         if missing:
             raise Fail(f"dim2dd path: kernels never launched: {missing}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _local_step_inputs2(torch, n, dtype, rng):
+    """(Dx, u4), each (4, n) on the card: a third random deformation
+    gradients around the identity (any sign of det), a third inverted near
+    the identity, a third near rank 1; duals a tenth of that size."""
+    third = n // 3
+    f = np.empty((4, n))
+    f[:, :third] = np.eye(2).reshape(4, 1) + 0.5 * rng.normal(size=(4, third))
+    inv = np.eye(2).reshape(4, 1) + 0.1 * rng.normal(size=(4, third))
+    inv[[0, 2]] *= -1.0
+    f[:, third:2 * third] = inv
+    m = n - 2 * third
+    uv = rng.normal(size=(2, m))[:, None] * rng.normal(size=(2, m))[None]
+    f[:, 2 * third:] = uv.reshape(4, m) + 1e-3 * rng.normal(size=(4, m))
+    u = 0.1 * rng.normal(size=(4, n))
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device="cuda")
+    return t(f), t(u)
+
+
+def phase_admm2d_kernels(torch, record):
+    """K29, K30 and the ADMM-DD entries of K21 / K22 / K26 against their
+    plain versions at the dim2admm path's full-size shapes (spikes at
+    resolution 20,000; ADMM-DD's tables on its 4-part element plan), f64
+    and f32."""
+    from dot_tpu_torch import dim2, plan2d, scripts
+    from dot_tpu_torch.config import Config
+    from dot_tpu_torch.kernels import admm2d, dd2d, ops, soa2d
+    rng = np.random.default_rng(20261021)
+    cfg = Config(energy="FCR", time_stepper="ADMMDD", shape="spikes",
+                 resolution=SPIKES_FULL, ym=1e5, pr=0.4, rho=1000.0,
+                 handle_ratio=0.03, dt=0.025, script="stretch",
+                 partition_amt=DD2D_PARTS)
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    plan = plan2d.build_plan_2d(mesh, DD2D_PARTS)
+    n, nv = mesh.n_elem, mesh.n_vert
+    h = float(np.sqrt(mesh.area.mean()))
+    x0 = np.asarray(sd.x0, np.float64).copy()
+    x0[:, :2] += rng.normal(scale=0.3 * h, size=(nv, 2))
+    bad = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol, tols = TOL[name], TOL_SCALE[name]
+        sz = torch.finfo(dtype).bits // 8
+        res, times, costs = {}, {}, {}
+
+        def t(a, dt=dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                   device="cuda")
+        x = t(x0)
+        fixed = torch.as_tensor(sd.fixed0, device="cuda")
+
+        # ---- K29 and K30 on the ADMM-PD system (no plan)
+        pdsys = dim2.System2D(mesh, cfg, dtype=dtype, device="cuda")
+        pst = dim2.ADMMPD2D(pdsys, sd)
+        Dx, u4 = _local_step_inputs2(torch, n, dtype, rng)
+        l_args = (Dx, u4, pst.w_e, pst.vol_dtsq, pdsys.u_e, pdsys.lam_e,
+                  pdsys.mat)
+        zk, duk, ck = ops.admm_local_step2d(*l_args, want_counts=True)
+        zr, dur, cr = admm2d.admm_local_step2d_ref(*l_args, want_counts=True)
+        # a triangle whose stop test falls the other way for one ulp of the
+        # device library's angles takes another Newton iteration: z and du
+        # are held where the loop counts agree, the share of the others is
+        # bounded
+        same = (ck == cr).all(dim=0)
+        n_diff = int((~same).sum())
+        its, evs = int(ck[0].sum()), int(ck[1].sum())
+        res["admm_local_step2d"] = [
+            ("z", _rel_max(zk[:, same], zr[:, same]), tol["elem"],
+             float((zk[:, same] - zr[:, same]).abs().max())),
+            ("du", _rel_max(duk[:, same], dur[:, same]), tol["elem"],
+             float((duk[:, same] - dur[:, same]).abs().max())),
+            (f"share of triangles whose loop counts differ ({n_diff})",
+             n_diff / n, 1e-3, None)]
+        say(f"kernels: {name} admm_local_step2d: Newton iterations per "
+            f"triangle mean {its / n:.2f} max {int(ck[0].max())}, energy "
+            f"evaluations mean {evs / n:.2f} max {int(ck[1].max())}")
+        times["admm_local_step2d"] = (
+            lambda: ops.admm_local_step2d(*l_args),
+            lambda: admm2d.admm_local_step2d_ref(*l_args), None)
+        costs["admm_local_step2d"] = (
+            20 * n * sz, K29_FLOPS["svd"] * n + K29_FLOPS["newton"] * its
+            + K29_FLOPS["energy"] * evs)
+        del zk, zr, duk, dur
+
+        M4 = t(rng.normal(size=(4, n)))
+        base = t(np.concatenate([rng.normal(size=(nv, 2)),
+                                 np.zeros((nv, 1))], axis=1))
+        off = t(np.concatenate([rng.normal(size=(nv, 2)),
+                                np.zeros((nv, 1))], axis=1))
+        free_v = torch.logical_not(fixed).to(dtype)
+        s_args = (M4, pdsys.g4, pst.w_e, pdsys.scatter_plan, x)
+        ak = ops.dtw_scatter2d(*s_args, mass=pdsys.mass)
+        ar = admm2d.dtw_scatter2d_ref(*s_args, mass=pdsys.mass)
+        rk = ops.dtw_scatter2d(*s_args, base=base, offset=off, free=free_v)
+        rr = admm2d.dtw_scatter2d_ref(*s_args, base=base, offset=off,
+                                      free=free_v)
+        res["dtw_scatter2d"] = [
+            ("A x", _rel_max(ak, ar), tols["elem"],
+             float((ak - ar).abs().max())),
+            ("rhs", _rel_max(rk, rr), tols["elem"],
+             float((rk - rr).abs().max())),
+            ("|z|", float(ak[:, 2].abs().max()) + float(rk[:, 2].abs().max()),
+             0.0, None)]
+        corner = torch.randn(6 * n, dtype=dtype, device="cuda")
+        acc30 = torch.zeros(2 * nv, dtype=dtype, device="cuda")
+        gdest = pdsys.scatter_plan.gdest
+        times["dtw_scatter2d"] = (
+            lambda: ops.dtw_scatter2d(*s_args, base=base, offset=off,
+                                      free=free_v),
+            lambda: admm2d.dtw_scatter2d_ref(*s_args, base=base, offset=off,
+                                             free=free_v),
+            lambda: acc30.index_add_(0, gdest, corner))
+        costs["dtw_scatter2d"] = ((9 * n + 13 * nv) * sz
+                                  + 8 * (3 * n + nv + 1), 14 * 3 * n)
+        del pdsys, pst
+
+        # ---- the ADMM-DD entries on its 4-part tables
+        sysm = dim2.System2D(mesh, cfg, dtype=dtype, device="cuda", plan=plan)
+        dd = dim2.ADMMDD2D(sysm, sd)
+        P, N, n2p = dd.P, dd.N, dd.n2p
+        nl = P * dd.epad
+        valid = sysm.local_valid[..., None]
+        free = dd._free(fixed)
+        xl_flat = dd._to_flat(x[sysm.l2g][:, :, :2] * valid)
+        F0 = dd._local_defgrad(xl_flat)
+        Fp = dd._local_defgrad(dd._to_flat(
+            t(0.01 * h * rng.normal(size=(P, N, 2))) * valid))
+        alpha = t([1.0, 0.5, 0.25, 0.125][:P] + [1.0] * max(P - 4, 0))
+        e_args = (F0, Fp, alpha, dd.lu, dd.llam, dd.lw, sysm.mat, P)
+        ek = ops.ls_trial_energy2d_parts(*e_args)
+        er = admm2d.ls_trial_energy2d_parts_ref(*e_args)
+        e0k = ops.ls_trial_energy2d_parts(F0, None, None, *e_args[3:])
+        e0r = admm2d.ls_trial_energy2d_parts_ref(F0, None, None, *e_args[3:])
+        res["ls_trial_energy2d_parts"] = [
+            ("per slab", float(((ek - er).abs() / er.abs()).max()),
+             tol["elem"], float((ek - er).abs().max())),
+            ("per slab, no direction",
+             float(((e0k - e0r).abs() / e0r.abs()).max()), tol["elem"],
+             None)]
+        times["ls_trial_energy2d_parts"] = (
+            lambda: ops.ls_trial_energy2d_parts(*e_args),
+            lambda: admm2d.ls_trial_energy2d_parts_ref(*e_args), None)
+        costs["ls_trial_energy2d_parts"] = (
+            (11 * nl + 2 * P) * sz, ELEM2D_FLOPS["ls_trial_energy2d"] * nl)
+
+        g_args = (F0, dd.conn_local, dd.lg4, dd.lu, dd.llam, dd.lw, sysm.mat,
+                  dd.rows)
+        gk = ops.elem_gradient2d_from_F(*g_args)
+        gr = admm2d.elem_gradient2d_from_F_ref(*g_args)
+        res["elem_gradient2d_from_F"] = [
+            ("grad", _rel_norm(gk, gr), tol["grad"],
+             float((gk - gr).abs().max()))]
+        forces = torch.randn((3 * nl, 2), dtype=dtype, device="cuda")
+        lidx = dd.conn_local.t().reshape(-1).long()
+        accg = torch.zeros((P * N + 1, 2), dtype=dtype, device="cuda")
+        times["elem_gradient2d_from_F"] = (
+            lambda: ops.elem_gradient2d_from_F(*g_args),
+            lambda: admm2d.elem_gradient2d_from_F_ref(*g_args),
+            lambda: accg.index_add_(0, lidx, forces))
+        costs["elem_gradient2d_from_F"] = (
+            (15 * nl + 2 * P * N) * sz + 8 * (3 * nl + P * N + 1),
+            ELEM2D_FLOPS["elem_gradient2d"] * nl)
+
+        eh = soa2d.elem_hessian2d_ref(x, sysm.conn, sysm.g4, sysm.u_e,
+                                      sysm.lam_e, sysm.vol_w, sysm.mat,
+                                      sysm.dt_sq)
+        sfree = torch.cat([torch.logical_not(fixed[dd.shared_ids]).to(dtype),
+                           torch.zeros(1, dtype=dtype, device="cuda")])
+        w_args = (eh, free, sfree, dd.md_sh, dd.w_tab, dd.c_tab)
+        Wk, Ck, dck = ops.w_assemble2d(*w_args)
+        Wr, Cr, dcr = admm2d.w_assemble2d_ref(*w_args)
+        res["w_assemble2d"] = [
+            ("Wm", _rel_max(Wk, Wr), tols["elem"],
+             float((Wk - Wr).abs().max())),
+            ("C", _rel_max(Ck, Cr), tols["elem"], None),
+            ("dc", _rel_max(dck, dcr), tols["elem"], None),
+            ("|W - W^T| + |C - C^T|", float((Wk - Wk.mT).abs().max())
+             + float((Ck - Ck.mT).abs().max()), 0.0, None)]
+        wt, ct = dd.w_tab, dd.c_tab
+        wvals = eh.reshape(-1)[wt.src]
+        times["w_assemble2d"] = (
+            lambda: ops.w_assemble2d(*w_args),
+            lambda: admm2d.w_assemble2d_ref(*w_args),
+            lambda: torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
+            .index_add_(0, wt.dest, wvals))
+        w_item, w_slot = wt.items.shape[0], wt.udest.shape[0]
+        c_slot, nc = ct.udest.shape[0], ct.n
+        costs["w_assemble2d"] = (
+            (36 * n + P * N + P * n2p * n2p + 3 * nc + nc * nc + nc) * sz
+            + 8 * (2 * w_item + 2 * w_slot + 2 * c_slot + 2),
+            2 * w_item + 4 * (w_slot + c_slot))
+        del Ck, Cr, Wr
+
+        ehl = soa2d.elem_hessian2d_ref(xl_flat, dd.conn_local, dd.lg4, dd.lu,
+                                       dd.llam, dd.lw, sysm.mat, sysm.dt_sq)
+        mass = dd.mass_local + dd.mass_dif * free
+        o = dd.own_tab
+        # the kernel's W, as on the path: its slot sums are ordered, so it
+        # is symmetric bit for bit (the plain one's atomic index_add_ on
+        # the card need not be in f32)
+        h_args = (ehl, Wk, free, mass, o)
+        Hk, dk = ops.local_h_assemble2d(*h_args)
+        Hr, dr = admm2d.local_h_assemble2d_ref(*h_args)
+        Sk = ops.subdomain_scale2d(Hk.clone(), dk, o)
+        Sr = dd2d.subdomain_scale2d_ref(Hr, dr, o)
+        res["local_h_assemble2d"] = [
+            ("H", _rel_max(Hk, Hr), tols["elem"],
+             float((Hk - Hr).abs().max())),
+            ("d", _rel_max(dk, dr), tols["elem"], None),
+            ("|H - H^T|", float((Hk - Hk.mT).abs().max()), 0.0, None),
+            ("K26's scaling over the union slots", _rel_max(Sk, Sr),
+             tols["elem"], None)]
+        del Sk, Sr, Hr
+        torch.cuda.empty_cache()
+        hvals = ehl.reshape(-1)[o.src]
+        times["local_h_assemble2d"] = (
+            lambda: ops.local_h_assemble2d(*h_args),
+            lambda: admm2d.local_h_assemble2d_ref(*h_args),
+            lambda: torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
+            .index_add_(0, o.dest, hvals))
+        o_item, o_slot = o.items.shape[0], o.udest.shape[0]
+        costs["local_h_assemble2d"] = (
+            (36 * nl + 2 * P * N + o_slot + P * n2p * n2p + P * n2p) * sz
+            + 8 * (o_item + 2 * o_slot + 1), o_item + 6 * o_slot)
+        torch.cuda.synchronize()
+        for kname, checks in res.items():
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record,
+                    plain_reps=2 if kname == "admm_local_step2d" else 5)
+        say(f"kernels: {name} 2D ADMM shapes: K29 / K30 on {n} triangles and "
+            f"{nv} vertices; ADMM-DD P {P}, n2p {n2p}, slabs {P} x "
+            f"{dd.epad}, {dd.n_shared} shared vertices (C {nc}^2); W "
+            f"{w_item} entries in {w_slot} slots; local Hessian {o_item} "
+            f"entries in {o_slot} slots (own and W)")
+        del sysm, dd, eh, ehl, Wk, Hk, times, wvals, hvals
+        torch.cuda.empty_cache()
+    if bad:
+        raise Fail("kernel disagrees with its plain version: "
+                   + "; ".join(bad))
+
+
+def _admm2d_launch_problems(tag, launches, fr):
+    """The launches each run of the dim2admm path must show: ADMM-PD K29
+    once an iteration and K30 once an iteration and once a frame (the
+    Dirichlet offsets); ADMM-DD w_assemble2d once a frame, the local
+    Hessian once a frame and every 20th iteration, K22 from F once an
+    iteration and once a frame (initDual), K21 per slab at least twice an
+    iteration (e0 and the first trial)."""
+    iters = sum(r["iters"] for r in fr)
+    nf = len(fr)
+    got = {k: launches[k] for k in ADMM2D_KERNELS}
+    want = dict.fromkeys(ADMM2D_KERNELS, 0)
+    if tag == "ADMM":
+        want.update(admm_local_step2d=iters, dtw_scatter2d=iters + nf)
+    else:
+        want.update(
+            w_assemble2d=nf, elem_gradient2d_from_F=iters + nf,
+            local_h_assemble2d=sum(1 + (max(r["iters"], 1) - 1) // 20
+                                   for r in fr),
+            ls_trial_energy2d_parts=got["ls_trial_energy2d_parts"])
+        if got["ls_trial_energy2d_parts"] < 2 * iters:
+            return [f"{tag}: K21 per slab {got['ls_trial_energy2d_parts']} "
+                    f"< 2 x {iters} iterations"]
+    return [] if got == want else [f"{tag}: launches {got}, want {want}"]
+
+
+def _admm2d_split(sim, tag):
+    """ms/frame of the parts of one more frame of a 2D ADMM run, each call
+    wrapped in synchronised host timers (nested spans are counted in their
+    parents too): ADMM-PD's K29, K30, the PD solve, K22 and K21; ADMM-DD's
+    weights (K23, K26's W / C entry, the consensus Cholesky), initDual,
+    the local Hessian (K23, K26's entry and scaling, the batched
+    Cholesky), the local solves, the local gradient (K22 from F + a W
+    mat-vec), the W mat-vecs (bmm), the per-slab trials (K21), every
+    library triangular solve and Cholesky, the global K22 and K21."""
+    import collections
+    import torch
+    from dot_tpu_torch.profiling import wrap_timed
+    acc = collections.Counter()
+    sysm, st = sim.system, sim.stepper
+    if tag == "ADMM":
+        own = ("_local_step", "_scatter")
+        names = ("pd_solve", "gradient", "elastic_energy")
+    else:
+        own = ("weights", "init_dual", "local_h_factor", "_solve",
+               "local_gradient", "_w_matvec", "slab_psi")
+        names = ("gradient", "elastic_energy")
+    for name in own:
+        wrap_timed(st, name, acc)
+    for name in names:
+        wrap_timed(sysm, name, acc)
+    lib = {k: wrap_timed(None, k, acc, module=torch.linalg)
+           for k in ("cholesky_ex", "solve_triangular")}
+    n0 = len(sim.frames)
+    try:
+        sim.run(1)
+    finally:
+        for k, fn in lib.items():
+            setattr(torch.linalg, k, fn)
+        for name in own:
+            delattr(st, name)
+        for name in names:
+            delattr(sysm, name)
+    r = sim.frames[n0]
+    ms = {k: v * 1e3 for k, v in acc.items()}
+    return r, ms
+
+
+def phase_dim2admm(torch, launches_out, newton=None):
+    """The 2D ADMM family through Sim2D: the spikes golden under ADMM and
+    ADMMDD 4 (f64, kernels on), then the full-size scene under both in f32,
+    each against its plain path's first frame and against 2D Newton's
+    frames (`newton`: the dim2 phase's (sysE, dtype), else run here)."""
+    from dot_tpu_torch.kernels import ops
+    tmp = tempfile.mkdtemp(prefix="dot_dim2admm_")
+    try:
+        out_root = os.path.join(tmp, "out")
+        problems = []
+        # ---- goldens at resolution 200, f64, kernels on
+        for tag, (stepper, _) in DIM2ADMM_RUNS.items():
+            ops.reset_launches()
+            gold = _sim2d(torch, _spikes_scene(tmp, 200, f"gold{tag}",
+                                               stepper),
+                          out_root, torch.float64)
+            gold.run(len(GOLDEN_2D_SPIKES_SYS_E))
+            g_launch = {k: ops.launches[k] for k in ADMM2D_KERNELS
+                        if ops.launches[k]}
+            gold.finalize()
+            vals = np.asarray([r["sys_e"] for r in gold.frames])
+            rel = np.abs(vals / np.asarray(GOLDEN_2D_SPIKES_SYS_E) - 1.0)
+            z_max = float(gold.state.x[:, 2].abs().max())
+            say(f"dim2admm: golden spikes 200 {tag} f64, kernels on: sysE "
+                f"{['%.10e' % v for v in vals]}, max rel {rel.max():.3e} "
+                f"(tol 2e-4); iters {[r['iters'] for r in gold.frames]}, "
+                f"stops {[r['stop'] for r in gold.frames]}; max |z| "
+                f"{z_max:g}; launches {g_launch}")
+            problems += _admm2d_launch_problems(tag, ops.launches,
+                                                gold.frames)
+            if not rel.max() <= 2e-4:
+                problems.append(f"golden {tag} sysE off by {rel.max():.3e}")
+            if z_max != 0.0:
+                problems.append(f"golden {tag} z moved: {z_max:g}")
+            del gold
+        if problems:
+            raise Fail("dim2admm path: " + "; ".join(problems))
+
+        # ---- 2D Newton's full-size frames: the yardstick
+        n_max = 1 + max(v[1] for v in DIM2ADMM_RUNS.values())
+        if newton is not None and len(newton[0]) >= n_max:
+            e_newton = newton[0]
+            say(f"dim2admm: Newton yardstick from the dim2 phase "
+                f"({str(newton[1]).split('.')[-1]})")
+        else:
+            newton = _sim2d(torch, _spikes_scene(tmp, SPIKES_FULL, "newton"),
+                            out_root, torch.float32, save_every=10 ** 9)
+            newton.run(n_max)
+            newton.finalize()
+            e_newton = np.asarray([r["sys_e"] for r in newton.frames])
+            del newton
+            torch.cuda.empty_cache()
+            say("dim2admm: Newton f32 yardstick: sysE "
+                + " ".join("%.10e" % v for v in e_newton))
+
+        total = dict.fromkeys(ops.KERNELS, 0)
+        for tag, (stepper, frames) in DIM2ADMM_RUNS.items():
+            scene = _spikes_scene(tmp, SPIKES_FULL, tag, stepper)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            sim = _sim2d(torch, scene, out_root, torch.float32,
+                         suffix=tag, save_every=10 ** 9)
+            t1 = time.perf_counter()
+            sim.run(1 + frames)
+            launches = dict(ops.launches)
+            peak = torch.cuda.max_memory_allocated()
+            for k, v in launches.items():
+                total[k] += v
+            fr, st = list(sim.frames), sim.stepper
+            cap = st.max_iter if tag == "ADMM" else 1000
+            timed = fr[1:]
+            iters = sum(r["iters"] for r in fr)
+            say(f"dim2admm: {tag} float32: {type(st).__name__}, "
+                + (f"P {st.P}, n2p {st.n2p}, {st.n_shared} shared vertices; "
+                   if tag != "ADMM" else "")
+                + f"iteration cap {cap}; Sim2D {t1 - t0:.2f} s; s/frame "
+                f"{np.mean([r['seconds'] for r in timed]):.5f} ({frames} "
+                f"timed frames after 1 warm-up of {fr[0]['seconds']:.3f} s); "
+                f"iters/frame {np.mean([r['iters'] for r in timed]):.2f}; "
+                f"syncs/frame {np.mean([r['syncs'] for r in timed]):.2f}; "
+                f"ms/iteration "
+                f"{1e3 * sum(r['seconds'] for r in fr) / max(iters, 1):.3f};"
+                f" peak {peak / 2**20:.1f} MiB")
+            say(f"dim2admm: {tag}: per frame (iters, syncs, stop, s): "
+                + "; ".join(f"{r['iters']},{r['syncs']},{r['stop']},"
+                            f"{r['seconds']:.3f}" for r in fr))
+            n_fr = len(fr)
+            say(f"dim2admm: {tag}: launches per frame "
+                + ", ".join(f"{k} {launches[k] / n_fr:.2f}"
+                            for k in ADMM2D_KERNELS if launches[k])
+                + f"; all { {k: v for k, v in launches.items() if v} }")
+            problems = _admm2d_launch_problems(tag, launches, fr)
+            for r in fr:
+                if not np.isfinite(r["sys_e"]):
+                    problems.append(f"{tag} frame {r['frame']} sysE not "
+                                    "finite")
+                if r["stop"] not in ("tol", "iter_cap") or (
+                        r["stop"] == "iter_cap" and r["iters"] != cap):
+                    problems.append(f"{tag} frame {r['frame']} stopped by "
+                                    f"{r['stop']} after {r['iters']}")
+            z_max = float(sim.state.x[:, 2].abs().max())
+            if z_max != 0.0:
+                problems.append(f"{tag}: z moved: {z_max:g}")
+            r_s, ms = _admm2d_split(sim, tag)
+            say(f"dim2admm: {tag} synchronised split over 1 more frame "
+                f"({r_s['iters']} iterations, {r_s['stop']}), ms/frame: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in sorted(
+                    ms.items(), key=lambda kv: -kv[1]))
+                + f"; per iteration: "
+                + ", ".join(f"{k} {v / max(r_s['iters'], 1):.3f}"
+                            for k, v in sorted(ms.items(),
+                                               key=lambda kv: -kv[1])[:4]))
+            sim.finalize()
+            a = np.asarray([r["sys_e"] for r in fr])
+            by_tol = all(r["stop"] == "tol" for r in fr)
+            rel_n = np.abs(a / e_newton[:len(a)] - 1.0).max()
+            del sim, st
+            torch.cuda.empty_cache()
+
+            # the first frame with the plain versions on the card
+            t0 = time.perf_counter()
+            ref = _sim2d(torch, scene, out_root, torch.float32,
+                         suffix=f"{tag}_plain", use_kernels=False,
+                         save_every=10 ** 9)
+            ref.run(1)
+            ref.finalize()
+            b = ref.frames[0]
+            rel = abs(a[0] / b["sys_e"] - 1.0)
+            say(f"dim2admm: {tag}: sysE " + " ".join("%.10e" % v for v in a)
+                + f"; vs plain path (frame 0) rel {rel:.3e} (tol 1e-3; plain "
+                f"iters {b['iters']}, stop {b['stop']}, "
+                f"{time.perf_counter() - t0:.2f} s with its set-up); vs "
+                f"Newton max rel {rel_n:.3e} ("
+                + ("tol 1e-3" if by_tol else "not gated: a frame hit its cap")
+                + ")")
+            if not rel <= 1e-3:
+                problems.append(f"{tag}: kernel and plain paths disagree: "
+                                f"{rel:.3e}")
+            if by_tol and not rel_n <= 1e-3:
+                problems.append(f"{tag}: sysE off Newton's by {rel_n:.3e}")
+            del ref
+            torch.cuda.empty_cache()
+            if problems:
+                raise Fail("dim2admm path: " + "; ".join(problems))
+        launches_out["dim2admm"] = total
+        missing = [k for k in ADMM2D_KERNELS if total[k] <= 0]
+        if missing:
+            raise Fail(f"dim2admm path: kernels never launched: {missing}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3022,6 +3548,7 @@ def main(argv=None):
 
     record = {}
     launches = {}
+    newton2d = None
     try:
         if "probe" in phases:
             phase_probe(torch)
@@ -3035,6 +3562,7 @@ def main(argv=None):
         if "kernels" in phases or "kernels2d" in phases:
             phase_dim2_kernels(torch, record)
             phase_dd2d_kernels(torch, record)
+            phase_admm2d_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)
         if "main" in phases:
@@ -3046,9 +3574,11 @@ def main(argv=None):
         if "scale" in phases:
             phase_scale(torch, record, launches)
         if "dim2" in phases:
-            phase_dim2(torch, launches)
+            newton2d = phase_dim2(torch, launches)
         if "dim2dd" in phases:
             phase_dim2dd(torch, launches)
+        if "dim2admm" in phases:
+            phase_dim2admm(torch, launches, newton2d)
     except Exception as exc:  # report the phase's failure and exit non-zero
         import traceback
         traceback.print_exc()

@@ -3,10 +3,10 @@
 Modes 0/10/100 simulate the scene script headless (mode 0's interactive
 viewer is not ported). A scene whose `shape` is a 2D primitive (grid,
 square, rectangle, cylinder, spikes, Sharkey) runs the 2D pipeline
-(dim2.run_script_2d): Newton, DOT, GSDD and LBFGS-PD / H / HI / JH;
-ADMM and ADMMDD at dim 2 raise until ROADMAP.md queue 1 item 1c. Every other scene
-runs the 3D pipeline with all nine steppers. Modes 1 and 2 of dot_tpu
-(diagnostics, mesh processing) are queue 1 of ROADMAP.md.
+(dim2.run_script_2d): Newton, DOT, GSDD, LBFGS-PD / H / HI / JH, ADMM-PD
+and ADMM-DD. Every other scene runs the 3D pipeline with all nine
+steppers. Modes 1 and 2 of dot_tpu (diagnostics, mesh processing) are
+queue 1 of ROADMAP.md.
 
 Flags: --frames N, --dtype {f32,f64}, --save-every K, --output-root DIR,
 --device {cuda,cpu} (default: cuda; without a GPU the run stops with an

@@ -22,14 +22,23 @@ contract.
 - `Newton2DStepper` is steppers/newton.py's host loop with that factor:
   one dense factorization per inner iteration (dim2.py:835-966). DOT,
   GSDD and the LBFGS steppers are the 3D ones (steppers/), unchanged.
+- `ADMMPD2D` (dim2.py:780-832) is steppers/admm.py's host loop with the
+  2D local step (K29) and the 2D D^T W scatter (K30) over LBFGS-PD's dense
+  (nV)^2 factor with the Overby weights. `ADMMDD2D` (dim2.py:969-1459) is
+  its own host loop over batched dense subdomain matrices: W and the
+  consensus matrix (K26's w_assemble2d), the augmented local Hessian
+  (K23 on the local positions, K26's local_h_assemble2d and its scaling),
+  the per-slab line search (K21 per slab) and the local gradient from the
+  carried local F (K22 from F); its Cholesky factorizations, triangular
+  solves, W mat-vecs (bmm) and initDual's diagonal glue are library calls
+  and plain torch, as they are library calls or plain jnp in dot_tpu.
 - `Sim2D` / `run_script_2d` write `<n>.obj` (all vertices, the triangles),
   `status<n>`, `iterStats.txt`, `log.txt`, `info.txt` (the five counts) and
   `config.txt`; no `.msh`. The PNG / GIF render of dot_tpu's
   Sim2D.finalize is not ported.
 
-Not ported yet (ROADMAP.md queue 1, item 1c): ADMM and ADMMDD at dim 2,
-and restart: they raise NotImplementedError. warmStart 5 is refused at
-dim 2, as in dot_tpu.
+Not ported yet: restart at dim 2 (it raises NotImplementedError).
+warmStart 5 is refused at dim 2, as in dot_tpu.
 """
 
 from __future__ import annotations
@@ -43,12 +52,15 @@ import torch
 from . import io as meshio
 from . import mesh_gen, scripts
 from .config import Config
-from .kernels import dd2d, ops, soa2d
+from .kernels import admm2d, dd2d, ops, soa2d
 from .partition import partition_amt_from_config
 from .plan2d import build_node_plan_2d, build_plan_2d
 from .sim import STEPPERS, Simulator, _unsupported, pick_dtype, resolve_device
-from .steppers.core import GRAVITY_Y, LBFGS_HISTORY, SimState, SystemBase
+from .steppers.admm import ADMMPDStepper
+from .steppers.core import (GRAVITY_Y, LBFGS_HISTORY, LINE_SEARCH_CAP,
+                            SimState, SystemBase)
 from .steppers.newton import NewtonStepper
+from .steppers.quasi_newton import _vdot, finish_step, push_row
 
 _GEN_2D = {
     "grid": mesh_gen.grid_2d,
@@ -313,20 +325,28 @@ class System2D(SystemBase):
             raise NotImplementedError(f"warmStart {option} (2D)")
         return super().warm_start(option, x, v, dx_elastic, fixed)
 
-    def init_state(self, script_data):
-        """Newton's Sim2DState without a plan; with one, the quasi-Newton
-        SimState with the first H0 (dot_tpu/dim2.py:671-688)."""
+    def sim2d_state(self, script_data):
+        """The Sim2DState of a run's start (Newton, ADMM-DD)."""
         dtype, dev = self.dtype, self.device
         x = torch.as_tensor(script_data.x0, dtype=dtype, device=dev)
         fixed = torch.as_tensor(script_data.fixed0, device=dev)
         v = torch.zeros((self.n_vert, 3), dtype=dtype, device=dev)
-        common = dict(x=x, x_n=x.clone(), v=v,
-                      x_tilta=self.compute_x_tilta(x, v, fixed),
-                      dx_elastic=torch.zeros_like(x), fixed=fixed,
-                      vel_sign=self.scalar(1.0),
-                      released=torch.zeros((), dtype=torch.bool, device=dev))
+        return Sim2DState(
+            x=x, x_n=x.clone(), v=v,
+            x_tilta=self.compute_x_tilta(x, v, fixed),
+            dx_elastic=torch.zeros_like(x), fixed=fixed,
+            vel_sign=self.scalar(1.0),
+            released=torch.zeros((), dtype=torch.bool, device=dev))
+
+    def init_state(self, script_data):
+        """Newton's Sim2DState without a plan; with one, the quasi-Newton
+        SimState with the first H0 (dot_tpu/dim2.py:671-688)."""
+        st = self.sim2d_state(script_data)
         if self.plan is None:
-            return Sim2DState(**common)
+            return st
+        dtype, dev = self.dtype, self.device
+        common = dict(vars(st))
+        x, fixed = st.x, st.fixed
         elem_h, L, d, kc = self.rebuild_h0(x, fixed)
         m = LBFGS_HISTORY
         return SimState(
@@ -471,12 +491,358 @@ class Newton2DStepper(NewtonStepper):
         return sys.solve(L, d, g)
 
 
+class ADMMPD2D(ADMMPDStepper):
+    """ADMM-PD at dim 2 (dot_tpu/dim2.py:780-832): the reference's
+    dimension-templated ADMMTimeStepper (ADMMTimeStepper.cpp:736) at DIM =
+    2, steppers/admm.py's host loop with 3-corner triangles, the 2-dof
+    sigma-space local Newton (K29), the 2D D^T W scatter (K30) and
+    System2D's dense (nV)^2 factor of M + D^T W D with the Overby weights
+    dt^2 area bulkModulus (K28; bulkModulus is the 3D formula lambda +
+    2 mu / 3, as dot_tpu computes it at dim 2)."""
+
+    def _local_step(self, f4, u4):
+        """(z, du), each (4, nE), from Dx and the dual u (K29)."""
+        sys = self.system
+        return sys.k.admm_local_step2d(f4, u4, self.w_e, self.vol_dtsq,
+                                       sys.u_e, sys.lam_e, sys.mat)
+
+    def _scatter(self, M4, x, **epilogue):
+        sys = self.system
+        return sys.k.dtw_scatter2d(M4, sys.g4, self.w_e, sys.scatter_plan, x,
+                                   **epilogue)
+
+
+ADMM_DD_ITER_CAP = 1000    # ADMMDDTimeStepper.cpp:632
+ADMM_DD_H_REFRESH = 20     # ADMMDDTimeStepper.cpp:637
+ADMM_DD_RELAX = 1.8        # boundaryConsensusSolve over-relaxation
+
+
+class ADMMDD2D:
+    """ADMM-DD at dim 2 (dot_tpu/dim2.py:969-1459): overlapping-subdomain
+    consensus ADMM with batched dense (P, n2p, n2p) subdomain matrices
+    (reference: ADMMDDTimeStepper.cpp:595-701 fullyImplicit,
+    initWeights_fast :894-1033, subdomainSolve :1107-1232,
+    boundaryConsensusSolve :1254-1344, at DIM = 2). The weights are
+    refreshed once a time step from the incoming positions.
+
+    dot_tpu's lax.while_loops are host loops: one read of ||g||^2 an
+    iteration and one of any(E_trial > E_0) a line-search trial. The local
+    positions stay (P N + 1, 3) with z = 0 and a zero dump row, so K23 and
+    defgrad2d read them as global positions; the local factor is refreshed
+    from them every 20 iterations (dot_tpu: from the carried local F, the
+    same values up to rounding)."""
+
+    name = "ADMMDD"
+
+    def __init__(self, system, script_data, warm_start_opt=2):
+        sys_ = self.system = system
+        self.script_data = script_data
+        self.warm_start_opt = warm_start_opt
+        self._anim = scripts.make_step_fn(script_data, system.dt)
+        mesh, plan = sys_.mesh, sys_.plan
+        P, N, n2p = plan.n_parts, plan.n_local_max, plan.n2
+        self.P, self.N, self.n2p = P, N, n2p
+        dev, dt = sys_.device, sys_.dtype
+        self.tables = tb = admm2d.admm_dd2d_tables(mesh, plan)
+        self.epad = tb.epad
+
+        def t(a, dtype=dt):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=dev)
+        # the (P epad) slab triangles' statics; padding slots have area 0
+        # and corners at the dump row P N
+        es, ev = tb.elem_src, tb.elem_valid
+        g = np.asarray(mesh.rest_tri_inv)[es] * ev[:, None, None]
+        self.lg4 = t(g.reshape(-1, 4).T)
+        self.lw = t(np.asarray(mesh.area)[es] * ev)
+        self.lu = t(np.asarray(mesh.u)[es])
+        self.llam = t(np.asarray(mesh.lam)[es])
+        self.conn_local = t(tb.conn_local.T, torch.int32)
+        self.rows = admm2d.row_incidences(tb.conn_local, P * N, dev)
+        self.mass_local = t(tb.mass_local)
+        self.mass_dif = t(tb.mass_dif)
+        self.is_dual = t(tb.is_dual, torch.bool)
+        self.owner_flat = t(tb.owner_flat, torch.int64)
+        self.shared_ids = t(tb.shared_ids, torch.int64)
+        self.n_shared, self.ns2 = tb.n_shared, tb.ns2
+        self.l2shared = t(tb.l2shared, torch.int64)
+        is_sh = np.zeros(mesh.n_vert, bool)
+        is_sh[tb.shared_ids] = True
+        self.is_shared = t(is_sh, torch.bool)
+        # the mass difference summed per shared vertex (static: a CPU sum
+        # in dot_tpu's order, once)
+        md_sh = torch.zeros(self.n_shared + 1, dtype=dt).index_add_(
+            0, torch.as_tensor(tb.l2shared.reshape(-1)),
+            torch.as_tensor(tb.mass_dif.reshape(-1), dtype=dt))
+        self.md_sh = md_sh.to(dev)
+        # K26's slot runs: W and C from the completion tuples, the own
+        # triangles' blocks over slots that also cover W's (K26's scaling
+        # then reaches every nonzero of the augmented local Hessian)
+        w_src = admm2d.row_major_src(tb.comp_gather, mesh.n_elem)
+        self.w_tab = dd2d.slot_tables(w_src, tb.w_dest, P, N, 2, dev)
+        self.c_tab = dd2d.slot_tables(w_src, tb.c_dest, 1, self.n_shared + 1,
+                                      2, dev)
+        keep = tb.own_dest < P * n2p * n2p
+        own_src = admm2d.row_major_src(tb.own_src, P * tb.epad)[keep]
+        self.own_tab = dd2d.slot_tables(own_src, tb.own_dest[keep], P, N, 2,
+                                        dev, slots=tb.w_dest)
+
+    # ------------------------------------------------------------------
+    def _free(self, fixed):
+        """(P, N) free mask per local vertex (valid and not fixed)."""
+        sys = self.system
+        return torch.logical_and(sys.local_valid, torch.logical_not(
+            fixed[sys.l2g])).to(sys.dtype)
+
+    def weights(self, x, fixed):
+        """(Wm, Lc, dc): the masked dense W (P, n2p, n2p) and the factor of
+        the Jacobi-equilibrated consensus matrix at x (initWeights_fast and
+        boundaryConsensusSolve's matrix; K23, K26's w_assemble2d, K26's
+        scaling, the library Cholesky)."""
+        sys = self.system
+        sfree = torch.cat([torch.logical_not(fixed[self.shared_ids]).to(
+            sys.dtype), torch.zeros(1, dtype=sys.dtype, device=sys.device)])
+        Wm, C, dc = sys.k.w_assemble2d(sys.element_hessians(x),
+                                       self._free(fixed), sfree, self.md_sh,
+                                       self.w_tab, self.c_tab)
+        Cn = sys.k.subdomain_scale2d(C[None], dc[None], self.c_tab)
+        Lc, _ = sys._cholesky_nan(Cn)
+        return Wm, Lc[0], dc
+
+    def _w_matvec(self, Wm, md2f, a):
+        """W a + the masked mass-difference diagonal, (P, n2p)."""
+        return torch.bmm(Wm, a[..., None])[..., 0] + md2f * a
+
+    def _to_flat(self, xl):
+        """(P, N, 2) -> the flat (P N + 1, 3) local rows, z = 0, a zero
+        dump row."""
+        sys = self.system
+        flat = torch.zeros((self.P * self.N + 1, 3), dtype=sys.dtype,
+                           device=sys.device)
+        flat[:-1, :2] = xl.reshape(-1, 2)
+        return flat
+
+    def _rows2(self, flat):
+        return flat[:-1, :2].reshape(self.P, self.N, 2)
+
+    def _local_defgrad(self, flat):
+        return self.system.k.defgrad2d(flat, self.conn_local, self.lg4)
+
+    def slab_psi(self, f4, fp4=None, alpha=None):
+        """(P,) dt^2 sum area Psi per subdomain slab at f4 + alpha_p fp4
+        (K21 per slab)."""
+        sys = self.system
+        e = sys.k.ls_trial_energy2d_parts(f4, fp4, alpha, self.lu, self.llam,
+                                          self.lw, sys.mat, self.P)
+        return e * sys.scalar(sys.dt_sq)
+
+    def aug_vec(self, xl_flat, z, u_loc):
+        zg = z[self.system.l2g][:, :, :2]
+        return (self._rows2(xl_flat) - zg + u_loc).reshape(self.P, self.n2p)
+
+    def local_gradient(self, xl_flat, xhat_flat, z, u_loc, Wm, free2f, md2f,
+                       f4):
+        """(P, N, 2) gradient of the augmented local energies; the element
+        part from the carried local F (K22 from F)."""
+        sys = self.system
+        P, N = self.P, self.N
+        acc = sys.k.elem_gradient2d_from_F(f4, self.conn_local, self.lg4,
+                                           self.lu, self.llam, self.lw,
+                                           sys.mat, self.rows)
+        g = acc.reshape(P, N, 2) * sys.scalar(sys.dt_sq)
+        g = g + self.mass_local[..., None] * (self._rows2(xl_flat)
+                                              - self._rows2(xhat_flat))
+        aug = self.aug_vec(xl_flat, z, u_loc)
+        g = g + self._w_matvec(Wm, md2f, aug).reshape(P, N, 2)
+        return g * free2f.reshape(P, N, 2)
+
+    def local_h_factor(self, xl_flat, Wm, free):
+        """(L, d): the factor of the Jacobi-equilibrated augmented local
+        Hessian: own triangles' elasticity at the local positions + local
+        mass + W, identity at fixed and padding rows
+        (computeHessianProxy_subdomain; K23, K26's local_h_assemble2d and
+        its scaling over the union of own and W slots, the batched library
+        Cholesky with NaN where it fails)."""
+        sys = self.system
+        eh = sys.k.elem_hessian2d(xl_flat, self.conn_local, self.lg4,
+                                  self.lu, self.llam, self.lw, sys.mat,
+                                  sys.dt_sq)
+        mass = self.mass_local + self.mass_dif * free
+        H, d = sys.k.local_h_assemble2d(eh, Wm, free, mass, self.own_tab)
+        L, _ = sys._cholesky_nan(sys.k.subdomain_scale2d(H, d, self.own_tab))
+        return L, d
+
+    def _solve(self, L, d, r):
+        """(L L^T)^-1 applied to r / d, then / d: two batched library
+        triangular solves. r (P, n2p)."""
+        y = torch.linalg.solve_triangular(L, (r / d)[..., None], upper=False)
+        zz = torch.linalg.solve_triangular(L.mT, y, upper=True)
+        return zz[..., 0] / d
+
+    def init_dual(self, g, g_loc, Wm, free2f, md2f):
+        """u = W^-1 (g_global - g_local) on the interface dofs: the dense
+        batched solve of W + I off the dual dofs (ADMMDDTimeStepper.cpp:
+        736-796); the library Cholesky of the equilibrated, symmetrized
+        matrix, as jnp.linalg.cholesky factors it."""
+        sys = self.system
+        P, N, n2p = self.P, self.N, self.n2p
+        rhs_u = (g[sys.l2g][:, :, :2] * sys.local_valid[..., None]
+                 - g_loc) * self.is_dual[..., None]
+        dual2 = torch.repeat_interleave(self.is_dual.to(sys.dtype), 2,
+                                        dim=-1) * free2f
+        wdg = Wm.diagonal(dim1=1, dim2=2) + md2f
+        fix1 = ((wdg == 0.0) & (dual2 > 0.0)).to(sys.dtype)
+        Ws = Wm.clone()
+        Ws.diagonal(dim1=1, dim2=2).add_(md2f + (1.0 - dual2) + fix1)
+        dw = torch.sqrt(Ws.diagonal(dim1=1, dim2=2))
+        Ws = Ws / dw[:, :, None] / dw[:, None, :]
+        Lw, _ = sys._cholesky_nan((Ws + Ws.mT) / 2)
+        del Ws
+        yw = torch.linalg.solve_triangular(
+            Lw, (rhs_u.reshape(P, n2p) / dw)[..., None], upper=False)
+        zw = torch.linalg.solve_triangular(Lw.mT, yw, upper=True)
+        return ((zw[..., 0] / dw).reshape(P, N, 2)
+                * dual2.reshape(P, N, 2))
+
+    # ------------------------------------------------------------------
+    def init_state(self):
+        return self.system.sim2d_state(self.script_data)
+
+    def step(self, state, rel_tol=1.0e-5):
+        """One full time step. Updates `state` in place and returns
+        (state, (StepStats, sysE))."""
+        sys = self.system
+        P, N, n2p = self.P, self.N, self.n2p
+        syncs0 = sys.n_syncs
+        tol = sys.target_g_res(rel_tol)
+        x0, fixed, vel_sign, released, _bc = self._anim(
+            state.x, state.fixed, state.vel_sign, state.released)
+        state.fixed, state.vel_sign, state.released = fixed, vel_sign, released
+        # weights at the incoming positions (the reference's step-end
+        # refresh sees the same converged state)
+        Wm, Lc, dc = self.weights(x0, fixed)
+        free = self._free(fixed)
+        free2f = torch.repeat_interleave(free, 2, dim=-1)       # (P, n2p)
+        md2f = torch.repeat_interleave(self.mass_dif, 2, dim=-1) * free2f
+        x_tilta = state.x_tilta
+
+        # initPrimal
+        x = sys.warm_start(self.warm_start_opt, x0, state.v,
+                           state.dx_elastic, fixed)
+        xhat_g = torch.where(fixed[:, None], x, x_tilta)
+        valid = sys.local_valid[..., None]
+        xl_flat = self._to_flat(x[sys.l2g][:, :, :2] * valid)
+        xhat_flat = self._to_flat(xhat_g[sys.l2g][:, :, :2] * valid)
+        z = x
+        u_loc = torch.zeros((P, N, 2), dtype=sys.dtype, device=sys.device)
+
+        e = sys.energy(x, x_tilta, sys.defgrad(x))
+        g = sys.gradient(x, x_tilta, fixed)
+        e_h, sqn_h = sys.host(e, _vdot(g, g))
+        rows = [(0.0, e_h, sqn_h)]
+
+        # initDual; the local F at the initial local state seeds the carry
+        f4 = self._local_defgrad(xl_flat)
+        g_loc = self.local_gradient(xl_flat, xhat_flat, z, u_loc, Wm, free2f,
+                                    md2f, f4)
+        u_loc = self.init_dual(g, g_loc, Wm, free2f, md2f)
+        L, d = self.local_h_factor(xl_flat, Wm, free)
+        ml = self.mass_local[..., None]
+        ae_rows = torch.repeat_interleave(
+            torch.arange(P, device=sys.device), N)
+        shared_fixed = fixed[self.shared_ids][:, None]
+
+        it = 0
+        while sqn_h > tol and it < ADMM_DD_ITER_CAP:
+            if it % ADMM_DD_H_REFRESH == 0 and it > 0:
+                L, d = self.local_h_factor(xl_flat, Wm, free)
+
+            # one local Newton iteration + linearized line search
+            gl = self.local_gradient(xl_flat, xhat_flat, z, u_loc, Wm,
+                                     free2f, md2f, f4)
+            p = (self._solve(L, d, -gl.reshape(P, n2p)).reshape(P, N, 2)
+                 * free2f.reshape(P, N, 2))
+            p_flat = self._to_flat(p)
+            fp4 = self._local_defgrad(p_flat)
+            d0v = self._rows2(xl_flat) - self._rows2(xhat_flat)
+            c0 = 0.5 * torch.sum(ml * d0v * d0v, dim=(1, 2))
+            c1 = torch.sum(ml * d0v * p, dim=(1, 2))
+            c2 = 0.5 * torch.sum(ml * p * p, dim=(1, 2))
+            aug0 = self.aug_vec(xl_flat, z, u_loc)
+            pa = p.reshape(P, n2p)
+            Wa0 = self._w_matvec(Wm, md2f, aug0)
+            Wpa = self._w_matvec(Wm, md2f, pa)
+            a0c = 0.5 * torch.sum(aug0 * Wa0, dim=1)
+            a1c = 0.5 * (torch.sum(pa * Wa0, dim=1)
+                         + torch.sum(aug0 * Wpa, dim=1))
+            a2c = 0.5 * torch.sum(pa * Wpa, dim=1)
+
+            def trial_e(alpha):
+                return (self.slab_psi(f4, fp4, alpha)
+                        + c0 + alpha * (c1 + alpha * c2)
+                        + a0c + alpha * (a1c + alpha * a2c))
+
+            e0 = self.slab_psi(f4) + c0 + a0c
+            alpha = torch.ones(P, dtype=sys.dtype, device=sys.device)
+            ee = trial_e(alpha)
+            k = 0
+            while k < LINE_SEARCH_CAP and sys.host((ee > e0).any())[0]:
+                alpha = torch.where(ee > e0, 0.5 * alpha, alpha)
+                ee = trial_e(alpha)
+                k += 1
+            xl_flat[:-1] += alpha[ae_rows][:, None] * p_flat[:-1]
+            f4 = f4 + torch.repeat_interleave(alpha, self.epad) * fp4
+
+            # boundary consensus solve (relax 1.8)
+            xl = self._rows2(xl_flat)
+            zg = z[sys.l2g][:, :, :2]
+            aug = (ADMM_DD_RELAX * xl + (1.0 - ADMM_DD_RELAX) * zg + u_loc
+                   - zg).reshape(P, n2p)
+            tw = self._w_matvec(Wm, md2f, aug).reshape(P * N, 2)
+            rhs_sh = torch.zeros((self.n_shared + 1, 2), dtype=sys.dtype,
+                                 device=sys.device)
+            rhs_sh.index_add_(0, self.l2shared.reshape(-1), tw)
+            rhs_sh = torch.where(shared_fixed, 0.0, rhs_sh[:self.n_shared])
+            rhs = torch.cat([rhs_sh, torch.zeros(
+                (1, 2), dtype=sys.dtype, device=sys.device)]).reshape(-1)
+            yc = torch.linalg.solve_triangular(Lc, (rhs / dc)[:, None],
+                                               upper=False)
+            zc = torch.linalg.solve_triangular(Lc.mT, yc, upper=True)
+            dz = (zc[:, 0] / dc).reshape(-1, 2)
+
+            # interior vertices take their owner's local copy
+            z2 = torch.where(self.is_shared[:, None], z[:, :2],
+                             xl_flat[self.owner_flat, :2])
+            z2[self.shared_ids] += dz[:self.n_shared]
+            z_new = torch.cat([z2, torch.zeros(
+                (sys.n_vert, 1), dtype=sys.dtype, device=sys.device)], dim=1)
+
+            # dual update (step 1, relax 1.8)
+            u_loc = u_loc + (ADMM_DD_RELAX * xl + (1.0 - ADMM_DD_RELAX) * zg
+                             - z_new[sys.l2g][:, :, :2]) \
+                * self.is_dual[..., None]
+            z = z_new
+
+            # global convergence check
+            g = sys.gradient(z, x_tilta, fixed)
+            e = sys.energy(z, x_tilta, sys.defgrad(z))
+            e_h, sqn_h = sys.host(e, _vdot(g, g))
+            it += 1
+            push_row(rows, (1.0, e_h, sqn_h))
+
+        state, (stats, sys_e) = finish_step(sys, state, z, e_h, sqn_h, tol,
+                                            it, 0, False, False, rows, syncs0)
+        stats.stopped = it >= ADMM_DD_ITER_CAP     # dot_tpu dim2.py:1457
+        return state, (stats, sys_e)
+
+
 class Sim2D(Simulator):
     """The 2D frame loop, with the per-run output contract of dot_tpu's
     Sim2D (config.txt, <n>.obj with all vertices and the triangles,
     status<n>, iterStats.txt, log.txt, info.txt with the five counts;
     reference: main.cpp:318-358). Runs `timeStepper Newton | DOT n | DOT -1
-    blockSize | GSDD n | LBFGS | LBFGSH | LBFGSHI | LBFGSJH n`."""
+    blockSize | GSDD n | LBFGS | LBFGSH | LBFGSHI | LBFGSJH n | ADMM
+    [maxIter] | ADMMDD n`."""
 
     timing_in_info = False    # dot_tpu's Sim2D.finalize writes no timing
 
@@ -484,8 +850,6 @@ class Sim2D(Simulator):
                  save_every=1, mute=False, use_kernels=True):
         device = resolve_device(device)
         st = cfg.time_stepper
-        if st in ("ADMM", "ADMMDD"):
-            raise _unsupported(f"2D timeStepper {st}")
         if cfg.restart:
             raise _unsupported("restart")
         self._begin(cfg, output_dir, device, save_every, mute)
@@ -496,12 +860,12 @@ class Sim2D(Simulator):
         self.mesh.fixed_mask = self.script_data.fixed0.copy()
         self.timer.start("partition+compile")
         dtype = dtype if dtype is not None else pick_dtype(None, self.device)
-        # the plan of each stepper (dot_tpu/dim2.py:1495-1544): DOT and
-        # GSDD the element partition, LBFGS-H / HI the whole mesh as one
-        # part (HI: bf16-rounded matrix), LBFGS-JH a disjoint node
-        # partition, Newton and LBFGS-PD none
+        # the plan of each stepper (dot_tpu/dim2.py:1495-1544): DOT, GSDD
+        # and ADMM-DD the element partition, LBFGS-H / HI the whole mesh as
+        # one part (HI: bf16-rounded matrix), LBFGS-JH a disjoint node
+        # partition, Newton, LBFGS-PD and ADMM-PD none
         plan, fdt = None, None
-        if st in ("DOT", "GSDD"):
+        if st in ("DOT", "GSDD", "ADMMDD"):
             plan = build_plan_2d(self.mesh, partition_amt_from_config(
                 cfg, self.mesh.n_vert))
         elif st in ("LBFGSH", "LBFGSHI"):
@@ -513,9 +877,14 @@ class Sim2D(Simulator):
         self.system = System2D(self.mesh, cfg, dtype=dtype,
                                device=self.device, use_kernels=use_kernels,
                                plan=plan, factor_dtype=fdt)
-        cls = Newton2DStepper if st == "Newton" else STEPPERS[st]
-        self.stepper = cls(self.system, self.script_data,
-                           warm_start_opt=cfg.warm_start)
+        if st == "ADMM":
+            self.stepper = ADMMPD2D(self.system, self.script_data,
+                                    max_iter=cfg.max_iter_apd)
+        else:
+            cls = {"Newton": Newton2DStepper, "ADMMDD": ADMMDD2D}.get(st) \
+                or STEPPERS[st]
+            self.stepper = cls(self.system, self.script_data,
+                               warm_start_opt=cfg.warm_start)
         self._start()
 
     def _write_obj(self, path, x):

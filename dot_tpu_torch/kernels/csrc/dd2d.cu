@@ -53,6 +53,26 @@
 //   sums the (c, c) diagonal entries over its vertex-sorted incidences in
 //   order, + mass, with a z column of 1.
 //
+// Two more entry points of K26's slot kernel serve 2D ADMM-DD (plain versions
+// in kernels/admm2d.py):
+// dot_w_assemble2d -- replaces _weights' scatters (dim2.py:1130-1146) and
+//   _w_masked (:1150-1152): the interface weights W (P, n2p, n2p) summed
+//   over the completion tuples' slots with the free mask on rows and columns
+//   (masking the sums gives dot_tpu's mask-after-scatter values) and no
+//   diagonal term; and the consensus matrix C (ns2, ns2) over the same
+//   values: K26's slot pass with the shared vertices' mass difference on
+//   the diagonal, their free mask, a unit diagonal at fixed and dump rows,
+//   and dc = sqrt(diag C). Bound: bytes, W's zero fill (0.44 GB in f32 at
+//   P 4, n2p 5,248).
+// dot_local_h_assemble2d -- replaces _local_h_factor's assembly
+//   (dim2.py:1219-1232): K26's slot pass over the own triangles' blocks
+//   (the local Hessians K23 computes at the local positions), the free mask,
+//   + the masked W read at the same slot, + (mass_local + mass_dif f) f +
+//   (1 - f) on the diagonal, and d. Its slot list is the union of the own
+//   and W slots, so K26's scaling entry on the same tables reaches every
+//   nonzero of the matrix; W is symmetric bit for bit (a slot and its
+//   mirror sum the same tuples in the same order), so the sum is too.
+//
 // Built with -fmad=false: products and sums round one by one, as the plain
 // versions' elementwise ops do.
 
@@ -145,14 +165,16 @@ zero_fill_kernel(unsigned char* __restrict__ p, int64_t bytes) {
 }
 
 // one thread per slot p*n*n + r*n + c; DOF dofs per vertex (free and mass
-// are per local vertex: (P, n_loc))
+// are per local vertex: (P, n_loc)); wadd (null or (P, n, n)): added at the
+// slot after the mask; mass null: no diagonal term and no d
 template <typename T, int DOF>
 __global__ void __launch_bounds__(kThreads)
 slots_kernel(const T* __restrict__ vals, const int64_t* __restrict__ items,
              const int64_t* __restrict__ seg_off,
              const int64_t* __restrict__ udest, int64_t n_slot,
              const T* __restrict__ freev, const T* __restrict__ mass,
-             int64_t n_loc, int64_t n, T* __restrict__ H, T* __restrict__ d) {
+             const T* __restrict__ wadd, int64_t n_loc, int64_t n,
+             T* __restrict__ H, T* __restrict__ d) {
   const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
   if (t >= n_slot) return;
   T s = T(0);
@@ -166,7 +188,8 @@ slots_kernel(const T* __restrict__ vals, const int64_t* __restrict__ items,
   const int64_t base = p * n_loc;
   const T fr = freev[base + r / DOF], fc = freev[base + c / DOF];
   s = s * fr * fc;
-  if (r == c) {
+  if (wadd != nullptr) s = s + wadd[slot];
+  if (r == c && mass != nullptr) {
     s = s + (mass[base + r / DOF] * fr + (T(1) - fr));
     d[p * n + r] = sqrt(s);
   }
@@ -290,8 +313,8 @@ hessian_diag2d_kernel(const T* __restrict__ H, int64_t n,
 template <typename T>
 int assemble(const void* vals, const void* items, const void* seg_off,
              const void* udest, long long n_slot, const void* freev,
-             const void* mass, long long n_loc, long long n, long long n_parts,
-             int dof, void* H, void* d, cudaStream_t st) {
+             const void* mass, const void* wadd, long long n_loc, long long n,
+             long long n_parts, int dof, void* H, void* d, cudaStream_t st) {
   if (n <= 0 || n_parts <= 0 || (dof != 1 && dof != 2)) return 1;
   const int64_t bytes = n_parts * n * n * static_cast<int64_t>(sizeof(T));
   zero_fill_kernel<<<kFillBlocks, kRedThreads, 0, st>>>(
@@ -306,11 +329,11 @@ int assemble(const void* vals, const void* items, const void* seg_off,
   if (dof == 2)
     slots_kernel<T, 2><<<nb, kThreads, 0, st>>>(
         (const T*)vals, it, so, ud, n_slot, (const T*)freev, (const T*)mass,
-        n_loc, n, (T*)H, (T*)d);
+        (const T*)wadd, n_loc, n, (T*)H, (T*)d);
   else
     slots_kernel<T, 1><<<nb, kThreads, 0, st>>>(
         (const T*)vals, it, so, ud, n_slot, (const T*)freev, (const T*)mass,
-        n_loc, n, (T*)H, (T*)d);
+        (const T*)wadd, n_loc, n, (T*)H, (T*)d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,8 +347,24 @@ int pd_assemble(const void* g4, const void* w, int n_elem, void* vals,
       (const T*)g4, (const T*)w, n_elem, (T*)vals);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return assemble<T>(vals, items, seg_off, udest, n_slot, freev, mass, n_vert,
-                     n_vert, 1, 1, H, d, st);
+  return assemble<T>(vals, items, seg_off, udest, n_slot, freev, mass, nullptr,
+                     n_vert, n_vert, 1, 1, H, d, st);
+}
+
+// W then C (2 dofs a vertex): W without a diagonal term, C as K26
+template <typename T>
+int w_assemble(const void* vals, const void* w_items, const void* w_seg_off,
+               const void* w_udest, long long w_n_slot, const void* freev,
+               long long n_loc, long long n, long long n_parts, void* W,
+               const void* c_items, const void* c_seg_off, const void* c_udest,
+               long long c_n_slot, const void* sfree, const void* md_sh,
+               long long c_n, void* C, void* dc, cudaStream_t st) {
+  const int e = assemble<T>(vals, w_items, w_seg_off, w_udest, w_n_slot, freev,
+                            nullptr, nullptr, n_loc, n, n_parts, 2, W, nullptr,
+                            st);
+  if (e != 0) return e;
+  return assemble<T>(vals, c_items, c_seg_off, c_udest, c_n_slot, sfree, md_sh,
+                     nullptr, c_n / 2, c_n, 1, 2, C, dc, st);
 }
 
 }  // namespace dotdd
@@ -380,10 +419,56 @@ int dot_subdomain_assemble2d(int dtype, const void* vals, const void* items,
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return dotdd::assemble<float>(vals, items, seg_off, udest, n_slot, freev,
-                                  mass, n_loc, n, n_parts, dof, H, d, st);
+                                  mass, nullptr, n_loc, n, n_parts, dof, H, d,
+                                  st);
   if (dtype == 1)
     return dotdd::assemble<double>(vals, items, seg_off, udest, n_slot, freev,
-                                   mass, n_loc, n, n_parts, dof, H, d, st);
+                                   mass, nullptr, n_loc, n, n_parts, dof, H, d,
+                                   st);
+  return 1;
+}
+
+// vals (36, nE) row-major element Hessians; W's slot tables (P, n, n) with
+// freev (P, n_loc); C's (one part, c_n = 2 (ns + 1)) with sfree, md_sh
+// (ns + 1,). W (P, n, n), C (c_n, c_n) and dc (c_n,) are written.
+int dot_w_assemble2d(int dtype, const void* vals, const void* w_items,
+                     const void* w_seg_off, const void* w_udest,
+                     long long w_n_slot, const void* freev, long long n_loc,
+                     long long n, long long n_parts, void* W,
+                     const void* c_items, const void* c_seg_off,
+                     const void* c_udest, long long c_n_slot, const void* sfree,
+                     const void* md_sh, long long c_n, void* C, void* dc,
+                     void* stream) {
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dotdd::w_assemble<float>(vals, w_items, w_seg_off, w_udest,
+                                    w_n_slot, freev, n_loc, n, n_parts, W,
+                                    c_items, c_seg_off, c_udest, c_n_slot,
+                                    sfree, md_sh, c_n, C, dc, st);
+  if (dtype == 1)
+    return dotdd::w_assemble<double>(vals, w_items, w_seg_off, w_udest,
+                                     w_n_slot, freev, n_loc, n, n_parts, W,
+                                     c_items, c_seg_off, c_udest, c_n_slot,
+                                     sfree, md_sh, c_n, C, dc, st);
+  return 1;
+}
+
+// vals (36, P epad) row-major own Hessians; the own slot tables (their
+// slots cover W's); freev, mass (P, n_loc); Wm (P, n, n); H (P, n, n) and
+// d (P, n) are written.
+int dot_local_h_assemble2d(int dtype, const void* vals, const void* items,
+                           const void* seg_off, const void* udest,
+                           long long n_slot, const void* freev,
+                           const void* mass, const void* Wm, long long n_loc,
+                           long long n, long long n_parts, void* H, void* d,
+                           void* stream) {
+  auto st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return dotdd::assemble<float>(vals, items, seg_off, udest, n_slot, freev,
+                                  mass, Wm, n_loc, n, n_parts, 2, H, d, st);
+  if (dtype == 1)
+    return dotdd::assemble<double>(vals, items, seg_off, udest, n_slot, freev,
+                                   mass, Wm, n_loc, n, n_parts, 2, H, d, st);
   return 1;
 }
 

@@ -49,6 +49,23 @@
 //   stays 0, so the matrix is not read or written a second time. Slots are
 //   64-bit (n2^2 passes 2^31 above 23,170 vertices).
 //
+// Two more entry points serve 2D ADMM-DD (their plain versions are in
+// kernels/admm2d.py):
+// dot_ls_trial_energy2d_parts -- K21 with one step length and one sum per
+//   subdomain slab; replaces trial_e / e0 of dot_tpu/dim2.py:1366-1374 with
+//   _local_psi_sum (:1173-1176). Same bytes and operations as K21. Design:
+//   K1's per-slab entry: grid (blocks per slab, slabs), alpha read at the
+//   block's slab, each slab's block sums summed by one block in a fixed
+//   order: each subdomain's accept / halve decision reads its own sum.
+// dot_elem_gradient2d_from_F -- K22 from the CARRIED local deformation
+//   gradients (updated linearly along each accepted step, never
+//   re-gathered); replaces the element part of _local_gradient
+//   (dim2.py:1182-1189). Its first launch is K22's force pass reading F
+//   instead of gathering x; its second sums each local row's (triangle,
+//   corner) incidences, sorted by row on the host, in order (no atomics:
+//   the local Newton step reads the gradient). Rows past n_rows (the
+//   padding triangles' dump row) are never summed.
+//
 // Built with -fmad=false (see elem2d.cuh).
 
 #include <cuda_runtime.h>
@@ -159,17 +176,65 @@ sum_partials_kernel(const T* __restrict__ partials, int m, T* __restrict__ out) 
   block_sum_store(v, out);
 }
 
-// K22, first launch: ge (6, n), row c*2 + d = sum_j D[c][j] (w P)[d][j]
+// K1-style per-slab trial: block (b, p) covers triangles p * n_slab + b *
+// 256 ... of slab p, reads alpha[p] and writes partials[p * gridDim.x + b]
+template <typename T, int M>
+__global__ void __launch_bounds__(kRedThreads)
+ls_trial_energy2d_parts_kernel(const T* __restrict__ F0, const T* __restrict__ Fp,
+                               const T* __restrict__ alpha,
+                               const T* __restrict__ u, const T* __restrict__ lam,
+                               const T* __restrict__ w, int n, int n_slab,
+                               T* __restrict__ partials) {
+  const int i = blockIdx.x * kRedThreads + threadIdx.x;
+  const int e = blockIdx.y * n_slab + i;
+  T v = T(0);
+  if (i < n_slab) {
+    T f[4], U[4], s[2], V[4];
+    if (Fp != nullptr) {
+      const T a = alpha[blockIdx.y];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[k] = F0[k * n + e] + a * Fp[k * n + e];
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) f[k] = F0[k * n + e];
+    }
+    svd2_flip(f, U, s, V);
+    v = Mat2<T, M>::psi(s, u[e], lam[e]) * w[e];
+  }
+  block_sum_store(v, partials + blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// one block per slab: sums its m partials as sum_partials_kernel does
+template <typename T>
+__global__ void __launch_bounds__(kRedThreads)
+sum_slab_partials_kernel(const T* __restrict__ partials, int m,
+                         T* __restrict__ out) {
+  T v = T(0);
+  const T* row = partials + blockIdx.x * m;
+  for (int i = threadIdx.x; i < m; i += kRedThreads) v += row[i];
+  block_sum_store(v, out + blockIdx.x);
+}
+
+// K22, first launch: ge (6, n), row c*2 + d = sum_j D[c][j] (w P)[d][j], at
+// F gathered from x, or read from F (the from-F entry: x null)
 template <typename T, int M>
 __global__ void __launch_bounds__(kElemThreads)
 elem_forces2d_kernel(const T* __restrict__ x, const int* __restrict__ conn,
-                     const T* __restrict__ g4, const T* __restrict__ u,
-                     const T* __restrict__ lam, const T* __restrict__ w, int n,
-                     T* __restrict__ ge) {
+                     const T* __restrict__ F, const T* __restrict__ g4,
+                     const T* __restrict__ u, const T* __restrict__ lam,
+                     const T* __restrict__ w, int n, T* __restrict__ ge) {
   const int e = blockIdx.x * kElemThreads + threadIdx.x;
   if (e >= n) return;
   T f[4], g[4], U[4], s[2], V[4], P[4], D[3][2];
-  gather_defgrad2(x, conn, g4, n, e, f, g);
+  if (x != nullptr) {
+    gather_defgrad2(x, conn, g4, n, e, f, g);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      f[k] = F[k * n + e];
+      g[k] = g4[k * n + e];
+    }
+  }
   svd2_flip(f, U, s, V);
   Mat2<T, M>::first_piola(f, U, s, V, u[e], lam[e], P);
   const T we = w[e];
@@ -210,6 +275,29 @@ vertex_gradient2d_kernel(const T* __restrict__ ge, int n,
   out[v * 3] = fr ? g0 : T(0);
   out[v * 3 + 1] = fr ? g1 : T(0);
   out[v * 3 + 2] = T(0);
+}
+
+// K22 from F, second launch: one thread per local row sums its incidences
+// in order (no epilogue)
+template <typename T>
+__global__ void __launch_bounds__(kElemThreads)
+row_sums2d_kernel(const T* __restrict__ ge, int n,
+                  const int64_t* __restrict__ inc_perm,
+                  const int64_t* __restrict__ inc_off, int64_t n_rows,
+                  T* __restrict__ out) {
+  const int64_t r = blockIdx.x * static_cast<int64_t>(kElemThreads) + threadIdx.x;
+  if (r >= n_rows) return;
+  T a0 = T(0), a1 = T(0);
+  const int64_t end = inc_off[r + 1];
+  for (int64_t k = inc_off[r]; k < end; ++k) {
+    const int64_t inc = inc_perm[k];      // triangle * 3 + corner
+    const int64_t e = inc / 3;
+    const int c = static_cast<int>(inc - e * 3);
+    a0 += ge[static_cast<int64_t>(c * 2) * n + e];
+    a1 += ge[static_cast<int64_t>(c * 2 + 1) * n + e];
+  }
+  out[r * 2] = a0;
+  out[r * 2 + 1] = a1;
 }
 
 template <typename T, int M>
@@ -406,11 +494,37 @@ void launch_grad(const void* x, const void* x_tilta, const void* freev,
                  const int64_t* inc_perm, const int64_t* inc_off, int64_t n_vert,
                  void* ge, void* out, cudaStream_t st) {
   elem_forces2d_kernel<T, M><<<blocks(n, kElemThreads), kElemThreads, 0, st>>>(
-      (const T*)x, conn, (const T*)g4, (const T*)u, (const T*)lam, (const T*)w, n,
-      (T*)ge);
+      (const T*)x, conn, nullptr, (const T*)g4, (const T*)u, (const T*)lam,
+      (const T*)w, n, (T*)ge);
   vertex_gradient2d_kernel<T><<<blocks(n_vert, kElemThreads), kElemThreads, 0, st>>>(
       (const T*)ge, n, inc_perm, inc_off, (const T*)x, (const T*)x_tilta,
       (const T*)freev, (const T*)mass, T(dt_sq), n_vert, (T*)out);
+}
+
+template <typename T, int M>
+void launch_trial_parts(const void* F0, const void* Fp, const void* alpha,
+                        const void* u, const void* lam, const void* w, int n,
+                        int n_parts, void* partials, void* out, cudaStream_t st) {
+  const int n_slab = n / n_parts;
+  const int nb = blocks(n_slab, kRedThreads);
+  ls_trial_energy2d_parts_kernel<T, M><<<dim3(nb, n_parts), kRedThreads, 0, st>>>(
+      (const T*)F0, (const T*)Fp, (const T*)alpha, (const T*)u, (const T*)lam,
+      (const T*)w, n, n_slab, (T*)partials);
+  sum_slab_partials_kernel<T><<<n_parts, kRedThreads, 0, st>>>(
+      (const T*)partials, nb, (T*)out);
+}
+
+template <typename T, int M>
+void launch_grad_from_F(const void* F, const void* g4, const void* u,
+                        const void* lam, const void* w, int n,
+                        const int64_t* inc_perm, const int64_t* inc_off,
+                        int64_t n_rows, void* ge, void* out, cudaStream_t st) {
+  elem_forces2d_kernel<T, M><<<blocks(n, kElemThreads), kElemThreads, 0, st>>>(
+      nullptr, nullptr, (const T*)F, (const T*)g4, (const T*)u, (const T*)lam,
+      (const T*)w, n, (T*)ge);
+  if (n_rows > 0)
+    row_sums2d_kernel<T><<<blocks(n_rows, kElemThreads), kElemThreads, 0, st>>>(
+        (const T*)ge, n, inc_perm, inc_off, n_rows, (T*)out);
 }
 
 template <typename T, int M>
@@ -511,6 +625,31 @@ int dot_elem_gradient2d(int dtype, int mat, const void* x, const void* x_tilta,
   DOTK2_DISPATCH(dotk2::launch_grad, x, x_tilta, freev, mass, (const int*)conn,
                  g4, u, lam, w, dt_sq, n, (const int64_t*)inc_perm,
                  (const int64_t*)inc_off, n_vert, ge, out, (cudaStream_t)stream)
+}
+
+// F0, Fp: (4, n); alpha, out: (n_parts,); partials: n_parts *
+// dot_trial2d_partials(n / n_parts) values; n is a multiple of n_parts.
+int dot_ls_trial_energy2d_parts(int dtype, int mat, const void* F0,
+                                const void* Fp, const void* alpha,
+                                const void* u, const void* lam, const void* w,
+                                int n, int n_parts, void* partials, void* out,
+                                void* stream) {
+  if (n_parts < 1 || n == 0 || n % n_parts != 0) return 1;
+  DOTK2_DISPATCH(dotk2::launch_trial_parts, F0, Fp, alpha, u, lam, w, n,
+                 n_parts, partials, out, (cudaStream_t)stream)
+}
+
+// F, g4: (4, n); u, lam, w: (n,); inc_perm (3 n,) incidences e*3 + c sorted
+// by row, inc_off (n_rows + 1,); ge: (6, n) scratch; out (n_rows, 2).
+int dot_elem_gradient2d_from_F(int dtype, int mat, const void* F,
+                               const void* g4, const void* u, const void* lam,
+                               const void* w, int n, const void* inc_perm,
+                               const void* inc_off, long long n_rows, void* ge,
+                               void* out, void* stream) {
+  if (n == 0) return 1;
+  DOTK2_DISPATCH(dotk2::launch_grad_from_F, F, g4, u, lam, w, n,
+                 (const int64_t*)inc_perm, (const int64_t*)inc_off, n_rows, ge,
+                 out, (cudaStream_t)stream)
 }
 
 // out (36, n): SPD-projected element Hessians times dt_sq.

@@ -43,9 +43,11 @@ class SlotTables(NamedTuple):
                              #   every diagonal slot (an empty run at padding)
 
 
-def slot_tables(src, dest, n_parts, n_loc, dof, device):
+def slot_tables(src, dest, n_parts, n_loc, dof, device, slots=None):
     """SlotTables from flat (src, dest) numpy pairs. Ids are 64-bit:
-    P n^2 reaches 4.1e8 at P = 1 on a 10K-vertex mesh."""
+    P n^2 reaches 4.1e8 at P = 1 on a 10K-vertex mesh. `slots`: more slots
+    the runs cover (empty runs there), so that a kernel over `udest`
+    reaches entries another table wrote."""
     src = np.asarray(src, np.int64)
     dest = np.asarray(dest, np.int64)
     n = dof * n_loc
@@ -54,6 +56,8 @@ def slot_tables(src, dest, n_parts, n_loc, dof, device):
     diag = (np.arange(n_parts, dtype=np.int64)[:, None] * (n * n)
             + np.arange(n, dtype=np.int64)[None, :] * (n + 1)).reshape(-1)
     udest = np.union1d(ds, diag)
+    if slots is not None:
+        udest = np.union1d(udest, np.asarray(slots, np.int64))
     seg_off = np.concatenate([np.searchsorted(ds, udest), [ds.size]])
 
     def t(a):

@@ -1,4 +1,4 @@
-"""Wrappers of the twenty-eight hand-written kernels of the steppers' paths.
+"""Wrappers of the thirty hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
@@ -7,13 +7,16 @@ Each wrapper checks device, dtype, shape and contiguity, then
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
   check entries of their device functions, kernels/dd2d.py for the 2D
-  decomposed path's K25-K28) for CPU tensors;
+  decomposed path's K25-K28, kernels/admm2d.py for K29-K30 and the 2D
+  ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
   csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
   K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
   passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
-  K21-K24: csrc/elem2d.cu, K25-K28: csrc/dd2d.cu, all through ctypes;
+  K21-K24: csrc/elem2d.cu, K25-K28: csrc/dd2d.cu, K29-K30:
+  csrc/admm2d.cu (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and
+  dd2d.cu), all through ctypes;
   K4: triton_qf.py, K9:
   triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
   its count in `launches`;
@@ -32,7 +35,7 @@ import types
 
 import torch
 
-from . import admm, band, coarse, dd2d, lbfgs, pd, soa, soa2d
+from . import admm, admm2d, band, coarse, dd2d, lbfgs, pd, soa, soa2d
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
@@ -48,7 +51,9 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d",
            "quadratic_form2d", "subdomain_assemble2d", "subdomain_scale2d",
            "h0_gather2d", "h0_average2d", "local_gather_one2d",
-           "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d")
+           "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d",
+           "admm_local_step2d", "dtw_scatter2d", "ls_trial_energy2d_parts",
+           "elem_gradient2d_from_F", "w_assemble2d", "local_h_assemble2d")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -101,7 +106,13 @@ plain = types.SimpleNamespace(
     local_gather_one2d=dd2d.local_gather_one2d_ref,
     local_scatter_one2d=dd2d.local_scatter_one2d_ref,
     pd_assemble2d=dd2d.pd_assemble2d_ref,
-    hessian_diag2d=dd2d.hessian_diag2d_ref)
+    hessian_diag2d=dd2d.hessian_diag2d_ref,
+    admm_local_step2d=admm2d.admm_local_step2d_ref,
+    dtw_scatter2d=admm2d.dtw_scatter2d_ref,
+    ls_trial_energy2d_parts=admm2d.ls_trial_energy2d_parts_ref,
+    elem_gradient2d_from_F=admm2d.elem_gradient2d_from_F_ref,
+    w_assemble2d=admm2d.w_assemble2d_ref,
+    local_h_assemble2d=admm2d.local_h_assemble2d_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -195,6 +206,22 @@ def _load():
             ("dd2d", "dot_local_scatter_one2d"): [I] + [P] * 4
             + [LL, LL, LL, P, P],
             ("dd2d", "dot_hessian_diag2d"): [I, P, LL, P, P, P, LL, P, P],
+            ("admm2d", "dot_admm_local_step2d"): ([I, I] + [P] * 6 + [I]
+                                                  + [P] * 4),
+            ("admm2d", "dot_dtw_scatter2d"): ([I, P, P, P, LL, P, P, LL]
+                                              + [P] * 7),
+            ("elem2d", "dot_ls_trial_energy2d_parts"): ([I, I] + [P] * 6
+                                                        + [I, I, P, P, P]),
+            ("elem2d", "dot_elem_gradient2d_from_F"): ([I, I] + [P] * 5
+                                                       + [I, P, P, LL, P, P,
+                                                          P]),
+            ("dd2d", "dot_w_assemble2d"): ([I] + [P] * 4 + [LL, P, LL, LL,
+                                                            LL, P]
+                                           + [P] * 3 + [LL, P, P, LL, P, P,
+                                                        P]),
+            ("dd2d", "dot_local_h_assemble2d"): ([I] + [P] * 4 + [LL]
+                                                 + [P] * 3 + [LL, LL, LL, P,
+                                                              P, P]),
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -1591,3 +1618,196 @@ def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
                                   _stream(z))
     _ok(name, err)
     return out
+
+
+# ----------------------------------------------------------------------
+# K29, K30 and the added entry points of K21 / K22 / K26: the two 2D ADMM
+# steppers
+# ----------------------------------------------------------------------
+def admm_local_step2d(Dx, u4, w, vol_dtsq, mu, lam, mat, want_counts=False):
+    """K29: (z, du), each (4, N): ADMM-PD's per-triangle local step on
+    Dx + u4 at dim 2 (see kernels/admm2d.py). Dx, u4: (4, N); w, vol_dtsq,
+    mu, lam: (N,). With `want_counts` also a (2, N) int32 tensor: each
+    triangle's Newton iterations and energy evaluations."""
+    name = "admm_local_step2d"
+    n = Dx.shape[-1]
+    _check(name, Dx, dict(Dx=Dx, u4=u4, w=w, vol_dtsq=vol_dtsq, mu=mu,
+                          lam=lam),
+           dict(Dx=(4, n), u4=(4, n), w=(n,), vol_dtsq=(n,), mu=(n,),
+                lam=(n,)))
+    if not _route(name, Dx):
+        return admm2d.admm_local_step2d_ref(Dx, u4, w, vol_dtsq, mu, lam,
+                                            mat, want_counts)
+    lib = _load()
+    z = torch.empty_like(Dx)
+    du = torch.empty_like(Dx)
+    counts = (torch.empty((2, n), dtype=torch.int32, device=Dx.device)
+              if want_counts else None)
+    err = lib.admm_local_step2d(_DTYPES[Dx.dtype], mat.code, _ptr(Dx),
+                                _ptr(u4), _ptr(w), _ptr(vol_dtsq), _ptr(mu),
+                                _ptr(lam), n, _ptr(z), _ptr(du), _ptr(counts),
+                                _stream(Dx))
+    _ok(name, err)
+    return (z, du, counts) if want_counts else (z, du)
+
+
+def dtw_scatter2d(M4, g4, w, plan, x, mass=None, base=None, offset=None,
+                  free=None):
+    """K30: (nV, 3) per-vertex sums of D^T (w M) over the vertex-sorted
+    (triangle, corner) incidences of plan (a soa2d.Scatter2DPlan), z
+    column 0, finished as s + mass x (given `mass`) or (base + s - offset)
+    free + x (1 - free) (given base, offset and free). M4, g4: (4, N); w:
+    (N,); x, base, offset: (nV, 3); mass, free: (nV,)."""
+    name, dev = "dtw_scatter2d", M4.device
+    dt = _float(name, M4)
+    n, nv = M4.shape[-1], x.shape[0]
+    if (mass is None) == (base is None) or (
+            base is not None and (offset is None or free is None)):
+        raise ValueError(f"{name}: give mass, or base, offset and free")
+    _need(name, "M4", M4, dev, dt, (4, n))
+    _need(name, "g4", g4, dev, dt, (4, n))
+    _need(name, "w", w, dev, dt, (n,))
+    _need(name, "gdest", plan.gdest, dev, torch.int64, (6 * n,))
+    _need(name, "inc_perm", plan.inc_perm, dev, torch.int64, (3 * n,))
+    _need(name, "inc_off", plan.inc_off, dev, torch.int64, (nv + 1,))
+    _need(name, "x", x, dev, dt, (nv, 3))
+    for key, t, shape in (("mass", mass, (nv,)), ("base", base, (nv, 3)),
+                          ("offset", offset, (nv, 3)), ("free", free, (nv,))):
+        if t is not None:
+            _need(name, key, t, dev, dt, shape)
+    if not _route(name, M4):
+        return admm2d.dtw_scatter2d_ref(M4, g4, w, plan, x, mass, base,
+                                        offset, free)
+    lib = _load()
+    out = torch.empty((nv, 3), dtype=dt, device=dev)
+    err = lib.dtw_scatter2d(_DTYPES[dt], _ptr(M4), _ptr(g4), _ptr(w), n,
+                            _ptr(plan.inc_perm), _ptr(plan.inc_off), nv,
+                            _ptr(x), _ptr(mass), _ptr(base), _ptr(offset),
+                            _ptr(free), _ptr(out), _stream(M4))
+    _ok(name, err)
+    return out
+
+
+def ls_trial_energy2d_parts(F0, Fp, alpha, u, lam, w, mat, n_parts):
+    """K21 per slab: (P,) sums of w Psi(sigma(F0 + alpha_p Fp)) over the P
+    equal triangle slabs of the (4, N) buffers, alpha (P,) one step per slab
+    (Fp and alpha may be None: F = F0). Each slab's sum is taken in a fixed
+    order (no atomics)."""
+    name = "ls_trial_energy2d_parts"
+    n = F0.shape[-1]
+    if (Fp is None) != (alpha is None):
+        raise ValueError(f"{name}: a direction Fp and its alphas go together")
+    if n_parts < 1 or n == 0 or n % n_parts:
+        raise ValueError(f"{name}: {n} triangles in {n_parts} slabs")
+    _check(name, F0, dict(F0=F0, Fp=Fp, alpha=alpha, u=u, lam=lam, w=w),
+           dict(F0=(4, n), Fp=(4, n), alpha=(n_parts,), u=(n,), lam=(n,),
+                w=(n,)))
+    if not _route(name, F0):
+        return admm2d.ls_trial_energy2d_parts_ref(F0, Fp, alpha, u, lam, w,
+                                                  mat, n_parts)
+    lib = _load()
+    part = torch.empty(n_parts * lib.trial2d_partials(n // n_parts),
+                       dtype=F0.dtype, device=F0.device)
+    out = torch.empty(n_parts, dtype=F0.dtype, device=F0.device)
+    err = lib.ls_trial_energy2d_parts(
+        _DTYPES[F0.dtype], mat.code, _ptr(F0), _ptr(Fp), _ptr(alpha),
+        _ptr(u), _ptr(lam), _ptr(w), n, n_parts, _ptr(part), _ptr(out),
+        _stream(F0))
+    _ok(name, err)
+    return out
+
+
+def elem_gradient2d_from_F(F, conn_s, g4, u, lam, w, mat, rows):
+    """K22 from carried deformation gradients: the per-corner forces
+    D (w P) at F (4, N) summed into rows.n_rows local rows, (n_rows, 2),
+    each row over its incidences (rows: admm2d.RowIncidences of conn_s) in
+    order; conn_s (3, N) int32 row ids, padding triangles at row n_rows."""
+    name = "elem_gradient2d_from_F"
+    n = F.shape[-1]
+    if n == 0:
+        raise ValueError(f"{name}: no triangles")
+    _check(name, F, dict(F=F, conn_s=conn_s, g4=g4, u=u, lam=lam, w=w),
+           dict(F=(4, n), conn_s=(3, n), g4=(4, n), u=(n,), lam=(n,),
+                w=(n,)))
+    _need(name, "inc_perm", rows.inc_perm, F.device, torch.int64, (3 * n,))
+    _need(name, "inc_off", rows.inc_off, F.device, torch.int64,
+          (rows.n_rows + 1,))
+    if not _route(name, F):
+        return admm2d.elem_gradient2d_from_F_ref(F, conn_s, g4, u, lam, w,
+                                                 mat, rows)
+    lib = _load()
+    ge = torch.empty((6, n), dtype=F.dtype, device=F.device)
+    out = torch.empty((rows.n_rows, 2), dtype=F.dtype, device=F.device)
+    err = lib.elem_gradient2d_from_F(
+        _DTYPES[F.dtype], mat.code, _ptr(F), _ptr(g4), _ptr(u), _ptr(lam),
+        _ptr(w), n, _ptr(rows.inc_perm), _ptr(rows.inc_off),
+        rows.n_rows, _ptr(ge), _ptr(out), _stream(F))
+    _ok(name, err)
+    return out
+
+
+def w_assemble2d(elem_h, free, sfree, md_sh, w_tab, c_tab):
+    """K26's W / consensus entry: (Wm (P, n2p, n2p), C (ns2, ns2), dc
+    (ns2,)) of 2D ADMM-DD from the (36, nE) row-major element Hessians:
+    W's slots summed in plan order with rows and columns of non-free dofs
+    zeroed (free (P, N)); C's slots likewise, + md_sh on the diagonal,
+    masked by sfree (ns + 1,), a unit diagonal where it is 0, and dc =
+    sqrt(diag C). w_tab, c_tab: dd2d.SlotTables (2 dofs a vertex; C's one
+    part of ns + 1 vertices)."""
+    name, dev = "w_assemble2d", elem_h.device
+    dt = _float(name, elem_h)
+    P, N, n = w_tab.n_parts, w_tab.n_loc, w_tab.n
+    ns1, nc = c_tab.n_loc, c_tab.n
+    _need(name, "elem_h", elem_h, dev, dt, (36, None))
+    _need(name, "free", free, dev, dt, (P, N))
+    _need(name, "sfree", sfree, dev, dt, (ns1,))
+    _need(name, "md_sh", md_sh, dev, dt, (ns1,))
+    w_slot = _slot_tables(name, dev, w_tab)
+    c_slot = _slot_tables(name, dev, c_tab)
+    if w_tab.dof != 2 or c_tab.dof != 2 or c_tab.n_parts != 1:
+        raise ValueError(f"{name}: W and C tables of 2 dofs, C of one part")
+    if not _route(name, elem_h):
+        return admm2d.w_assemble2d_ref(elem_h, free, sfree, md_sh, w_tab,
+                                       c_tab)
+    lib = _load()
+    Wm = torch.empty((P, n, n), dtype=dt, device=dev)
+    C = torch.empty((nc, nc), dtype=dt, device=dev)
+    dc = torch.empty(nc, dtype=dt, device=dev)
+    err = lib.w_assemble2d(
+        _DTYPES[dt], _ptr(elem_h), _ptr(w_tab.items), _ptr(w_tab.seg_off),
+        _ptr(w_tab.udest), w_slot, _ptr(free), N, n, P, _ptr(Wm),
+        _ptr(c_tab.items), _ptr(c_tab.seg_off), _ptr(c_tab.udest), c_slot,
+        _ptr(sfree), _ptr(md_sh), nc, _ptr(C), _ptr(dc), _stream(elem_h))
+    _ok(name, err)
+    return Wm, C, dc
+
+
+def local_h_assemble2d(elem_h, Wm, free, mass, tab):
+    """K26's local-Hessian entry: (H (P, n2p, n2p), d (P, n2p)) of 2D
+    ADMM-DD's augmented local Hessians: the own triangles' (36, P epad)
+    row-major Hessians summed by slot in plan order, rows and columns of
+    non-free dofs zeroed (free (P, N)), + Wm, + mass f + (1 - f) on the
+    diagonal (mass (P, N)); d = sqrt(diag). tab: the own dd2d.SlotTables,
+    whose slots also cover every slot of Wm (so that K26's scaling entry on
+    `tab` reaches every nonzero)."""
+    name, dev = "local_h_assemble2d", elem_h.device
+    dt = _float(name, elem_h)
+    P, N, n = tab.n_parts, tab.n_loc, tab.n
+    _need(name, "elem_h", elem_h, dev, dt, (36, None))
+    _need(name, "Wm", Wm, dev, dt, (P, n, n))
+    _need(name, "free", free, dev, dt, (P, N))
+    _need(name, "mass", mass, dev, dt, (P, N))
+    n_slot = _slot_tables(name, dev, tab)
+    if tab.dof != 2:
+        raise ValueError(f"{name}: tables of {tab.dof} dofs per vertex")
+    if not _route(name, elem_h):
+        return admm2d.local_h_assemble2d_ref(elem_h, Wm, free, mass, tab)
+    lib = _load()
+    H = torch.empty((P, n, n), dtype=dt, device=dev)
+    d = torch.empty((P, n), dtype=dt, device=dev)
+    err = lib.local_h_assemble2d(
+        _DTYPES[dt], _ptr(elem_h), _ptr(tab.items), _ptr(tab.seg_off),
+        _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass), _ptr(Wm), N, n, P,
+        _ptr(H), _ptr(d), _stream(elem_h))
+    _ok(name, err)
+    return H, d

@@ -103,10 +103,9 @@ def _unsupported(what):
     return NotImplementedError(
         f"{what} is not ported to dot_tpu_torch yet (ROADMAP.md queue 1); "
         "the port runs 'timeStepper DOT, GSDD, Newton, LBFGS, LBFGSH, "
-        "LBFGSHI, LBFGSJH, ADMM, ADMMDD' at dim 3, the quasi-Newton steppers "
-        "with 'h0Refresh 1', and 'timeStepper Newton, DOT, GSDD, LBFGS, "
-        "LBFGSH, LBFGSHI, LBFGSJH' on the 2D shapes (grid, square, "
-        "rectangle, cylinder, spikes, Sharkey) with warmStart 0-4; no "
+        "LBFGSHI, LBFGSJH, ADMM, ADMMDD' at dim 3 and on the 2D shapes "
+        "(grid, square, rectangle, cylinder, spikes, Sharkey; warmStart "
+        "0-4 there), the quasi-Newton steppers with 'h0Refresh 1'; no "
         "restart at either dimension")
 
 

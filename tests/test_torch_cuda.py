@@ -4,10 +4,12 @@ cyclic-reduction plan, K9 on random histories, K10-K11 on a coarse plan,
 K5's compact entry point and K12 on a forced chunked rebuild, K13-K16 on
 the other steppers' plans, K17-K20 and the per-slab / from-F entry points
 on the ADMM plans, K6 above its panel limit, the 2D kernels K21-K24 with
-the check entries of their device functions) against its plain PyTorch
+the check entries of their device functions, K25-K28, K29, K30 and the
+ADMM-DD entries of K21, K22, K26) against its plain PyTorch
 version on CUDA tensors, and time steps on the card against the same steps
 on the CPU or on the plain versions (DOT on dense, cyclic-reduction and
-coarse + chunked plans, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton).
+coarse + chunked plans, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton,
+DOT 4, ADMM-PD and ADMM-DD 4).
 Skipped where there is no CUDA device; where there is one, run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -972,3 +974,137 @@ def test_dot2d_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out[1][2], [3.294256031942e+03,
                                            3.294256605060e+03,
                                            3.300416677680e+03], rtol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# K29, K30 and the ADMM-DD entries of K21 / K22 / K26: the 2D ADMM family
+# ----------------------------------------------------------------------
+def _admm_2d(dev, dtype, stepper, resolution=400, use_kernels=True):
+    from dot_tpu_torch import dim2, plan2d
+    cfg = Config(energy="FCR", time_stepper=stepper, dt=0.025, rho=1000.0,
+                 ym=1e5, pr=0.4, script="stretch", handle_ratio=0.03,
+                 shape="spikes", resolution=resolution, partition_amt=4)
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    plan = plan2d.build_plan_2d(mesh, 4) if stepper == "ADMMDD" else None
+    sysm = dim2.System2D(mesh, cfg, dtype=dtype, device=dev, plan=plan,
+                         use_kernels=use_kernels)
+    if stepper == "ADMM":
+        return dim2.ADMMPD2D(sysm, sd, max_iter=1000)
+    return dim2.ADMMDD2D(sysm, sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_admm2d_kernels_match_plain_versions(cuda, dtype):
+    """K29, K30 and the four ADMM-DD entries against their plain versions
+    (kernels/admm2d.py) on the spikes scene: K29's loop counts equal on all
+    but 1e-3 of the triangles (the device library's angles), z and du where
+    they agree; the sums f64 1e-12, f32 1e-5 max-rel (K22 from F norm-wise);
+    W, C and the local Hessian symmetric bit for bit; one launch each."""
+    from dot_tpu_torch.kernels import admm2d, soa2d
+    tol, tol_n = TOL_NEW[dtype]
+    t_el = TOL[dtype][0]
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=cuda)
+    pst = _admm_2d(cuda, dtype, "ADMM")
+    sysm = pst.system
+    n, nv = sysm.n_elem, sysm.n_vert
+    Dx = t(np.eye(2).reshape(4, 1) + 0.4 * rng.normal(size=(4, n)))
+    u4 = t(0.1 * rng.normal(size=(4, n)))
+    ops.reset_launches()
+    l_args = (Dx, u4, pst.w_e, pst.vol_dtsq, sysm.u_e, sysm.lam_e, sysm.mat)
+    zk, duk, ck = ops.admm_local_step2d(*l_args, want_counts=True)
+    zr, dur, cr = admm2d.admm_local_step2d_ref(*l_args, want_counts=True)
+    same = (ck == cr).all(dim=0)
+    assert float((~same).sum()) <= 1e-3 * n
+    assert _rel_max(zk[:, same], zr[:, same]) <= t_el
+    assert _rel_max(duk[:, same], dur[:, same]) <= t_el
+    x = t(pst.script_data.x0)
+    x[:, :2] += t(0.01 * rng.normal(size=(nv, 2)))
+    M4 = t(rng.normal(size=(4, n)))
+    base, off = t(rng.normal(size=(nv, 3))), t(rng.normal(size=(nv, 3)))
+    free_v = t((rng.uniform(size=nv) > 0.1).astype(np.float64))
+    s_args = (M4, sysm.g4, pst.w_e, sysm.scatter_plan, x)
+    assert _rel_max(ops.dtw_scatter2d(*s_args, mass=sysm.mass),
+                    admm2d.dtw_scatter2d_ref(*s_args, mass=sysm.mass)) <= tol
+    rk = ops.dtw_scatter2d(*s_args, base=base, offset=off, free=free_v)
+    rr = admm2d.dtw_scatter2d_ref(*s_args, base=base, offset=off,
+                                  free=free_v)
+    assert _rel_max(rk, rr) <= tol
+
+    dd = _admm_2d(cuda, dtype, "ADMMDD")
+    sysm = dd.system
+    fixed = torch.as_tensor(dd.script_data.fixed0, device=cuda)
+    free = dd._free(fixed)
+    xl = dd._to_flat(x[sysm.l2g][:, :, :2] * sysm.local_valid[..., None])
+    F0 = dd._local_defgrad(xl)
+    Fp = dd._local_defgrad(dd._to_flat(
+        t(0.01 * rng.normal(size=(dd.P, dd.N, 2)))))
+    alpha = t([1.0, 0.5, 0.25, 0.125])
+    e_args = (F0, Fp, alpha, dd.lu, dd.llam, dd.lw, sysm.mat, dd.P)
+    ek = ops.ls_trial_energy2d_parts(*e_args)
+    er = admm2d.ls_trial_energy2d_parts_ref(*e_args)
+    assert float(((ek - er).abs() / er.abs()).max()) <= t_el
+    g_args = (F0, dd.conn_local, dd.lg4, dd.lu, dd.llam, dd.lw, sysm.mat,
+              dd.rows)
+    assert _rel(ops.elem_gradient2d_from_F(*g_args),
+                admm2d.elem_gradient2d_from_F_ref(*g_args)) <= tol_n
+    eh = sysm.element_hessians(x)
+    sfree = torch.cat([torch.logical_not(fixed[dd.shared_ids]).to(dtype),
+                       torch.zeros(1, dtype=dtype, device=cuda)])
+    w_args = (eh, free, sfree, dd.md_sh, dd.w_tab, dd.c_tab)
+    Wk, Ck, dck = ops.w_assemble2d(*w_args)
+    Wr, Cr, dcr = admm2d.w_assemble2d_ref(*w_args)
+    assert _rel_max(Wk, Wr) <= tol and _rel_max(Ck, Cr) <= tol
+    assert _rel_max(dck, dcr) <= tol
+    assert torch.equal(Wk, Wk.mT) and torch.equal(Ck, Ck.mT)
+    ehl = soa2d.elem_hessian2d_ref(xl, dd.conn_local, dd.lg4, dd.lu, dd.llam,
+                                   dd.lw, sysm.mat, sysm.dt_sq)
+    # the kernel's W, as on the path (ordered slot sums: symmetric bit for
+    # bit; the plain version's atomic index_add_ on the card need not be)
+    h_args = (ehl, Wk, free, dd.mass_local + dd.mass_dif * free, dd.own_tab)
+    Hk, dk = ops.local_h_assemble2d(*h_args)
+    Hr, dr = admm2d.local_h_assemble2d_ref(*h_args)
+    assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
+    assert torch.equal(Hk, Hk.mT)
+    torch.cuda.synchronize()
+    for k, m in (("admm_local_step2d", 1), ("dtw_scatter2d", 2),
+                 ("ls_trial_energy2d_parts", 1), ("elem_gradient2d_from_F", 1),
+                 ("w_assemble2d", 1), ("local_h_assemble2d", 1)):
+        assert ops.launches[k] == m, (k, ops.launches[k])
+
+
+@pytest.mark.parametrize("stepper", ["ADMM", "ADMMDD"])
+def test_admm2d_frame_on_card_matches_cpu(cuda, stepper):
+    """One frame of 2D ADMM-PD / ADMM-DD 4 on the spikes golden scene, f64:
+    the card (K29 / K30, or the four ADMM-DD entries) against the CPU's
+    plain versions, equal iteration counts, z = 0; K29 once an iteration,
+    K30 once an iteration and once a frame; w_assemble2d once a frame."""
+    out = []
+    for dev in ("cpu", cuda):
+        st = _admm_2d(dev, torch.float64, stepper, resolution=200)
+        n0 = dict(ops.launches)
+        s, (stats, e) = st.step(st.init_state())
+        assert stats.stop == "tol" and stats.inner_iters > 0
+        n_launch = {k: ops.launches[k] - n0[k] for k in ops.KERNELS}
+        if dev != "cpu":
+            if stepper == "ADMM":
+                assert n_launch["admm_local_step2d"] == stats.inner_iters
+                assert n_launch["dtw_scatter2d"] == stats.inner_iters + 1
+            else:
+                assert n_launch["w_assemble2d"] == 1
+                assert n_launch["elem_gradient2d_from_F"] \
+                    == stats.inner_iters + 1
+                assert n_launch["local_h_assemble2d"] \
+                    == 1 + (stats.inner_iters - 1) // 20
+                assert n_launch["ls_trial_energy2d_parts"] \
+                    >= 2 * stats.inner_iters
+        assert float(s.x[:, 2].abs().max()) == 0.0
+        out.append((s.x.cpu().numpy(), stats.inner_iters, e))
+    assert out[0][1] == out[1][1]
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8, atol=1e-11)
+    assert out[1][2] == pytest.approx(out[0][2], rel=1e-9)

@@ -390,11 +390,11 @@ def test_2d_entry_points_need_a_card_unless_cpu_is_asked(tmp_path,
 
 
 @pytest.mark.parametrize("stepper,extra", [
-    ("ADMM", ""), ("ADMMDD 4", ""), ("Newton", "restart status0"),
-    ("DOT 4", "restart status0")])
+    ("Newton", "restart status0"), ("DOT 4", "restart status0")])
 def test_unported_2d_configurations_raise(tmp_path, stepper, extra):
-    """ADMM, ADMM-DD and restart at dim 2 (the six quasi-Newton 2D
-    steppers run: tests/test_torch_dim2_steppers.py)."""
+    """Restart at dim 2 (every 2D stepper runs:
+    tests/test_torch_dim2_steppers.py, test_torch_admm2d.py,
+    test_torch_admmdd2d.py)."""
     cfg = Config.load(_scene(tmp_path, stepper, extra=extra))
     with pytest.raises(NotImplementedError, match="not ported .* yet"):
         dim2.Sim2D(cfg, str(tmp_path / "out"), device="cpu", mute=True)
