@@ -13,8 +13,8 @@ result line):
            elem2d.cu, K25-K28 dd2d.cu, K29 / K30 admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
            and elem.cu, those of K21 / K22 in elem2d.cu, K26's W and
-           local-Hessian entries in dd2d.cu) with nvcc for
-           sm_90a, one nvcc per source, all at once; K4 and K9 with Triton
+           local-Hessian entries in dd2d.cu; K9 lbfgs.cu) with nvcc for
+           sm_90a, one nvcc per source, all at once; K4 with Triton
   kernels  each kernel against its plain PyTorch version on the card at the
            bar17 shapes, f64 and f32, with max errors against the
            tolerances, median times, the time of one PyTorch library call
@@ -29,7 +29,12 @@ result line):
            and its assembled blocks: the band, the 36 odd diagonal blocks
            of the first cyclic-reduction level (K6 symmetrized, and its
            6-block root batch lower-only; one indefinite block must come
-           back flagged and NaN), the factor's level blocks (K7 on bf16 and
+           back flagged and NaN; one launch a call), K6 at its callers'
+           other widths (a 2,000^2 block in both modes, the batch-1 block
+           of Newton's exact scan on bar17's P = 1 plan, widths 37 and
+           770: one launch a call; indefinite 770^2 blocks flagged and NaN
+           in both modes at batch 1 and 3), K9's two entries at bar17's
+           shape (m 5, n 49,419), the factor's level blocks (K7 on bf16 and
            f32 storage in f32 runs; one subdomain's strided blocks read in
            place), the vertex gather and averaging; K13 on the same element
            Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
@@ -47,8 +52,7 @@ result line):
            the full-size 2D scene's shapes (spikes at resolution 20,000:
            19,873 triangles, 10,171 vertices, a (20,342)^2 dense matrix) on
            random, inverted, near-degenerate and rest-state deformations;
-           K6 above its panel limit on a 2,000^2 block (the host's split: 2
-           launches; an indefinite block flagged and NaN); K25-K28 at the
+           K25-K28 at the
            dim2dd path's shapes (the same scene on the 4-part element plan:
            P 4, n2p 5,248; K28 on the 10,171^2 PD matrix) on a deformed
            configuration, and factorize_fast's global 1e-4 tier on an
@@ -99,7 +103,8 @@ result line):
            coarse factor / compact / K12 / scan) and the apply (fine /
            coarse) timed; K9-K12 and K5's compact entry point against their
            plain versions on the real plan, owner map, element Hessians and
-           L-BFGS history, and K6 and K7 at this path's own shapes (the
+           L-BFGS history (K9's two entries), and K6 and K7 at this
+           path's own shapes (the
            (6P)^2 coarse block, the scan's lower-only (133, 768, 768)
            stage, the two mat-vecs on Lc^{-1}), f64 and f32, timed with
            library and bound; the first 2 frames again with the plain
@@ -142,8 +147,9 @@ JSON record (per kernel: launches of all paths' runs and
 launches_by_path {main, steppers, admm, scale, dim2, dim2dd, dim2admm};
 times at the
 bar17 shapes, the 2D kernels' at the full-size spikes scene's; under "bar135"
-K6's and K7's at the bar135 shapes, under "split2000" K6's on the 2,000^2
-block) and {"ok": true, "device": {...}}. Exits non-zero without a result
+K6's, K7's and K9's at the bar135 shapes; K6's at its other widths under
+"split2000", "lower2000", "newton", "w37", "w770") and {"ok": true,
+"device": {...}}. Exits non-zero without a result
 line when no CUDA device is present.
 """
 
@@ -266,12 +272,10 @@ SOURCES = {
                   "dot_tpu/steppers/core.py:1263"),
     "h0_average": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
                    "dot_tpu/steppers/core.py:1263"),
-    "lbfgs_loop1": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
+    "lbfgs_first": ("cuda", "dot_tpu_torch/kernels/csrc/lbfgs.cu",
                     "dot_tpu/steppers/quasi_newton.py:116"),
-    "lbfgs_loop2": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
-                    "dot_tpu/steppers/quasi_newton.py:116"),
-    "lbfgs_combine": ("triton", "dot_tpu_torch/kernels/triton_lbfgs.py",
-                      "dot_tpu/steppers/quasi_newton.py:116"),
+    "lbfgs_second": ("cuda", "dot_tpu_torch/kernels/csrc/lbfgs.cu",
+                     "dot_tpu/steppers/quasi_newton.py:116"),
     "coarse_assemble": ("cuda", "dot_tpu_torch/kernels/csrc/coarse.cu",
                         "dot_tpu/steppers/core.py:1319"),
     "coarse_restrict": ("cuda", "dot_tpu_torch/kernels/csrc/coarse.cu",
@@ -385,8 +389,8 @@ SCALE_SCENE = SCENE_TMPL.replace("timeStepper DOT 6",
 # chunked band; bar135 takes the chunked band instead of K5's band)
 MAIN_KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
                 "direction_pass", "band_assemble", "chol_inv",
-                "block_matvec", "h0_gather", "h0_average", "lbfgs_loop1",
-                "lbfgs_loop2", "lbfgs_combine")
+                "block_matvec", "h0_gather", "h0_average", "lbfgs_first",
+                "lbfgs_second")
 SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
     "coarse_assemble", "coarse_restrict", "coarse_prolong", "band_compact",
     "band_equil_scatter")
@@ -396,7 +400,7 @@ SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
 # the block-Jacobi LBFGS-JH (there too) and for GSDD, whose sweeps meet the
 # same gradient tolerance with more low-frequency error left (dot_tpu's own
 # tests/test_admm.py:63 holds it at 3e-3 after 2 frames; it grows by frame)
-_QN = ("lbfgs_loop1", "lbfgs_loop2", "lbfgs_combine")
+_QN = ("lbfgs_first", "lbfgs_second")
 _H0 = ("elem_hessian", "chol_inv", "block_matvec", "h0_gather", "h0_average")
 STEPPER_RUNS = {
     "LBFGS": ("LBFGS", 2, 3, 1e-3, _QN + (
@@ -478,7 +482,7 @@ def phase_probe(torch):
 
 
 def phase_build(torch):
-    from dot_tpu_torch.kernels import ops, triton_lbfgs, triton_qf
+    from dot_tpu_torch.kernels import ops, triton_qf
     from dot_tpu_torch.kernels.csrc import build
     t0 = time.perf_counter()
     ops._load()
@@ -511,18 +515,10 @@ def phase_build(torch):
         h = torch.zeros((144, 2), dtype=dt, device=dev)
         triton_qf.launch(p, conn, g9, None)
         triton_qf.launch(p, conn, g9, h)
-        # K9: both dot variants, both finishers, both combine signs
-        S = torch.zeros((5, 8), dtype=dt, device=dev)
-        v = torch.zeros(8, dtype=dt, device=dev)
-        rho = torch.ones(5, dtype=dt, device=dev)
-        k, G = triton_lbfgs.launch_loop1(S, S, v, rho, rho)
-        triton_lbfgs.launch_loop2(S, v, k, G, rho, rho)
-        triton_lbfgs.launch_combine(v, k, S, True, True)
-        triton_lbfgs.launch_combine(v, k, S, False, False)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     say(f"build: nvcc {len(build.LIBRARIES)} sources in parallel "
-        f"{t1 - t0:.1f} s (sm_90a), triton K4 and K9 {t2 - t1:.1f} s")
+        f"{t1 - t0:.1f} s (sm_90a), triton K4 {t2 - t1:.1f} s")
 
 
 def _bar17_inputs(torch, dtype, rng):
@@ -823,7 +819,11 @@ def phase_h0_kernels(torch, record):
             dg = diag / dsq[..., :, None] / dsq[..., None, :]
             A_odd = dg[1::2].reshape(-1, bs, bs).contiguous()
             A_root = dg[0].contiguous()
+            ops.reset_launches()
             Lk, Xk, bk = ops.chol_inv(A_odd, True)
+            if ops.launches["chol_inv"] != 1:
+                bad.append(f"chol_inv {name}: {ops.launches['chol_inv']} "
+                           "launches for one call")
             Lr, Xr, br = band.chol_inv_ref(A_odd, True)
             Lk2, Xk2, _ = ops.chol_inv(A_root, False)
             Lr2, Xr2, _ = band.chol_inv_ref(A_root, False)
@@ -850,14 +850,9 @@ def phase_h0_kernels(torch, record):
                 f"{bool(torch.isnan(Li_[3]).all())}")
             if not flag_ok:
                 bad.append(f"chol_inv {name}: indefinite block not flagged")
-            eye_b = torch.eye(bs, dtype=dtype, device="cuda")
-
-            def lib_chol():
-                Lq = torch.linalg.cholesky(A_odd)
-                return torch.linalg.solve_triangular(Lq, eye_b, upper=False)
             times["chol_inv"] = (lambda: ops.chol_inv(A_odd, True),
                                  lambda: band.chol_inv_ref(A_odd, True),
-                                 lib_chol)
+                                 _k6_library(torch, A_odd))
             costs["chol_inv"] = (3 * A_odd.numel() * sz,
                                  A_odd.shape[0] * 2 * bs ** 3 / 3)
             del Lk, Xk, Lr, Xr, Li_, Xi_, indef
@@ -1066,7 +1061,14 @@ def phase_main(torch, launches_out):
                         f"{r['stop']},{r['seconds']:.3f}" for r in fr))
         say("main: sysE " + " ".join("%.10e" % r["sys_e"] for r in fr))
         say(f"main: kernel launches {launches}")
+        n_it = sum(r["iters"] for r in fr[:11])
+        say(f"main: K9 launches: lbfgs_first {launches['lbfgs_first']}, "
+            f"lbfgs_second {launches['lbfgs_second']} over {n_it} "
+            f"iterations (one of each a two-loop); K6 "
+            f"{launches['chol_inv']} over 11 rebuilds")
         problems = []
+        if launches["lbfgs_first"] != launches["lbfgs_second"]:
+            problems.append("K9's two entries launched unequally")
         for r in fr:
             if not np.isfinite(r["sys_e"]):
                 problems.append(f"frame {r['frame']} sysE not finite")
@@ -1122,6 +1124,183 @@ def _scene_variant(scene, name, stepper, warm=2):
     with open(path, "w") as f:
         f.write(text)
     return path
+
+
+def _spd_batch(torch, rng, batch, n, dtype, symmetrize):
+    """SPD blocks G G^T / n + I on the card, with a skew part above the
+    diagonal that the lower mode must not read and the symmetrized mode
+    averages away."""
+    G = torch.as_tensor(rng.normal(size=(batch, n, n)), dtype=dtype,
+                        device="cuda")
+    skew = torch.triu(torch.as_tensor(rng.normal(size=(batch, n, n)),
+                                      dtype=dtype, device="cuda"), 1) * 1e-3
+    eye = torch.eye(n, dtype=dtype, device="cuda")
+    return (G @ G.mT / n + eye + skew
+            - (skew.mT if symmetrize else 0.0)).contiguous()
+
+
+def _k6_library(torch, A):
+    """The library yardstick of K6: cholesky_ex + solve_triangular
+    against I, one sequence."""
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+
+    def lib():
+        Lq = torch.linalg.cholesky_ex(A)[0]
+        return torch.linalg.solve_triangular(Lq, eye, upper=False)
+    return lib
+
+
+def _k6_check(torch, ops, band, A, sym, tol, bad, what):
+    """K6 on A against its plain version: (checks, launches of the call);
+    an SPD block flagged or a call of other than one launch is a fault."""
+    ops.reset_launches()
+    Lk, Xk, bk = ops.chol_inv(A, sym)
+    n_k6 = ops.launches["chol_inv"]
+    Lr, Xr, br = band.chol_inv_ref(A, sym)
+    if bool(bk.any()) or bool(br.any()):
+        bad.append(f"chol_inv {what}: an SPD block was flagged")
+    if n_k6 != 1:
+        bad.append(f"chol_inv {what}: {n_k6} launches for one call")
+    if not (torch.equal(Lk, torch.tril(Lk))
+            and torch.equal(Xk, torch.tril(Xk))):
+        bad.append(f"chol_inv {what}: nonzero above the diagonal")
+    return [("L", _rel_norm(Lk, Lr), tol, float((Lk - Lr).abs().max())),
+            ("Linv", _rel_norm(Xk, Xr), tol,
+             float((Xk - Xr).abs().max()))], n_k6
+
+
+def _k9_checks(torch, S, T, g, r, rho, valid, tol, suffix=""):
+    """K9's two entries against their plain versions on one history:
+    (checks, timed calls, costs) keyed by entry (+ suffix). G and k are
+    measured against the scale of their sums (|s_i| |t_j|, max |k|), q and
+    the result max-relative."""
+    from dot_tpu_torch.kernels import lbfgs, ops
+    m, n = S.shape
+    sz = S.element_size()
+    q_, k_, G_ = ops.lbfgs_first(S, T, g, rho, valid)
+    qr, kr, Gr = lbfgs.lbfgs_first_ref(S, T, g, rho, valid)
+    o_ = ops.lbfgs_second(T, S, r, kr, Gr, rho, valid)
+    orf = lbfgs.lbfgs_second_ref(T, S, r, kr, Gr, rho, valid)
+    sn, tn = S.norm(dim=1), T.norm(dim=1)
+    gscale = float((sn[:, None] * tn[None, :]).max()) + 1e-300
+    kscale = float(kr.abs().max()) + 1e-300
+    f, s2 = "lbfgs_first" + suffix, "lbfgs_second" + suffix
+    res = {f: [("G", float((G_ - Gr).abs().max()) / gscale, tol,
+                float((G_ - Gr).abs().max())),
+               ("k", float((k_ - kr).abs().max()) / kscale, tol,
+                float((k_ - kr).abs().max())),
+               ("q", _rel_max(q_, qr), tol, float((q_ - qr).abs().max()))],
+           s2: [("out", _rel_max(o_, orf), tol,
+                 float((o_ - orf).abs().max()))]}
+    stk = torch.cat([g[None], T]).T.contiguous()
+    times = {f: (lambda: ops.lbfgs_first(S, T, g, rho, valid),
+                 lambda: lbfgs.lbfgs_first_ref(S, T, g, rho, valid),
+                 lambda: (torch.matmul(S, stk),
+                          torch.addmv(g, T.T, kr, beta=-1, alpha=-1))),
+             s2: (lambda: ops.lbfgs_second(T, S, r, kr, Gr, rho, valid),
+                  lambda: lbfgs.lbfgs_second_ref(T, S, r, kr, Gr, rho,
+                                                 valid),
+                  lambda: (torch.mv(T, r), torch.addmv(r, S.T, kr)))}
+    # bytes: S, T and g read, q written (first); T, S and r read, out
+    # written (second); operations: the dots and the combination
+    costs = {f: ((2 * m + 2) * n * sz, 2 * (m + m * m) * n + 2 * m * n + n),
+             s2: ((2 * m + 2) * n * sz, 4 * m * n + n)}
+    return res, times, costs
+
+
+def phase_k6_k9_kernels(torch, record):
+    """K6 at the widths its callers give beyond bar17's CR level (the h0
+    kernels) and bar135's scan stage and coarse block (the scale phase):
+    a 2,000^2 block in both modes ("split2000": the first design split it
+    on the host; "lower2000"), the batch-1 block of Newton's exact scan on
+    bar17's P = 1 plan ("newton", its band_bs from build_plan(mesh, 1)),
+    two widths that are no multiple of the tile ("w37", "w770"); one
+    launch a call; indefinite blocks in both modes at batch 1 and 3, the
+    bad pivot in the first and in the last tile. K9's two entries at
+    bar17's shape (m 5, n = 3 x 16,473 = 49,419) on random histories."""
+    from dot_tpu_torch import partition
+    from dot_tpu_torch.kernels import band, ops
+    from dot_tpu_torch.mesh_gen import bar_mesh
+    mesh = bar_mesh(*BAR17, size=(4.0, 1.0, 1.0))
+    bs1 = partition.build_plan(mesh, 1).band_bs
+    n17 = 3 * mesh.n_vert
+    shapes = (("split2000", 1, 2000, True), ("lower2000", 1, 2000, False),
+              ("newton", 1, bs1, False), ("w37", 3, 37, True),
+              ("w770", 2, 770, False))
+    rng = np.random.default_rng(20261018)
+    bad = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        tol6 = 1e-10 if dtype == torch.float64 else 1e-5
+        sz = 8 if dtype == torch.float64 else 4
+        for tag, B, n, sym in shapes:
+            A = _spd_batch(torch, rng, B, n, dtype, sym)
+            checks, n_k6 = _k6_check(torch, ops, band, A, sym, tol6, bad,
+                                     f"{tag} {name}")
+            kname = f"chol_inv@{tag}"
+            _report(torch, name, kname, checks,
+                    (lambda A=A, sym=sym: ops.chol_inv(A, sym),
+                     lambda A=A, sym=sym: band.chol_inv_ref(A, sym),
+                     _k6_library(torch, A)),
+                    (3 * A.numel() * sz, B * 2 * n ** 3 / 3), bad, record,
+                    plain_reps=5)
+            if name == "float32":
+                record[kname].update(launches_per_call=n_k6, batch=B,
+                                     width=n, symmetrize=sym)
+            del A
+        flags = []
+        for sym in (True, False):
+            for B in (1, 3):
+                for where in (5, 765):
+                    A = _spd_batch(torch, rng, B, 770, dtype, sym)
+                    mid = B // 2
+                    A[mid, where, where] = -1.0
+                    Lk, Xk, bk = ops.chol_inv(A, sym)
+                    want = [b == mid for b in range(B)]
+                    others = [b for b in range(B) if b != mid]
+                    ok = (bk.tolist() == want
+                          and bool(torch.isnan(Lk[mid]).all())
+                          and bool(torch.isnan(Xk[mid]).all())
+                          and bool(torch.isfinite(Lk[others]).all())
+                          and bool(torch.isfinite(Xk[others]).all()))
+                    flags.append(ok)
+                    if not ok:
+                        bad.append(f"chol_inv {name}: indefinite block "
+                                   f"(sym {sym}, batch {B}, pivot {where}) "
+                                   f"flags {bk.tolist()}")
+        say(f"kernels: {name} chol_inv indefinite 770^2 blocks (both modes, "
+            f"batch 1 and 3, bad pivot in the first / last tile): "
+            f"{sum(flags)} of {len(flags)} flagged and all NaN with finite "
+            f"neighbours")
+        # K9 at bar17's shape: m 5, all slots holding pairs
+        m = 5
+        S = torch.as_tensor(rng.normal(size=(m, n17)), dtype=dtype,
+                            device="cuda")
+        T = S * torch.as_tensor(rng.uniform(0.5, 2.0, size=(m, n17)),
+                                dtype=dtype, device="cuda") \
+            + 0.1 * torch.as_tensor(rng.normal(size=(m, n17)), dtype=dtype,
+                                    device="cuda")
+        rho = (S * T).sum(1)
+        valid = torch.ones(m, dtype=dtype, device="cuda")
+        g = torch.as_tensor(rng.normal(size=n17), dtype=dtype, device="cuda")
+        r = torch.as_tensor(rng.normal(size=n17), dtype=dtype, device="cuda")
+        ops.reset_launches()
+        res, times, costs = _k9_checks(torch, S, T, g, r, rho, valid,
+                                       TOL_SCALE[name]["elem"])
+        if (ops.launches["lbfgs_first"], ops.launches["lbfgs_second"]) \
+                != (1, 1):
+            bad.append(f"lbfgs {name}: {ops.launches} launches for one "
+                       "call of each entry")
+        torch.cuda.synchronize()
+        for kname, checks in res.items():
+            _report(torch, name, kname, checks, times[kname], costs[kname],
+                    bad, record)
+        say(f"kernels: {name} shapes: K6 {[(t, B, n) for t, B, n, _ in shapes]}"
+            f" (bar17's P = 1 band_bs {bs1}); K9 S, T {tuple(S.shape)}")
+        torch.cuda.empty_cache()
+    if bad:
+        raise Fail("kernel disagrees with its plain version: "
+                   + "; ".join(bad))
 
 
 def phase_pd_kernels(torch, record):
@@ -2054,48 +2233,6 @@ def phase_dim2_kernels(torch, record):
         del Hk, vals, hk, hr, d
         torch.cuda.empty_cache()
 
-        # ---- K6 above its panel limit: the host's 2 x 2 split
-        nb6 = 2000
-        G = torch.as_tensor(rng.normal(size=(nb6, nb6)), dtype=dtype,
-                            device="cuda")
-        A = (G @ G.t() / nb6 + torch.eye(nb6, dtype=dtype, device="cuda"))[None]
-        ops.reset_launches()
-        Lk, Xk, bk = ops.chol_inv(A, True)
-        n_k6 = ops.launches["chol_inv"]
-        Lr, Xr, br = band.chol_inv_ref(A, True)
-        Ll, Xl, _ = ops.chol_inv(A, False)
-        indef = A - 2.0 * torch.eye(nb6, dtype=dtype, device="cuda")
-        Li_, Xi_, bi = ops.chol_inv(indef, True)
-        lim = ops.chol_inv_max_n(dtype)
-        tol6 = 1e-10 if dtype == torch.float64 else 1e-5
-        checks = [("L", _rel_norm(Lk, Lr), tol6,
-                   float((Lk - Lr).abs().max())),
-                  ("Linv", _rel_norm(Xk, Xr), tol6,
-                   float((Xk - Xr).abs().max())),
-                  ("L lower-only", _rel_norm(Ll, Lr), tol6, None),
-                  ("Linv lower-only", _rel_norm(Xl, Xr), tol6, None)]
-        say(f"kernels: {name} chol_inv above the panel limit ({lim}): a "
-            f"{nb6}^2 block in {n_k6} K6 launches; SPD flagged "
-            f"{bk.tolist()} (plain {br.tolist()}); indefinite flagged "
-            f"{bi.tolist()}, NaN L {bool(torch.isnan(Li_).all())}, NaN Linv "
-            f"{bool(torch.isnan(Xi_).all())}")
-        if (nb6 <= lim or n_k6 < 2 or bool(bk.any()) or not bool(bi.all())
-                or not bool(torch.isnan(Li_).all())
-                or not bool(torch.isnan(Xi_).all())):
-            bad.append(f"chol_inv split {name}: limit {lim}, {n_k6} launches, "
-                       f"flags {bk.tolist()} / {bi.tolist()}")
-        eye6 = torch.eye(nb6, dtype=dtype, device="cuda")
-
-        def lib_chol():
-            Lq = torch.linalg.cholesky(A)
-            return torch.linalg.solve_triangular(Lq, eye6, upper=False)
-        _report(torch, name, "chol_inv@split2000", checks,
-                (lambda: ops.chol_inv(A, True),
-                 lambda: band.chol_inv_ref(A, True), lib_chol),
-                (3 * A.numel() * sz, 2 * nb6 ** 3 / 3), bad, record,
-                plain_reps=5)
-        del A, G, Lk, Xk, Lr, Xr, Ll, Xl, indef, Li_, Xi_
-        torch.cuda.empty_cache()
     if bad:
         raise Fail("kernel disagrees with its plain version: "
                    + "; ".join(bad))
@@ -3189,7 +3326,7 @@ def phase_dim2admm(torch, launches_out, newton=None):
 def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
     """K9-K12 and K5's compact entry point against their plain versions on
     the bar135 plan (f64 and f32), timed with library call and bound."""
-    from dot_tpu_torch.kernels import band, coarse, lbfgs, ops
+    from dot_tpu_torch.kernels import band, coarse, ops
     from dot_tpu_torch.steppers import System
     mesh, cfg, plan = sysm.mesh, sysm.cfg, sysm.plan
     bad = []
@@ -3209,42 +3346,10 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
         n = S.shape[1]
         g = sm.gradient(xx, xx, fixed).reshape(-1).contiguous()
         r = torch.randn(n, dtype=dtype, device="cuda")
-        k_, G_ = ops.lbfgs_loop1(S, T, g, rho, valid)
-        kr, Gr = lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid)
-        c_ = ops.lbfgs_loop2(T, r, kr, Gr, rho, valid)
-        cr = lbfgs.lbfgs_loop2_ref(T, r, kr, Gr, rho, valid)
-        q_ = ops.lbfgs_combine(g, kr, T, True, True)
-        qr = lbfgs.lbfgs_combine_ref(g, kr, T, True, True)
-        # the scalars to the scale of their sums (|s_i| |t_j| etc.)
-        sn, tn = S.norm(dim=1), T.norm(dim=1)
-        gscale = float((sn[:, None] * tn[None, :]).max())
-        kscale = float((kr.abs().max() + 1e-300))
-        res["lbfgs_loop1"] = [
-            ("G", float((G_ - Gr).abs().max()) / gscale, tol["sum"],
-             float((G_ - Gr).abs().max())),
-            ("k", float((k_ - kr).abs().max()) / kscale, tol["sum"],
-             float((k_ - kr).abs().max()))]
-        res["lbfgs_loop2"] = [("c", _rel_max(c_, cr), tol["sum"],
-                               float((c_ - cr).abs().max()))]
-        res["lbfgs_combine"] = [("q", _rel_max(q_, qr), tol["elem"],
-                                 float((q_ - qr).abs().max()))]
-        stk = torch.cat([g[None], T]).T.contiguous()
-        times["lbfgs_loop1"] = (
-            lambda: ops.lbfgs_loop1(S, T, g, rho, valid),
-            lambda: lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid),
-            lambda: torch.matmul(S, stk))
-        times["lbfgs_loop2"] = (
-            lambda: ops.lbfgs_loop2(T, r, kr, Gr, rho, valid),
-            lambda: lbfgs.lbfgs_loop2_ref(T, r, kr, Gr, rho, valid),
-            lambda: torch.matmul(T, r))
-        times["lbfgs_combine"] = (
-            lambda: ops.lbfgs_combine(g, kr, T, True, True),
-            lambda: lbfgs.lbfgs_combine_ref(g, kr, T, True, True),
-            lambda: torch.addmv(g, T.T, kr))
-        costs["lbfgs_loop1"] = ((2 * m * n + n) * sz,
-                                2 * (m + m * m) * n)
-        costs["lbfgs_loop2"] = ((m * n + n) * sz, 2 * m * n)
-        costs["lbfgs_combine"] = ((m * n + 2 * n) * sz, 2 * m * n + n)
+        k9 = _k9_checks(torch, S, T, g, r, rho, valid, tol["elem"],
+                        "@bar135")
+        for d_, k9d in zip((res, times, costs), k9):
+            d_.update(k9d)
 
         # K10, K11 on the real owner map and element Hessians
         cp = sm.coarse_plan
@@ -3358,26 +3463,15 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
         Ac = (Kn + 1e-4 * eye6)[None].contiguous()
         if bool(band.chol_inv_ref(Ac, True)[2].any()):
             Ac = (Kn + 0.05 * eye6)[None].contiguous()
-        eye_b = torch.eye(bs, dtype=dtype, device="cuda")
         plain_inv = {}
-        for kname, A, sym, eye_n in (("chol_inv@coarse", Ac, True, eye6),
-                                     ("chol_inv@scan", A0, False, eye_b)):
-            Lk, Xk, bk = ops.chol_inv(A, sym)
-            Lr, Xr, br = band.chol_inv_ref(A, sym)
-            plain_inv[kname] = Xr
-            if bool(bk.any()) or bool(br.any()):
-                bad.append(f"{kname} {name}: an SPD block was flagged")
-            res[kname] = [("L", _rel_norm(Lk, Lr), ch["chol"],
-                           float((Lk - Lr).abs().max())),
-                          ("Linv", _rel_norm(Xk, Xr), ch["chol"],
-                           float((Xk - Xr).abs().max()))]
-
-            def lib_chol(A=A, eye_n=eye_n):
-                Lq = torch.linalg.cholesky(A)
-                return torch.linalg.solve_triangular(Lq, eye_n, upper=False)
+        for kname, A, sym in (("chol_inv@coarse", Ac, True),
+                              ("chol_inv@scan", A0, False)):
+            res[kname], _ = _k6_check(torch, ops, band, A, sym, ch["chol"],
+                                      bad, f"{kname} {name}")
+            plain_inv[kname] = band.chol_inv_ref(A, sym)[1]
             times[kname] = (lambda A=A, sym=sym: ops.chol_inv(A, sym),
                             lambda A=A, sym=sym: band.chol_inv_ref(A, sym),
-                            lib_chol)
+                            _k6_library(torch, A))
             costs[kname] = (3 * A.numel() * sz,
                             A.shape[0] * 2 * A.shape[-1] ** 3 / 3)
         li = plain_inv["chol_inv@coarse"].contiguous()
@@ -3408,7 +3502,7 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
             f"{lp.total} x {bdt}; K6 {tuple(Ac.shape)} (shift "
             f"{float(Ac[0, 0, 0] - Kn[0, 0]):.2g}) and {tuple(A0.shape)} "
             f"lower-only, K7 {tuple(li.shape)} x {tuple(v6.shape)}")
-        del sm, eh, cr_, rows, stk, six, A0, Ac, Kn, li, Lk, Xk, Lr, Xr
+        del sm, eh, cr_, rows, six, A0, Ac, Kn, li, k9
         del plain_inv
         torch.cuda.empty_cache()
     if bad:
@@ -3557,6 +3651,7 @@ def main(argv=None):
         if "kernels" in phases:
             phase_kernels(torch, record)
             phase_h0_kernels(torch, record)
+            phase_k6_k9_kernels(torch, record)
             phase_pd_kernels(torch, record)
             phase_admm_kernels(torch, record)
         if "kernels" in phases or "kernels2d" in phases:
@@ -3590,8 +3685,8 @@ def main(argv=None):
 
     # launches: all paths' runs together, and each path's own count; the
     # times are at the bar17 shapes (the 2D kernels: the full-size spikes
-    # scene's), K6 and K7 also at bar135's own and K6 on a 2,000^2 block
-    # above its panel limit (the host's split)
+    # scene's), K6, K7 and K9 also at bar135's own ("bar135"), K6 at the
+    # other widths of its callers (split2000, lower2000, newton, w37, w770)
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         by_path = {path: launches[path][name] for path in PATHS}
@@ -3599,10 +3694,12 @@ def main(argv=None):
         for k, v in record.items():
             if k.startswith(name + "@"):
                 tag = k.split("@")[1]
-                if tag == "split2000":
+                if tag == "bar135":
                     extra[tag] = v
-                else:
+                elif tag in ("coarse", "scan"):
                     extra.setdefault("bar135", {})[tag] = v
+                else:
+                    extra[tag] = v
         kernels.append(dict(name=name, route=route, source=source,
                             replaces=replaces,
                             launches=sum(by_path.values()),

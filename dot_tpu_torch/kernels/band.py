@@ -134,38 +134,79 @@ def chol_inv_ref(A, symmetrize):
     return L, Li, bad
 
 
-def chol_inv_split(A, symmetrize, max_n, leaf):
-    """(L, L^{-1}, bad) of a batch (B, n, n) of SPD blocks of any width from
-    a factorization `leaf(A, symmetrize)` that takes blocks up to `max_n`
-    wide (K6: its panel lives in shared memory; chol_inv_ref in the CPU
-    tests). A wider block is split 2 x 2 on the host, recursively:
-      L11 from A11;  L21 = A21 L11^{-T};  L22 from A22 - L21 L21^T;
-      L^{-1} = [[L11^{-1}, 0], [-L22^{-1} L21 L11^{-1}, L22^{-1}]],
-    the three products with torch.matmul (dot_tpu has these inside a
-    library Cholesky, not in a kernel body). With `symmetrize` the halves
-    are cut from (A + A^T) / 2, else from the lower triangle. A failed half
-    is NaN, so everything after it is, and a flagged block comes back NaN in
-    L and L^{-1}, as from the leaf."""
-    n = A.shape[-1]
-    if n <= max_n:
-        return leaf(A.contiguous(), symmetrize)
-    k = n // 2
-    A21 = A[:, k:, :k]
-    if symmetrize:
-        A21 = (A21 + A[:, :k, k:].mT) / 2
-    L11, Li11, bad1 = chol_inv_split(A[:, :k, :k], symmetrize, max_n, leaf)
-    L21 = A21 @ Li11.mT
-    L22, Li22, bad2 = chol_inv_split(A[:, k:, k:] - L21 @ L21.mT, symmetrize,
-                                     max_n, leaf)
-    L = torch.zeros_like(A)
-    Li = torch.zeros_like(A)
-    L[:, :k, :k], L[:, k:, :k], L[:, k:, k:] = L11, L21, L22
-    Li[:, :k, :k], Li[:, k:, k:] = Li11, Li22
-    Li[:, k:, :k] = -(Li22 @ (L21 @ Li11))
-    bad = bad1 | bad2
+def k6_tile(dtype, batch):
+    """K6's tile width (csrc/chol_inv.cu): 32 in f64; in f32 64 for a
+    batch of 16 blocks or more (the GEMM updates' work sets the pace: the
+    wider micro-tile does more per shared-memory load), else 32 (the
+    diagonal tiles' serial factor sets it: a 32-wide tile's column step
+    is shorter)."""
+    if dtype == torch.float64:
+        return 32
+    return 64 if batch >= 16 else 32
+
+
+def _factor_inv_tile(W):
+    """K6's in-tile step on a batch (B, T, T) whose lower triangle is
+    read: at step c the columns right of c take the Schur update with the
+    unscaled column c (w_ij -= w_ic (w_jc / w_cc), the division as a
+    multiplication by the pivot's reciprocal) and the rows of
+    Y = D L^{-1} below c take -(w_ic / w_cc) Y[c, :]; then L and L^{-1}
+    are scaled by the root pivots. Returns (L, L^{-1}, bad pivot)."""
+    W = torch.tril(W)
+    T = W.shape[-1]
+    bad = torch.zeros(W.shape[0], dtype=torch.bool, device=W.device)
+    Y = torch.eye(T, dtype=W.dtype, device=W.device).repeat(W.shape[0], 1, 1)
+    for c in range(T):
+        piv = W[:, c, c]
+        bad |= ~(piv > 0)
+        ip = (1.0 / piv)[:, None]
+        fy = Y[:, c, :c + 1] * ip
+        Y[:, c + 1:, :c + 1] -= W[:, c + 1:, c, None] * fy[:, None, :]
+        f = W[:, c + 1:, c] * ip
+        W[:, c + 1:, c + 1:] -= torch.tril(W[:, c + 1:, c, None]
+                                           * f[:, None, :])
+    dv = torch.sqrt(torch.diagonal(W, dim1=-2, dim2=-1))
+    L = torch.tril(W, -1) / dv[:, None, :] + torch.diag_embed(dv)
+    return L, Y / dv[:, :, None], bad
+
+
+def chol_inv_tiled_ref(A, symmetrize, tile):
+    """K6's schedule in torch, a plain mirror of csrc/chol_inv.cu: the
+    blocked right-looking Cholesky over tile x tile tiles (the matrix
+    padded with I to a multiple of the tile) with L^{-1} built in the same
+    sweep. For k = 0 .. nt-1: every tile (i, j), j >= k, takes
+    -L[i, k-1] L[j, k-1]^T (lower entries) and the inverse's right-hand
+    side B[i, j], i >= k, j < k, takes -L[i, k-1] X[k-1, j]; the diagonal
+    tile is factored and inverted (_factor_inv_tile: Td); then the panel
+    L[i, k] = A[i, k] Td^T, i > k, and the row X[k, j] = Td B[k, j], j < k.
+    Returns (L, L^{-1}, bad) as chol_inv_ref."""
+    B, n = A.shape[0], A.shape[-1]
+    t = tile
+    nt = -(-n // t)
+    N = nt * t
+    M = (A + A.mT) / 2 if symmetrize else A
+    eye = torch.eye(N, dtype=A.dtype, device=A.device)
+    L = eye.repeat(B, 1, 1)
+    L[:, :n, :n] = torch.tril(M)
+    X = eye.repeat(B, 1, 1)
+    bad = torch.zeros(B, dtype=torch.bool, device=A.device)
+    for k in range(nt):
+        o, e = k * t, (k + 1) * t
+        if k > 0:
+            col = L[:, o:, o - t:o]
+            L[:, o:, o:] -= torch.tril(col @ col.mT)
+            X[:, o:, :o] -= col @ X[:, o - t:o, :o]
+        Lkk, Td, piv_bad = _factor_inv_tile(L[:, o:e, o:e])
+        L[:, o:e, o:e] = Lkk
+        X[:, o:e, o:e] = Td
+        bad |= piv_bad | ~torch.isfinite(Lkk).all(-1).all(-1)
+        L[:, e:, o:e] = L[:, e:, o:e] @ Td.mT
+        bad |= ~torch.isfinite(L[:, e:, o:e]).all(-1).all(-1)
+        X[:, o:e, :o] = Td @ X[:, o:e, :o]
+    L, X = L[:, :n, :n], X[:, :n, :n]
     nan = torch.tensor(float("nan"), dtype=A.dtype, device=A.device)
     return (torch.where(bad[:, None, None], nan, L),
-            torch.where(bad[:, None, None], nan, Li), bad)
+            torch.where(bad[:, None, None], nan, X), bad)
 
 
 def block_matvec_ref(A, v, c=None, trans=False, out=None):

@@ -1,5 +1,9 @@
 """Plain PyTorch versions of K9, the vector passes of the L-BFGS two-loop
-(dot_tpu/steppers/quasi_newton.py:116-165 _two_loop).
+(dot_tpu/steppers/quasi_newton.py:116-165 _two_loop), and of its two
+fused entries (csrc/lbfgs.cu: one launch each around the H0 apply):
+
+  lbfgs_first    lbfgs_loop1, then q = -g - k^T T      -> (q, k, G)
+  lbfgs_second   lbfgs_loop2, then out = r + c^T S     -> out
 
 The two-loop needs every inner product of the recursion, and dot_tpu
 derives them all from three contractions plus O(m^2) scalar recurrences
@@ -64,3 +68,15 @@ def lbfgs_combine_ref(x, c, V, neg_x=False, neg_c=False):
     cv = c @ V
     x = -x if neg_x else x
     return x - cv if neg_c else x + cv
+
+
+def lbfgs_first_ref(S, T, g, rho, valid):
+    """K9's first entry: (q (n,), k (m,), G (m, m)) from the gradient g."""
+    k, G = lbfgs_loop1_ref(S, T, g, rho, valid)
+    return lbfgs_combine_ref(g, k, T, neg_x=True, neg_c=True), k, G
+
+
+def lbfgs_second_ref(T, S, r, k, G, rho, valid):
+    """K9's second entry: r + c^T S (n,) from the H0-applied r, with c
+    from loop 2."""
+    return lbfgs_combine_ref(r, lbfgs_loop2_ref(T, r, k, G, rho, valid), S)

@@ -16,10 +16,10 @@ Each wrapper checks device, dtype, shape and contiguity, then
   passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
   K21-K24: csrc/elem2d.cu, K25-K28: csrc/dd2d.cu, K29-K30:
   csrc/admm2d.cu (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and
-  dd2d.cu), all through ctypes;
-  K4: triton_qf.py, K9:
-  triton_lbfgs.py), checks the launch's cudaGetLastError and adds one to
-  its count in `launches`;
+  dd2d.cu), K9: csrc/lbfgs.cu, all through ctypes (K6 and K9 launch
+  cooperatively); K4: triton_qf.py),
+  checks the launch's cudaGetLastError and adds one to its count in
+  `launches`;
 - raises for any other device.
 There is no fallback: a kernel that does not build or launch raises.
 
@@ -39,8 +39,8 @@ from . import admm, admm2d, band, coarse, dd2d, lbfgs, pd, soa, soa2d
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
-           "h0_gather", "h0_average", "lbfgs_loop1", "lbfgs_loop2",
-           "lbfgs_combine", "coarse_assemble", "coarse_restrict",
+           "h0_gather", "h0_average", "lbfgs_first", "lbfgs_second",
+           "coarse_assemble", "coarse_restrict",
            "coarse_prolong", "band_compact", "band_equil_scatter",
            "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
            "pd_scatter", "local_gather_one", "local_scatter_one",
@@ -66,9 +66,8 @@ plain = types.SimpleNamespace(
     block_matvec=band.block_matvec_ref,
     h0_gather=band.h0_gather_ref,
     h0_average=band.h0_average_ref,
-    lbfgs_loop1=lbfgs.lbfgs_loop1_ref,
-    lbfgs_loop2=lbfgs.lbfgs_loop2_ref,
-    lbfgs_combine=lbfgs.lbfgs_combine_ref,
+    lbfgs_first=lbfgs.lbfgs_first_ref,
+    lbfgs_second=lbfgs.lbfgs_second_ref,
     coarse_assemble=coarse.coarse_assemble_ref,
     coarse_restrict=coarse.coarse_restrict_ref,
     coarse_prolong=coarse.coarse_prolong_ref,
@@ -140,8 +139,9 @@ def _load():
                                            + [ctypes.c_double, I, P, P]),
             ("band_asm", "dot_band_assemble"): ([I, P, LL] + [P] * 7
                                                 + [LL, P, LL, LL, P, P]),
-            ("chol_inv", "dot_chol_inv"): [I, P, I, LL, I, P, P, P, P],
-            ("chol_inv", "dot_chol_inv_max_n"): [I],
+            ("chol_inv", "dot_chol_inv"): [I, I, P, I, LL, I, P, P, P, P],
+            ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
+            ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
             ("block_matvec", "dot_block_matvec"): [I, I] + [P] * 4
             + [LL, I, I, LL, P],
             ("block_matvec", "dot_block_matvec_k"): [I, I] + [P] * 4
@@ -227,7 +227,7 @@ def _load():
         for (lib, fn), args in sig.items():
             f = getattr(libs[lib], fn)
             f.argtypes = args
-            f.restype = LL if fn == "dot_chol_inv_max_n" else I
+            f.restype = I
             setattr(ns, fn[4:], f)
         _lib = ns
     return _lib
@@ -255,10 +255,10 @@ def _check(name, ref, tensors, shapes):
 
 
 def _route(name, t):
+    if t.is_cuda:
+        return True
     if t.device.type == "cpu":
         return False
-    if t.device.type == "cuda":
-        return True
     raise RuntimeError(f"{name}: no kernel for device {t.device}")
 
 
@@ -273,7 +273,9 @@ def _ptr(t):
 
 
 def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the current stream's handle; the raw getter of torch's CUDA builds
+    # skips building a Stream object (microseconds of host time a launch)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ls_trial_energy(F0, Fp, alpha, u, lam, w, mat, want_sigma=False):
@@ -414,44 +416,41 @@ def band_assemble(elem_h, freef, mass_flat, plan):
     return flat
 
 
-_chol_max_n = {}
+_ERRORS = {-2: "the device has no cooperative launch",
+           -3: "no block of the kernel fits on an SM",
+           -4: "device ordinal beyond the kernel's cache",
+           -5: "history length outside 1..8",
+           -6: "tile width not built for the dtype"}
 
 
-def chol_inv_max_n(dtype):
-    """The widest block K6 factors in one launch (its panel lives in shared
-    memory): ~1600 in f32, ~1400 in f64."""
-    if dtype not in _chol_max_n:
-        _chol_max_n[dtype] = _load().chol_inv_max_n(_DTYPES[dtype])
-    return _chol_max_n[dtype]
-
-
-def _chol_inv_launch(A, symmetrize):
-    """One K6 launch on a contiguous batch within the panel limit."""
-    lib = _load()
-    B, n = A.shape[0], A.shape[-1]
-    L = torch.empty_like(A)
-    Li = torch.empty_like(A)
-    info = torch.empty(B, dtype=torch.int32, device=A.device)
-    err = lib.chol_inv(_DTYPES[A.dtype], _ptr(A), n, B, int(bool(symmetrize)),
-                       _ptr(L), _ptr(Li), _ptr(info), _stream(A))
-    _ok("chol_inv", err)
-    return L, Li, info != 0
+def _ok_coop(name, err):
+    """_ok for the cooperatively launched kernels (K6, K9): their own
+    negative codes name what the card lacks."""
+    if err in _ERRORS:
+        raise RuntimeError(f"{name}: kernel not launched ({_ERRORS[err]})")
+    _ok(name, err)
 
 
 def chol_inv(A, symmetrize):
-    """K6: (L, L^{-1}, bad) of a batch (B, n, n) of SPD blocks; bad is a
-    (B,) bool flag and a flagged block is NaN in L and L^{-1}.
-    `symmetrize` factors (A + A^T) / 2, else the lower triangle is read.
-    A block wider than the kernel's shared-memory panel is split 2 x 2 on
-    the host (band.chol_inv_split: K6 on the halves, torch.matmul between
-    them), so any width factors, as in dot_tpu."""
+    """K6: (L, L^{-1}, bad) of a batch (B, n, n) of SPD blocks of any
+    width, in one launch; bad is a (B,) bool flag and a flagged block is
+    NaN in L and L^{-1}. `symmetrize` factors (A + A^T) / 2, else the lower
+    triangle is read."""
     name = "chol_inv"
     dt = _float(name, A)
     _need(name, "A", A, A.device, dt, (None, A.shape[-1], A.shape[-1]))
     if not _route(name, A):
         return band.chol_inv_ref(A, symmetrize)
-    return band.chol_inv_split(A, symmetrize, chol_inv_max_n(dt),
-                               _chol_inv_launch)
+    lib = _load()
+    B, n = A.shape[0], A.shape[-1]
+    L = torch.empty_like(A)
+    Li = torch.empty_like(A)
+    info = torch.empty(B, dtype=torch.int32, device=A.device)
+    err = lib.chol_inv(_DTYPES[dt], band.k6_tile(dt, B), _ptr(A), n, B,
+                       int(bool(symmetrize)), _ptr(L), _ptr(Li), _ptr(info),
+                       _stream(A))
+    _ok_coop(name, err)
+    return L, Li, info != 0
 
 
 def _overlap(a, b):
@@ -554,62 +553,88 @@ def h0_average(z, d, perm, segids, seg_off, dup):
 
 
 # ----------------------------------------------------------------------
-# K9: the L-BFGS two-loop's vector passes (Triton)
+# K9: the L-BFGS two-loop's vector passes, two cooperative launches
 # ----------------------------------------------------------------------
-def _history(name, S, T, v, rho, valid):
+def _history(name, S, T, v, rho, valid, k=None, G=None):
+    """The checks of K9's entries as one expression (they run every
+    L-BFGS iteration, on the host's critical path); on a failure _need
+    words the fault."""
     dt = _float(name, v)
     m, n = S.shape
-    dev = v.device
-    _need(name, "S", S, dev, dt, (m, n))
-    if T is not None:
-        _need(name, "T", T, dev, dt, (m, n))
-    _need(name, "v", v, dev, dt, (n,))
-    _need(name, "rho", rho, dev, dt, (m,))
-    _need(name, "valid", valid, dev, dt, (m,))
+    di = v.get_device()
+    ok = (S.dtype is dt and T.dtype is dt and rho.dtype is dt
+          and valid.dtype is dt and T.shape == S.shape and v.shape == (n,)
+          and rho.shape == (m,) and valid.shape == (m,)
+          and S.is_contiguous() and T.is_contiguous() and v.is_contiguous()
+          and rho.is_contiguous() and valid.is_contiguous()
+          and S.get_device() == di and T.get_device() == di
+          and rho.get_device() == di and valid.get_device() == di)
+    if k is not None:
+        ok = ok and (k.dtype is dt and G.dtype is dt and k.shape == (m,)
+                     and G.shape == (m, m) and k.is_contiguous()
+                     and G.is_contiguous() and k.get_device() == di
+                     and G.get_device() == di)
+    if not ok:
+        for key, t, shape in (("S", S, (m, n)), ("T", T, (m, n)),
+                              ("v", v, (n,)), ("rho", rho, (m,)),
+                              ("valid", valid, (m,)), ("k", k, (m,)),
+                              ("G", G, (m, m))):
+            if t is not None:
+                _need(name, key, t, v.device, dt, shape)
 
 
-def lbfgs_loop1(S, T, g, rho, valid):
-    """K9 (loop 1): (k (m,), G (m, m)) from S, T (m, n), the gradient g
-    (n,), rho and valid (m,); see kernels/lbfgs.py."""
-    name = "lbfgs_loop1"
+_lbfgs_scratch = {}
+
+
+def _scratch(dev, dt):
+    """The cached scratch of K9's two entries on (device, dtype): the
+    per-block partials (at most 4 blocks a SM, m + m^2 <= 72 each) and c."""
+    key = (dev, dt)
+    if key not in _lbfgs_scratch:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _lbfgs_scratch[key] = torch.empty(4 * sms * 72 + 8, dtype=dt,
+                                          device=dev)
+    return _lbfgs_scratch[key]
+
+
+def lbfgs_first(S, T, g, rho, valid):
+    """K9's first entry: (q (n,), k (m,), G (m, m)) from S, T (m, n), the
+    gradient g (n,), rho and valid (m,): loop 1 and q = -g - k^T T; see
+    kernels/lbfgs.py."""
+    name = "lbfgs_first"
     _history(name, S, T, g, rho, valid)
     if not _route(name, g):
-        return lbfgs.lbfgs_loop1_ref(S, T, g, rho, valid)
-    from . import triton_lbfgs
-    out = triton_lbfgs.launch_loop1(S, T, g, rho, valid)
-    launches[name] += 1
-    return out
+        return lbfgs.lbfgs_first_ref(S, T, g, rho, valid)
+    m, n = S.shape
+    q = torch.empty_like(g)
+    kG = torch.empty(m + m * m, dtype=g.dtype, device=g.device)
+    k, G = kG[:m], kG[m:].view(m, m)
+    scr = _scratch(g.device, g.dtype)
+    kp = kG.data_ptr()
+    err = _load().lbfgs_first(
+        _DTYPES[g.dtype], m, n, S.data_ptr(), T.data_ptr(), g.data_ptr(),
+        rho.data_ptr(), valid.data_ptr(), q.data_ptr(), kp,
+        kp + m * kG.element_size(), scr.data_ptr(), scr.numel(), _stream(g))
+    _ok_coop(name, err)
+    return q, k, G
 
 
-def lbfgs_loop2(T, r, k, G, rho, valid):
-    """K9 (loop 2): c (m,) from T (m, n), the H0-applied r (n,), loop 1's k
-    (m,) and G (m, m), rho and valid (m,)."""
-    name = "lbfgs_loop2"
-    _history(name, T, None, r, rho, valid)
-    m = T.shape[0]
-    _need(name, "k", k, r.device, r.dtype, (m,))
-    _need(name, "G", G, r.device, r.dtype, (m, m))
+def lbfgs_second(T, S, r, k, G, rho, valid):
+    """K9's second entry: r + c^T S (n,) from T, S (m, n), the H0-applied
+    r (n,), loop 1's k (m,) and G (m, m), rho and valid (m,), with c from
+    loop 2."""
+    name = "lbfgs_second"
+    _history(name, T, S, r, rho, valid, k, G)
+    m, n = T.shape
     if not _route(name, r):
-        return lbfgs.lbfgs_loop2_ref(T, r, k, G, rho, valid)
-    from . import triton_lbfgs
-    out = triton_lbfgs.launch_loop2(T, r, k, G, rho, valid)
-    launches[name] += 1
-    return out
-
-
-def lbfgs_combine(x, c, V, neg_x=False, neg_c=False):
-    """K9 (combine): (+-x) + (+-(c^T V)) for x (n,), c (m,), V (m, n)."""
-    name = "lbfgs_combine"
-    dt = _float(name, x)
-    m, n = V.shape
-    _need(name, "x", x, x.device, dt, (n,))
-    _need(name, "c", c, x.device, dt, (m,))
-    _need(name, "V", V, x.device, dt, (m, n))
-    if not _route(name, x):
-        return lbfgs.lbfgs_combine_ref(x, c, V, neg_x, neg_c)
-    from . import triton_lbfgs
-    out = triton_lbfgs.launch_combine(x, c, V, neg_x, neg_c)
-    launches[name] += 1
+        return lbfgs.lbfgs_second_ref(T, S, r, k, G, rho, valid)
+    out = torch.empty_like(r)
+    scr = _scratch(r.device, r.dtype)
+    err = _load().lbfgs_second(
+        _DTYPES[r.dtype], m, n, T.data_ptr(), S.data_ptr(), r.data_ptr(),
+        k.data_ptr(), G.data_ptr(), rho.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), scr.data_ptr(), scr.numel(), _stream(r))
+    _ok_coop(name, err)
     return out
 
 

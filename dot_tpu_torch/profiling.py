@@ -55,8 +55,7 @@ from .sim import Simulator
 from .steppers import gsdd, newton, quasi_newton
 
 # device-kernel name fragments of each wrapper's kernel (the second passes
-# of K1 and K4, which sum block partials, are left out; K9's dots_kernel
-# serves both loops and is counted under lbfgs_loop1)
+# of K1 and K4, which sum block partials, are left out)
 KERNEL_NAMES = {
     "ls_trial_energy": ("ls_trial_energy_kernel",),
     "elem_gradient": ("elem_gradient_kernel",),
@@ -67,9 +66,8 @@ KERNEL_NAMES = {
     "block_matvec": ("matvec_kernel", "matvec_t_kernel"),
     "h0_gather": ("h0_gather_kernel",),
     "h0_average": ("h0_average_kernel",),
-    "lbfgs_loop1": ("dots_kernel", "loop1_kernel"),
-    "lbfgs_loop2": ("loop2_kernel",),
-    "lbfgs_combine": ("combine_kernel",),
+    "lbfgs_first": ("lbfgs_first_kernel",),
+    "lbfgs_second": ("lbfgs_second_kernel",),
     "coarse_assemble": ("dotk10::assemble_kernel", "dotk10::reduce_kernel"),
     "coarse_restrict": ("dotk10::restrict_kernel",),
     "coarse_prolong": ("dotk10::prolong_kernel",),

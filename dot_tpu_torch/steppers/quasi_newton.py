@@ -7,7 +7,7 @@ dot_tpu's lax.while_loops become host loops: each line-search trial and
 each inner iteration reads its decision scalars back once (System.host,
 counted per step in StepStats.syncs). All other work stays on the device.
 The two-loop's vector passes and scalar recurrences are K9
-(kernels/triton_lbfgs.py; plain versions in kernels/lbfgs.py): 5 launches
+(kernels/csrc/lbfgs.cu; plain versions in kernels/lbfgs.py): 2 launches
 per iteration around the H0 apply instead of ~70 0-d torch ops.
 """
 
@@ -106,9 +106,9 @@ class QuasiNewtonStepper:
         derived from three contractions -- sq = S q0, G = S T^T,
         tr = T (H0 q) -- plus O(m^2) scalar recurrences, as dot_tpu does,
         in the field dtype with exact f32 accumulation (dot_tpu's
-        Precision.HIGHEST). K9 runs them as 5 launches around the H0 apply:
-        loop 1 (contractions + recurrence -> k, G), q = -g - k^T T, loop 2
-        (T r + recurrence -> c), r + c^T S."""
+        Precision.HIGHEST). K9 runs them as 2 launches around the H0 apply:
+        loop 1 (contractions + recurrence -> k, G) with q = -g - k^T T, and
+        loop 2 (T r + recurrence -> c) with r + c^T S."""
         lb_s, lb_t, lb_rho, lb_valid = bufs
         kern = self.system.k
         m = LBFGS_HISTORY
@@ -116,11 +116,10 @@ class QuasiNewtonStepper:
         S = lb_s.reshape(m, n)
         T = lb_t.reshape(m, n)
         gf = g.reshape(n)
-        k, G = kern.lbfgs_loop1(S, T, gf, lb_rho, lb_valid)
-        q = kern.lbfgs_combine(gf, k, T, neg_x=True, neg_c=True)
+        q, k, G = kern.lbfgs_first(S, T, gf, lb_rho, lb_valid)
         r = self.h0_apply(state, q.reshape(g.shape)).reshape(n)
-        c = kern.lbfgs_loop2(T, r, k, G, lb_rho, lb_valid)
-        return kern.lbfgs_combine(r, c, S).reshape(g.shape)
+        return kern.lbfgs_second(T, S, r, k, G, lb_rho,
+                                 lb_valid).reshape(g.shape)
 
     @staticmethod
     def _push_history(bufs, s_new, t_new, rho_new):

@@ -124,60 +124,68 @@ def test_chol_inv_flags_an_indefinite_block():
     assert _rel((L[0] @ Li[0]).numpy(), eye) <= 1e-12
 
 
+def _spd_skewed(n, symmetrize, seed, batch=1):
+    """(SPD G G^T / n + I, the same with a skew part above the diagonal
+    that the lower mode must not read and the symmetrized mode averages
+    away), numpy f64 (batch, n, n)."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(batch, n, n))
+    A = G @ np.swapaxes(G, 1, 2) / n + np.eye(n)
+    skew = np.triu(rng.normal(size=(batch, n, n)), 1) * 1e-3
+    return A, A + skew - (np.swapaxes(skew, 1, 2) if symmetrize else 0.0)
+
+
+@pytest.mark.parametrize("n", [37, 770, 2000])
 @pytest.mark.parametrize("symmetrize", [True, False], ids=["sym", "lower"])
-@pytest.mark.parametrize("prec", ["f64", "f32"])
-def test_chol_inv_split_above_the_panel_limit(prec, symmetrize):
-    """The host's 2 x 2 split that lifts K6's panel limit, on its own (the
-    leaf is the plain version with a limit of 600, so a 2,000^2 block is
-    split twice): L and L^{-1} of an SPD block equal the unsplit reference's
-    (f64 1e-10, f32 1e-5, norm-wise); a skew part above the diagonal is
-    ignored (lower) or averaged away (symmetrized)."""
+@pytest.mark.parametrize("prec,tile", [("f64", 32), ("f32", 32), ("f32", 64)],
+                         ids=["f64-t32", "f32-t32", "f32-t64"])
+def test_chol_inv_tiled_matches_reference_and_jax(prec, tile, symmetrize, n):
+    """The plain mirror of K6's tile schedule (the kernel's tiles: 32 in
+    f64, 32 or 64 in f32; widths that are no multiple of them, and one
+    wider than the first design's shared-memory panel) against
+    chol_inv_ref and against lax.linalg's Cholesky + triangular solve in
+    f64 on the same inputs: L and L^{-1} within f64 1e-10, f32 1e-5."""
     dtype, tol = {"f64": (torch.float64, 1e-10),
                   "f32": (torch.float32, 1e-5)}[prec]
-    rng = np.random.default_rng(3)
-    n = 2000
-    G = rng.normal(size=(n, n))
-    A = G @ G.T / n + np.eye(n)
-    skew = np.triu(rng.normal(size=(n, n)), 1) * 1e-3
-    At = torch.as_tensor((A + skew - (skew.T if symmetrize else 0.0))[None],
-                         dtype=dtype)
-    calls = []
-
-    def leaf(B, sym):
-        calls.append(B.shape[-1])
-        assert B.is_contiguous() and sym == symmetrize
-        return band.chol_inv_ref(B, sym)
-
-    L, Li, bad = band.chol_inv_split(At, symmetrize, 600, leaf)
-    Lr, Lir, bad_r = band.chol_inv_ref(torch.as_tensor(A[None], dtype=dtype),
-                                       True)
-    assert calls == [500, 500, 500, 500]
+    A, Ask = _spd_skewed(n, symmetrize, seed=3)
+    At = torch.as_tensor(Ask, dtype=dtype)
+    L, Li, bad = band.chol_inv_tiled_ref(At, symmetrize, tile)
+    Lr, Lir, bad_r = band.chol_inv_ref(At, symmetrize)
+    Lj = jax.lax.linalg.cholesky(jnp.asarray(Ask),
+                                 symmetrize_input=symmetrize)
+    Xj = jax.lax.linalg.triangular_solve(
+        Lj, jnp.broadcast_to(jnp.eye(n), Ask.shape), left_side=True,
+        lower=True)
     assert not bad.any() and not bad_r.any()
     assert _rel(L.numpy(), Lr.numpy()) <= tol
     assert _rel(Li.numpy(), Lir.numpy()) <= tol
+    assert _rel(L.numpy(), Lj) <= tol and _rel(Li.numpy(), Xj) <= tol
     assert torch.equal(L, torch.tril(L)) and torch.equal(Li, torch.tril(Li))
-    # within the limit nothing is split
-    assert band.chol_inv_split(At, symmetrize, n, leaf)[0].shape == At.shape
-    assert calls[-1] == n
 
 
-@pytest.mark.parametrize("where", ["first half", "second half"])
-def test_chol_inv_split_carries_nan_and_bad(where):
-    """An indefinite 2,000^2 block is flagged and NaN in L and L^{-1}
-    whichever half the bad pivot falls into, and its neighbour in the batch
-    stays finite: the H0 rebuild's tiers key on exactly that."""
-    rng = np.random.default_rng(4)
-    n = 2000
-    G = rng.normal(size=(n, n))
-    A = np.stack([G @ G.T / n + np.eye(n)] * 2)
-    k = 100 if where == "first half" else 1900
+@pytest.mark.parametrize("symmetrize", [True, False], ids=["sym", "lower"])
+@pytest.mark.parametrize("where", ["first tile", "last tile"])
+def test_chol_inv_tiled_flags_an_indefinite_block(where, symmetrize):
+    """A 770^2 block whose bad pivot falls in the first tile or in the
+    last one comes back flagged and all NaN in L and L^{-1} from the tile
+    schedule (f64 and f32), as from chol_inv_ref; its neighbours in the
+    batch stay finite and factor it: the H0 rebuild's tiers key on exactly
+    that."""
+    n = 770
+    k = 5 if where == "first tile" else 765
+    _, A = _spd_skewed(n, symmetrize, seed=4, batch=3)
     A[1, k, k] = -1.0
-    L, Li, bad = band.chol_inv_split(torch.as_tensor(A), True, 1100,
-                                     band.chol_inv_ref)
-    assert bad.tolist() == [False, True]
-    assert torch.isnan(L[1]).all() and torch.isnan(Li[1]).all()
-    assert torch.isfinite(L[0]).all() and torch.isfinite(Li[0]).all()
-    assert _rel((L[0] @ Li[0]).numpy(), np.eye(n)) <= 1e-10
+    for dtype in (torch.float64, torch.float32):
+        At = torch.as_tensor(A, dtype=dtype)
+        L, Li, bad = band.chol_inv_tiled_ref(At, symmetrize,
+                                             band.k6_tile(dtype, 3))
+        _, _, bad_r = band.chol_inv_ref(At, symmetrize)
+        assert bad.tolist() == [False, True, False] == bad_r.tolist()
+        assert torch.isnan(L[1]).all() and torch.isnan(Li[1]).all()
+        assert torch.isfinite(L[0::2]).all() and torch.isfinite(Li[0::2]).all()
+        eye = np.eye(n)
+        tol = 1e-10 if dtype == torch.float64 else 1e-5
+        assert _rel((L[2].double() @ Li[2].double()).numpy(), eye) <= tol
 
 
 @pytest.mark.parametrize("trans", [False, True], ids=["A", "At"])

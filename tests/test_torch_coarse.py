@@ -27,6 +27,7 @@ from dot_tpu.config import Config
 from dot_tpu.mesh_gen import bar_mesh
 from dot_tpu.steppers import DOTStepper as JDOT
 from dot_tpu.steppers import System as JSystem
+from dot_tpu.steppers import quasi_newton as jqn
 from dot_tpu.steppers.quasi_newton import QuasiNewtonStepper as JQN
 from dot_tpu_torch import convert
 from dot_tpu_torch.kernels import coarse, ops
@@ -232,7 +233,53 @@ def test_two_loop_plain_matches_dot_tpu(n_valid):
     tp = TStub()._two_loop(None, torch.as_tensor(g), tb)
     assert _rel(_np(tp), jp) <= 1e-12
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert ops.launches["lbfgs_loop1"] == ops.launches["lbfgs_combine"] == 0
+    assert ops.launches["lbfgs_first"] == ops.launches["lbfgs_second"] == 0
+
+
+@pytest.mark.parametrize("m", [1, 3, 5])
+def test_fused_two_loop_entries_match_dot_tpu(m, monkeypatch):
+    """K9's two fused entries (plain versions on the CPU): lbfgs_first, a
+    stub H0 (a fixed positive diagonal), lbfgs_second, against dot_tpu's
+    _two_loop with a history of m slots, each count 0..m of valid (newest)
+    slots and one history with an invalid slot between two valid ones."""
+    monkeypatch.setattr(jqn, "LBFGS_HISTORY", m)
+    rng = np.random.default_rng(20 + m)
+    nv = 40
+    patterns = [np.r_[np.zeros(m - v), np.ones(v)] for v in range(m + 1)]
+    if m >= 3:
+        patterns.append(np.r_[np.ones(m - 2), 0.0, 1.0])
+    for valid in patterns:
+        S = rng.normal(size=(m, nv, 3))
+        T = S * rng.uniform(0.5, 2.0, size=(m, nv, 3)) \
+            + 0.1 * rng.normal(size=(m, nv, 3))
+        rho = np.where(valid > 0, np.einsum("kij,kij->k", S, T), 1.0)
+        S[valid == 0] = 0.0
+        T[valid == 0] = 0.0
+        g = rng.normal(size=(nv, 3))
+        w = rng.uniform(0.5, 2.0, size=(nv, 3))
+
+        class JStub(JQN):
+            def __init__(self):
+                pass
+
+            def h0_apply(self, state, q):
+                return q * jnp.asarray(w)
+
+        jb = tuple(jnp.asarray(a) for a in (S, T, rho, valid))
+        jp = JStub()._two_loop(None, jnp.asarray(g), jb)
+        St, Tt = (torch.as_tensor(a.reshape(m, -1)) for a in (S, T))
+        rho_t, val_t = torch.as_tensor(rho), torch.as_tensor(valid)
+        ops.reset_launches()
+        q, k, G = ops.lbfgs_first(St, Tt, torch.as_tensor(g.reshape(-1)),
+                                  rho_t, val_t)
+        r = q * torch.as_tensor(w.reshape(-1))
+        out = ops.lbfgs_second(Tt, St, r, k, G, rho_t, val_t)
+        assert _rel(_np(out).reshape(nv, 3), jp) <= 1e-12
+        np.testing.assert_allclose(
+            _np(G), np.einsum("kn,jn->kj", S.reshape(m, -1),
+                              T.reshape(m, -1)), rtol=1e-12, atol=1e-12)
+        assert ops.launches["lbfgs_first"] == ops.launches["lbfgs_second"] \
+            == 0
 
 
 def test_coarse_frames_f64_match_dot_tpu():

@@ -3,13 +3,14 @@ the per-element passes, K5-K8 on the H0 rebuild and apply of a
 cyclic-reduction plan, K9 on random histories, K10-K11 on a coarse plan,
 K5's compact entry point and K12 on a forced chunked rebuild, K13-K16 on
 the other steppers' plans, K17-K20 and the per-slab / from-F entry points
-on the ADMM plans, K6 above its panel limit, the 2D kernels K21-K24 with
+on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
 ADMM-DD entries of K21, K22, K26) against its plain PyTorch
-version on CUDA tensors, and time steps on the card against the same steps
-on the CPU or on the plain versions (DOT on dense, cyclic-reduction and
-coarse + chunked plans, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton,
-DOT 4, ADMM-PD and ADMM-DD 4).
+version on CUDA tensors, K6 at its paths' shapes in one launch a call,
+and time steps on the card against the same steps on the CPU or on the
+plain versions (DOT on dense, cyclic-reduction and coarse + chunked plans,
+Newton, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton, DOT 4, ADMM-PD
+and ADMM-DD 4).
 Skipped where there is no CUDA device; where there is one, run
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
@@ -249,38 +250,41 @@ def _rel0(a, b):
 @pytest.mark.parametrize("n", [3000, 400000])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_lbfgs_kernels_match_plain_versions(cuda, dtype, n):
+    """K9's two fused entries against their plain versions with m = 1, 3
+    and 5 history slots, of which the newest 0..m hold pairs: one launch
+    an entry."""
     from dot_tpu_torch.kernels import lbfgs
     tol, tol_n = TOL_NEW[dtype]
     rng = np.random.default_rng(7)
-    m = 5
     ops.reset_launches()
-    for n_valid in range(m + 1):
-        S = rng.normal(size=(m, n))
-        T = S * rng.uniform(0.5, 2.0, size=(m, n)) + 0.1 * rng.normal(
-            size=(m, n))
-        valid = np.zeros(m)
-        valid[m - n_valid:] = 1.0
-        rho = np.where(valid > 0, np.einsum("ki,ki->k", S, T), 1.0)
-        S[valid == 0] = 0.0
-        T[valid == 0] = 0.0
+    calls = 0
+    for m in (1, 3, 5):
+        for n_valid in range(m + 1):
+            S = rng.normal(size=(m, n))
+            T = S * rng.uniform(0.5, 2.0, size=(m, n)) + 0.1 * rng.normal(
+                size=(m, n))
+            valid = np.zeros(m)
+            valid[m - n_valid:] = 1.0
+            rho = np.where(valid > 0, np.einsum("ki,ki->k", S, T), 1.0)
+            S[valid == 0] = 0.0
+            T[valid == 0] = 0.0
 
-        def t(a):
-            return torch.as_tensor(a, dtype=dtype, device=cuda)
-        S_, T_, g, r = t(S), t(T), t(rng.normal(size=n)), t(rng.normal(size=n))
-        rho_, val_ = t(rho), t(valid)
-        k, G = ops.lbfgs_loop1(S_, T_, g, rho_, val_)
-        kr, Gr = lbfgs.lbfgs_loop1_ref(S_, T_, g, rho_, val_)
-        assert _rel0(G, Gr) <= tol_n and _rel0(k, kr) <= tol_n
-        c = ops.lbfgs_loop2(T_, r, kr, Gr, rho_, val_)
-        cr = lbfgs.lbfgs_loop2_ref(T_, r, kr, Gr, rho_, val_)
-        assert _rel0(c, cr) <= tol_n
-        for neg in (False, True):
-            q = ops.lbfgs_combine(g, kr + 1.0, T_, neg, neg)
-            qr = lbfgs.lbfgs_combine_ref(g, kr + 1.0, T_, neg, neg)
+            def t(a):
+                return torch.as_tensor(a, dtype=dtype, device=cuda)
+            S_, T_ = t(S), t(T)
+            g, r = t(rng.normal(size=n)), t(rng.normal(size=n))
+            rho_, val_ = t(rho), t(valid)
+            q, k, G = ops.lbfgs_first(S_, T_, g, rho_, val_)
+            qr, kr, Gr = lbfgs.lbfgs_first_ref(S_, T_, g, rho_, val_)
+            assert _rel0(G, Gr) <= tol_n and _rel0(k, kr) <= tol_n
             assert _rel_max(q, qr) <= tol
+            out = ops.lbfgs_second(T_, S_, r, kr, Gr, rho_, val_)
+            outr = lbfgs.lbfgs_second_ref(T_, S_, r, kr, Gr, rho_, val_)
+            assert _rel_max(out, outr) <= tol
+            calls += 1
     torch.cuda.synchronize()
-    assert ops.launches["lbfgs_loop1"] == ops.launches["lbfgs_loop2"] == 6
-    assert ops.launches["lbfgs_combine"] == 12
+    assert ops.launches["lbfgs_first"] == ops.launches["lbfgs_second"] \
+        == calls
 
 
 def _coarse_system(dev, dtype, chunk=False):
@@ -679,17 +683,82 @@ def test_admm_dd_step_on_card_matches_cpu(cuda):
 
 
 # ----------------------------------------------------------------------
-# K6 above its panel limit
+# K6: one launch at any width and batch
 # ----------------------------------------------------------------------
+# (batch, width, symmetrize) at the paths' shapes: bar17's first CR level
+# (36 x 768, symmetrized), bar135's scan stage (133 x 768, lower only) and
+# coarse block (798), a 2,000^2 block in both modes, the batch-1 block of
+# Newton's exact scan on bar17's P = 1 plan (band_bs 1152), and widths
+# that are no multiple of the tile (64 in f32, 32 in f64)
+K6_SHAPES = [(36, 768, True), (133, 768, False), (1, 798, True),
+             (1, 2000, True), (1, 2000, False), (1, 1152, False),
+             (3, 37, True), (2, 770, False)]
+K6_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+
+
+def _spd(batch, n, dtype, dev, symmetrize, seed=6):
+    """SPD blocks G G^T / n + I with a skew part above the diagonal that
+    the lower mode must not read and the symmetrized mode averages away."""
+    rng = np.random.default_rng(seed)
+    G = torch.as_tensor(rng.normal(size=(batch, n, n)), dtype=dtype,
+                        device=dev)
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    skew = torch.triu(torch.as_tensor(rng.normal(size=(batch, n, n)),
+                                      dtype=dtype, device=dev), 1) * 1e-3
+    return (G @ G.mT / n + eye + skew
+            - (skew.mT if symmetrize else 0.0)).contiguous()
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES,
+                         ids=[f"{b}x{n}-{'sym' if s else 'lower'}"
+                              for b, n, s in K6_SHAPES])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_chol_inv_one_launch_at_path_shapes(cuda, dtype, shape):
+    """K6 against its plain version (f64 1e-10, f32 1e-5 norm-wise) in
+    one launch a call, with zeros above the diagonal of L and L^{-1}."""
+    from dot_tpu_torch.kernels import band
+    batch, n, sym = shape
+    A = _spd(batch, n, dtype, cuda, sym)
+    ops.reset_launches()
+    L, Li, bad = ops.chol_inv(A, sym)
+    torch.cuda.synchronize()
+    assert ops.launches["chol_inv"] == 1
+    Lr, Lir, bad_r = band.chol_inv_ref(A, sym)
+    assert not bad.any() and not bad_r.any()
+    assert _rel(L, Lr) <= K6_TOL[dtype] and _rel(Li, Lir) <= K6_TOL[dtype]
+    assert torch.equal(L, torch.tril(L)) and torch.equal(Li, torch.tril(Li))
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("symmetrize", [True, False], ids=["sym", "lower"])
+def test_chol_inv_flags_indefinite_blocks(cuda, symmetrize, batch):
+    """A block whose bad pivot falls in the first tile or in the last one
+    comes back flagged and all NaN in L and L^{-1}; its neighbours stay
+    finite and match the plain version."""
+    from dot_tpu_torch.kernels import band
+    n, mid = 770, batch // 2
+    for dtype in (torch.float64, torch.float32):
+        for where in (5, 765):
+            A = _spd(batch, n, dtype, cuda, symmetrize)
+            A[mid, where, where] = -1.0
+            L, Li, bad = ops.chol_inv(A, symmetrize)
+            _, _, bad_r = band.chol_inv_ref(A, symmetrize)
+            want = [b == mid for b in range(batch)]
+            assert bad.tolist() == want == bad_r.tolist()
+            assert torch.isnan(L[mid]).all() and torch.isnan(Li[mid]).all()
+            ok = [b for b in range(batch) if b != mid]
+            assert torch.isfinite(L[ok]).all() and torch.isfinite(Li[ok]).all()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_chol_inv_above_the_panel_limit(cuda, dtype):
-    """A 2,000^2 SPD block factors through K6 on the halves of the host's
-    split (f64 1e-10, f32 1e-5 against the plain version); an indefinite
-    one comes back flagged and NaN."""
+    """A 2,000^2 SPD block, wider than the shared-memory panel of K6's
+    first design (1,664 in f32), factors in one launch a call (f64 1e-10,
+    f32 1e-5 against the plain version); an indefinite one comes back
+    flagged and NaN."""
     from dot_tpu_torch.kernels import band
-    tol = 1e-10 if dtype == torch.float64 else 1e-5
+    tol = K6_TOL[dtype]
     n = 2000
-    assert n > ops.chol_inv_max_n(dtype)
     rng = np.random.default_rng(6)
     G = torch.as_tensor(rng.normal(size=(n, n)), dtype=dtype, device=cuda)
     A = (G @ G.t() / n + torch.eye(n, dtype=dtype, device=cuda))[None]
@@ -699,10 +768,40 @@ def test_chol_inv_above_the_panel_limit(cuda, dtype):
         Lr, Lir, _ = band.chol_inv_ref(A, sym)
         assert not bad.any()
         assert _rel(L, Lr) <= tol and _rel(Li, Lir) <= tol
-    assert ops.launches["chol_inv"] == 4
+    assert ops.launches["chol_inv"] == 2
     L, Li, bad = ops.chol_inv(A - 2.0 * torch.eye(n, dtype=dtype,
                                                   device=cuda), True)
     assert bad.all() and torch.isnan(L).all() and torch.isnan(Li).all()
+
+
+def test_newton_step_on_card_matches_cpu(cuda):
+    """Two Newton steps (bar 40x3x3 stretch on a banded P = 1 plan, nb 21,
+    bs 96: K6 on the exact factor's blocks) in f64: the card against the
+    CPU."""
+    from dot_tpu_torch.steppers import NewtonStepper
+    mesh = bar_mesh(40, 3, 3)
+    cfg = Config(energy="FCR", time_stepper="Newton", dt=0.025, rho=1000.0,
+                 ym=1e5, pr=0.4, script="stretch", handle_ratio=0.1)
+    mesh.set_lame(cfg.ym, cfg.pr)
+    mesh.find_border_verts(cfg.handle_ratio)
+    sd = scripts.init_script(mesh, "stretch")
+    mesh.fixed_mask = sd.fixed0.copy()
+    plan = partition.build_plan(mesh, 1, pad_elem_to=16, pad_n3_to=48,
+                                band_bs_unit=48, band_min_nb=3)
+    out = []
+    for dev in ("cpu", cuda):
+        ops.reset_launches()
+        st = NewtonStepper(System(mesh, cfg, plan, dtype=torch.float64,
+                                  device=dev), sd)
+        s = st.init_state()
+        for _ in range(2):
+            s, (stats, e) = st.step(s)
+        if dev != "cpu":
+            assert ops.launches["chol_inv"] > 0
+        out.append((s.x.cpu().numpy(), e, stats.inner_iters))
+    assert out[0][2] == out[1][2]
+    np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-9, atol=1e-12)
+    assert out[1][1] == pytest.approx(out[0][1], rel=1e-9)
 
 
 # ----------------------------------------------------------------------
