@@ -60,8 +60,11 @@ result line):
            read); K29 (with its loop counts, which set its bound) and K30
            with both epilogues on the full-size scene's triangles, and the
            per-slab / from-F entries of K21 / K22 and K26's W / consensus
-           and local-Hessian entries on its 4-part ADMM-DD tables
-           (`--phases kernels2d` runs the 2D checks alone)
+           and local-Hessian entries on its 4-part ADMM-DD tables; K26's
+           three entries and its scaling and K28 also by the device
+           kernels one call runs (torch.profiler: one write pass, K28 its
+           pair values + one, no zero fill; launches_per_call in the
+           record) (`--phases kernels2d` runs the 2D checks alone)
   golden   bar 8x3x3, DOT with 4 parts, f64, 5 frames: sysE against the
            recorded golden trace (rtol 2e-4)
   main     bar17 twist, DOT 6, f32, relTol 1e-5 through sim.Simulator:
@@ -2412,6 +2415,65 @@ def phase_dim2(torch, launches_out):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# K26 / K28's one-pass design: device kernels a call (torch.profiler) and
+# the only kernel names those calls may run (no zero fill, no memset)
+ONE_PASS = {"subdomain_assemble2d": 1, "subdomain_scale2d": 1,
+            "pd_assemble2d": 2, "w_assemble2d": 1, "local_h_assemble2d": 1}
+ONE_PASS_KERNELS = ("assemble_kernel", "sym_scale_kernel",
+                    "pd_pair_vals_kernel")
+
+
+def _back_to_back_ms(torch, fn, calls=20):
+    """ms a call over `calls` calls enqueued back to back between two
+    events, better of two rounds: the device's time for a call that takes
+    longer there than on the host (its Python checks and allocations then
+    overlap the call before), which the single timed call of _median_ms
+    adds to it."""
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        t = a.elapsed_time(b) / calls
+        best = t if best is None else min(best, t)
+    return best
+
+
+def _back_to_back(torch, tag, kname, fns, record):
+    """Kernel and library back to back (K26 / K28's entries): printed, and
+    kept in the f32 record."""
+    k = _back_to_back_ms(torch, fns[0])
+    lib = _back_to_back_ms(torch, fns[2])
+    say(f"kernels: {tag} {kname}: back to back {k:.4f} ms a call, library "
+        f"{lib:.4f} ms")
+    if tag == "float32":
+        record[kname].update(back_to_back_ms=k, library_back_to_back_ms=lib)
+
+
+def _one_pass_check(torch, kname, fn, tag, bad, launches_per_call):
+    """Device kernels of one call of `fn` (K26 / K28's entries): as many as
+    ONE_PASS says, all of the one-pass design; the count is kept for the
+    record."""
+    from dot_tpu_torch.profiling import device_kernels
+    k = device_kernels(fn)
+    n = sum(k.values())
+    others = [name for name in k
+              if not any(f in name for f in ONE_PASS_KERNELS)]
+    say(f"kernels: {tag} {kname}: {n} device kernel(s) a call "
+        f"(want {ONE_PASS[kname]}): "
+        + "; ".join(f"{name[:60]} x{c}" for name, c in k.items()))
+    if n != ONE_PASS[kname] or others:
+        bad.append(f"{kname} {tag}: {n} device kernels a call, want "
+                   f"{ONE_PASS[kname]}; not one-pass: {others}")
+    launches_per_call[kname] = n
+
+
 def phase_dd2d_kernels(torch, record):
     """K25-K28 against their plain versions at the dim2dd path's full-size
     shapes (spikes at resolution 20,000 on the 4-part element plan; K28 on
@@ -2458,7 +2520,7 @@ def phase_dd2d_kernels(torch, record):
         tab = sysm.asm_tab
         P, N, n2p = tab.n_parts, tab.n_loc, tab.n
         n_slot, n_item = tab.udest.shape[0], tab.items.shape[0]
-        res, times, costs = {}, {}, {}
+        res, times, costs, per_call = {}, {}, {}, {}
 
         # ---- K25
         qk, Fk = ops.quadratic_form2d(p, conn, g4, eh, mass)
@@ -2500,15 +2562,22 @@ def phase_dd2d_kernels(torch, record):
                                                   tab),
             lambda: torch.zeros(P * n2p * n2p, dtype=dtype, device="cuda")
             .index_add_(0, tab.dest, vals))
+        # bytes: the values, free and mass read once, H and d written once,
+        # the int32 row tables (items, seg_off, row_off, col) read once
         costs["subdomain_assemble2d"] = (
             (36 * n + 2 * P * N + P * n2p * n2p + P * n2p) * sz
-            + 8 * (n_item + 2 * n_slot + 1), n_item + 4 * n_slot)
+            + 4 * (n_item + 2 * n_slot + P * n2p + 2), n_item + 4 * n_slot)
         Hs = Hk.clone()     # scaled over and over by the timing below
         times["subdomain_scale2d"] = (
             lambda: ops.subdomain_scale2d(Hs, dk, tab),
             lambda: dd2d.subdomain_scale2d_ref(Hs, dk, tab), None)
         costs["subdomain_scale2d"] = ((2 * n_slot + P * n2p) * sz
-                                      + 8 * n_slot, 6 * n_slot)
+                                      + 4 * (n_slot + P * n2p + 1),
+                                      6 * n_slot)
+        _one_pass_check(torch, "subdomain_assemble2d",
+                        times["subdomain_assemble2d"][0], name, bad, per_call)
+        _one_pass_check(torch, "subdomain_scale2d",
+                        times["subdomain_scale2d"][0], name, bad, per_call)
 
         # ---- the global 1e-4 tier: one indefinite subdomain refactors all
         Hi = Hk.clone()
@@ -2629,13 +2698,19 @@ def phase_dd2d_kernels(torch, record):
         p_slot, p_item = ptab.udest.shape[0], ptab.items.shape[0]
         costs["pd_assemble2d"] = (
             (4 * n + n + 2 * nv + nv * nv + nv) * sz
-            + 8 * (p_item + 2 * p_slot + 1), 45 * n + p_item + 4 * p_slot)
+            + 4 * (p_item + 2 * p_slot + nv + 2), 45 * n + p_item + 4 * p_slot)
+        _one_pass_check(torch, "pd_assemble2d", times["pd_assemble2d"][0],
+                        name, bad, per_call)
         costs["hessian_diag2d"] = ((6 * n + nv + 3 * nv) * sz + 8 * 3 * n
                                    + 8 * (nv + 1), 6 * n + 2 * nv)
         torch.cuda.synchronize()
         for kname, checks in res.items():
             _report(torch, name, kname, checks, times[kname], costs[kname],
                     bad, record, plain_reps=5)
+            if name == "float32" and kname in per_call:
+                record[kname]["launches_per_call"] = per_call[kname]
+            if kname in ("subdomain_assemble2d", "pd_assemble2d"):
+                _back_to_back(torch, name, kname, times[kname], record)
         say(f"kernels: {name} 2D decomposed shapes: spikes resolution "
             f"{SPIKES_FULL}, plan {t_plan:.2f} s: P {P}, n2p {n2p} "
             f"({P * n2p * n2p * sz / 1e9:.3f} GB of subdomain matrices), "
@@ -2904,7 +2979,7 @@ def phase_admm2d_kernels(torch, record):
         name = str(dtype).split(".")[-1]
         tol, tols = TOL[name], TOL_SCALE[name]
         sz = torch.finfo(dtype).bits // 8
-        res, times, costs = {}, {}, {}
+        res, times, costs, per_call = {}, {}, {}, {}
 
         def t(a, dt=dtype):
             return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
@@ -3048,10 +3123,13 @@ def phase_admm2d_kernels(torch, record):
             .index_add_(0, wt.dest, wvals))
         w_item, w_slot = wt.items.shape[0], wt.udest.shape[0]
         c_slot, nc = ct.udest.shape[0], ct.n
+        # the int32 row tables of W and C (items, seg_off, row_off, col)
         costs["w_assemble2d"] = (
             (36 * n + P * N + P * n2p * n2p + 3 * nc + nc * nc + nc) * sz
-            + 8 * (2 * w_item + 2 * w_slot + 2 * c_slot + 2),
-            2 * w_item + 4 * (w_slot + c_slot))
+            + 4 * (2 * w_item + 2 * w_slot + 2 * c_slot + P * n2p + nc
+                   + 4), 2 * w_item + 4 * (w_slot + c_slot))
+        _one_pass_check(torch, "w_assemble2d", times["w_assemble2d"][0],
+                        name, bad, per_call)
         del Ck, Cr, Wr
 
         ehl = soa2d.elem_hessian2d_ref(xl_flat, dd.conn_local, dd.lg4, dd.lu,
@@ -3084,12 +3162,18 @@ def phase_admm2d_kernels(torch, record):
         o_item, o_slot = o.items.shape[0], o.udest.shape[0]
         costs["local_h_assemble2d"] = (
             (36 * nl + 2 * P * N + o_slot + P * n2p * n2p + P * n2p) * sz
-            + 8 * (o_item + 2 * o_slot + 1), o_item + 6 * o_slot)
+            + 4 * (o_item + 2 * o_slot + P * n2p + 2), o_item + 6 * o_slot)
+        _one_pass_check(torch, "local_h_assemble2d",
+                        times["local_h_assemble2d"][0], name, bad, per_call)
         torch.cuda.synchronize()
         for kname, checks in res.items():
             _report(torch, name, kname, checks, times[kname], costs[kname],
                     bad, record,
                     plain_reps=2 if kname == "admm_local_step2d" else 5)
+            if name == "float32" and kname in per_call:
+                record[kname]["launches_per_call"] = per_call[kname]
+            if kname in ("w_assemble2d", "local_h_assemble2d"):
+                _back_to_back(torch, name, kname, times[kname], record)
         say(f"kernels: {name} 2D ADMM shapes: K29 / K30 on {n} triangles and "
             f"{nv} vertices; ADMM-DD P {P}, n2p {n2p}, slabs {P} x "
             f"{dd.epad}, {dd.n_shared} shared vertices (C {nc}^2); W "

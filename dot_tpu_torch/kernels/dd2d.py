@@ -27,27 +27,47 @@ BLOCK_TO_ROW = np.array([(c // 12 * 2 + c % 4 // 2) * 6
                         np.int64)
 
 
+# 16 B vectors of a row one warp of K26 / K28's one-pass kernel writes,
+# about (8 KB of f32): longer rows are cut into pieces of an even count
+SEG_VECS = 512
+# the most slots a row may hold on the card: K26 / K28's one-pass kernel
+# keeps a row's slots in its warp's registers, 32 S a row for S up to 4 (a
+# 2-dof row holds 2 (degree + 1) slots: a vertex of 63 neighbours)
+MAX_ROW = 128
+
+
 class SlotTables(NamedTuple):
     """A batch of dense (n_parts, n, n) matrices assembled from flat values:
     the plan's (src, dest) pairs in plan order (the plain version's scatter)
-    and the same pairs grouped by destination slot (the kernel's runs)."""
+    and the same pairs grouped by destination slot, the slots in row order
+    (the kernel's runs). Row p*n + r of the batch holds the slots
+    row_off[p*n + r] <= k < row_off[p*n + r + 1] at columns col[k]. ADMM-DD's
+    own tables also cover W's slots (`extra`), where the local-Hessian
+    kernel reads W."""
     n_parts: int
     n_loc: int               # vertices per part (rows of free / mass)
     n: int                   # matrix width: dof * n_loc
     dof: int                 # 2 (subdomain matrices) or 1 (the PD matrix)
     src: torch.Tensor        # (nItem,) int64 flat index into the values
     dest: torch.Tensor       # (nItem,) int64 slot p*n*n + r*n + c
-    items: torch.Tensor      # (nItem,) int64 src sorted by slot (stable)
-    seg_off: torch.Tensor    # (nSlot + 1,) int64 CSR offsets of `items`
+    items: torch.Tensor      # (nItem,) int32 src sorted by slot (stable)
+    seg_off: torch.Tensor    # (nSlot + 1,) int32 CSR offsets of `items`
     udest: torch.Tensor      # (nSlot,) int64 the slots, ascending, with
                              #   every diagonal slot (an empty run at padding)
+    row_off: torch.Tensor    # (n_parts n + 1,) int32 CSR offsets of the rows
+    col: torch.Tensor        # (nSlot,) int32 column of each slot
+    max_row: int             # the most slots a row holds
+    extra: torch.Tensor      # (nSlot,) uint8: 1 at the slots given by
+                             #   `slots` (None without them)
 
 
 def slot_tables(src, dest, n_parts, n_loc, dof, device, slots=None):
-    """SlotTables from flat (src, dest) numpy pairs. Ids are 64-bit:
-    P n^2 reaches 4.1e8 at P = 1 on a 10K-vertex mesh. `slots`: more slots
-    the runs cover (empty runs there), so that a kernel over `udest`
-    reaches entries another table wrote."""
+    """SlotTables from flat (src, dest) numpy pairs. Slot ids are 64-bit
+    (P n^2 reaches 4.1e8 at P = 1 on a 10K-vertex mesh); the kernel's
+    tables are 32-bit: rows, slots, items and value indices must stay below
+    2^31 (raises otherwise). `slots`: more slots the runs cover (empty runs
+    there), so that a kernel over the tables reaches entries another table
+    wrote."""
     src = np.asarray(src, np.int64)
     dest = np.asarray(dest, np.int64)
     n = dof * n_loc
@@ -57,15 +77,27 @@ def slot_tables(src, dest, n_parts, n_loc, dof, device, slots=None):
             + np.arange(n, dtype=np.int64)[None, :] * (n + 1)).reshape(-1)
     udest = np.union1d(ds, diag)
     if slots is not None:
-        udest = np.union1d(udest, np.asarray(slots, np.int64))
+        slots = np.asarray(slots, np.int64)
+        udest = np.union1d(udest, slots)
     seg_off = np.concatenate([np.searchsorted(ds, udest), [ds.size]])
+    row_off = np.searchsorted(udest // n, np.arange(n_parts * n + 1))
+    big = 2 ** 31 - 1
+    if max(src.size, n_parts * n + 1, int(src.max(initial=0)) + 1) >= big:
+        raise ValueError(f"slot tables of {src.size} items over "
+                         f"{n_parts} x {n}^2 need ids beyond 32 bits")
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
+    def t(a, dt=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
                                device=device)
     return SlotTables(n_parts=int(n_parts), n_loc=int(n_loc), n=int(n),
                       dof=int(dof), src=t(src), dest=t(dest),
-                      items=t(src[order]), seg_off=t(seg_off), udest=t(udest))
+                      items=t(src[order], torch.int32),
+                      seg_off=t(seg_off, torch.int32), udest=t(udest),
+                      row_off=t(row_off, torch.int32),
+                      col=t(udest % n, torch.int32),
+                      max_row=int(np.diff(row_off).max()),
+                      extra=None if slots is None else
+                      t(np.isin(udest, slots), torch.uint8))
 
 
 def subdomain_tables(plan, n_elem, device):
@@ -134,6 +166,75 @@ def _assemble_ref(vals, free, mass, tab):
     H.diagonal(dim1=1, dim2=2).add_(
         torch.repeat_interleave(mass, dof, dim=-1) * f + (1.0 - f))
     return H, torch.sqrt(H.diagonal(dim1=1, dim2=2))
+
+
+def assemble_rows_ref(vals, free, mass, tab, wadd=None, lanes=32,
+                      seg_vecs=SEG_VECS):
+    """CPU mirror of K26 / K28's one-pass kernel (csrc/dd2d.cu
+    assemble_kernel) over the row tables: one warp a row piece. A row's
+    slots row_off[row] <= k < row_off[row + 1] at columns col[k] each sum
+    their run (seg_off, items) in plan order, are masked by free at row and
+    column, get wadd (P, n, n) at the slot (read where tab.extra marks the
+    slot, 0 elsewhere) and mass f + (1 - f) on the diagonal (mass None:
+    neither, and d None). The row is written from
+    zeros in the kernel's pieces: its 16 B aligned vectors cut into nseg
+    even pieces of at most `seg_vecs` vectors, the entries before the first
+    aligned one (a head) with the first piece and those after the last
+    whole vector (a tail) with the last, each piece in column chunks of
+    `lanes` vectors (the kernel's warp step: 32), each chunk taking the
+    slots that fall in it. (H (P, n, n), d (P, n)): _assemble_ref's values
+    bit for bit, whatever `lanes` and `seg_vecs`."""
+    P, n, dof = tab.n_parts, tab.n, tab.dof
+    dev, dt = vals.device, vals.dtype
+    vec = 16 // vals.element_size()
+    vmax = n // vec
+    nseg = -(-vmax // seg_vecs) if vmax > seg_vecs else 1
+    segv = (-(-vmax // nseg) + 1) // 2 * 2
+    flat = vals.reshape(-1)
+    f = torch.repeat_interleave(free, dof, dim=-1).reshape(-1)     # (P n,)
+    m = None if mass is None else \
+        torch.repeat_interleave(mass, dof, dim=-1).reshape(-1)
+    wf = None if wadd is None else wadd.reshape(-1)
+    row_off, col = tab.row_off.tolist(), tab.col.long()
+    seg_off, items = tab.seg_off.long(), tab.items.long()
+    H = torch.empty(P * n * n, dtype=dt, device=dev)
+    d = None if mass is None else torch.empty(P * n, dtype=dt, device=dev)
+    for row in range(P * n):
+        r = row % n
+        k = torch.arange(row_off[row], row_off[row + 1], device=dev)
+        c = col[k]
+        # one lane a slot: its run in plan order
+        lo, hi = seg_off[k], seg_off[k + 1]
+        s = torch.zeros(k.shape[0], dtype=dt, device=dev)
+        for q in range(int((hi - lo).max()) if k.numel() else 0):
+            on = lo + q < hi
+            s[on] += flat[items[lo[on] + q]]
+        s = s * f[row] * f[row - r + c]
+        if wf is not None:
+            w = wf[row * n + c]
+            if tab.extra is not None:       # wadd read at its own slots only
+                w = torch.where(tab.extra[k].bool(), w, torch.zeros_like(w))
+            s = s + w
+        if m is not None:
+            on = c == r
+            s[on] = s[on] + (m[row] * f[row] + (1.0 - f[row]))
+            d[row] = torch.sqrt(s[on][0])
+        # the row written once, piece by piece: head, column chunks, tail
+        out = torch.zeros(n, dtype=dt, device=dev)
+        mis = row * n % (2 * vec)
+        head = 0 if mis == 0 else min(2 * vec - mis, n)
+        nvec = (n - head) // vec
+        pieces = [(0, head), (head + nvec * vec, n)]
+        for g in range(nseg):
+            v_lo = min(g * segv, nvec)
+            v_hi = nvec if g == nseg - 1 else min(v_lo + segv, nvec)
+            pieces += [(head + a * vec, head + min(a + lanes, v_hi) * vec)
+                       for a in range(v_lo, v_hi, lanes)]
+        for a, b in pieces:
+            on = (c >= a) & (c < b)
+            out[c[on]] = s[on]
+        H[row * n:(row + 1) * n] = out
+    return H.reshape(P, n, n), None if d is None else d.reshape(P, n)
 
 
 def subdomain_assemble2d_ref(elem_h, free, mass_img, tab):

@@ -195,12 +195,11 @@ def _load():
             ("dd2d", "dot_qf2d_partials"): [I, LL],
             ("dd2d", "dot_quadratic_form2d"): [I] + [P] * 5 + [I, LL]
             + [P] * 4,
-            ("dd2d", "dot_subdomain_assemble2d"): [I] + [P] * 4 + [LL, P, P,
-                                                                  LL, LL, LL,
-                                                                  I, P, P, P],
-            ("dd2d", "dot_subdomain_scale2d"): [I, P, P, P, LL, LL, P],
-            ("dd2d", "dot_pd_assemble2d"): [I, P, P, I] + [P] * 4
-            + [LL, P, P, LL, P, P, P],
+            ("dd2d", "dot_subdomain_assemble2d"): [I] + [P] * 7
+            + [LL, LL, LL, I, I, P, P, P],
+            ("dd2d", "dot_subdomain_scale2d"): [I] + [P] * 4 + [LL, LL, P],
+            ("dd2d", "dot_pd_assemble2d"): [I, P, P, I] + [P] * 7
+            + [LL, I, P, P, P],
             ("dd2d", "dot_h0_gather2d"): [I] + [P] * 4 + [LL, LL, P, P],
             ("dd2d", "dot_h0_average2d"): [I] + [P] * 5 + [LL, P, P],
             ("dd2d", "dot_local_scatter_one2d"): [I] + [P] * 4
@@ -215,13 +214,11 @@ def _load():
             ("elem2d", "dot_elem_gradient2d_from_F"): ([I, I] + [P] * 5
                                                        + [I, P, P, LL, P, P,
                                                           P]),
-            ("dd2d", "dot_w_assemble2d"): ([I] + [P] * 4 + [LL, P, LL, LL,
-                                                            LL, P]
-                                           + [P] * 3 + [LL, P, P, LL, P, P,
-                                                        P]),
-            ("dd2d", "dot_local_h_assemble2d"): ([I] + [P] * 4 + [LL]
-                                                 + [P] * 3 + [LL, LL, LL, P,
-                                                              P, P]),
+            ("dd2d", "dot_w_assemble2d"): ([I] + [P] * 6 + [LL, LL, LL]
+                                           + [P] * 7 + [LL, I, P, P, P]),
+            ("dd2d", "dot_local_h_assemble2d"): ([I] + [P] * 9
+                                                 + [LL, LL, LL, I, P, P,
+                                                    P]),
         }
         ns = types.SimpleNamespace()
         for (lib, fn), args in sig.items():
@@ -361,9 +358,25 @@ def direction_pass(p, conn, g9, elem_h=None):
 # ----------------------------------------------------------------------
 # K5-K8: the H0 rebuild and apply
 # ----------------------------------------------------------------------
+def _fits(ts, shape):
+    if len(ts) != len(shape):
+        return False
+    for s, x in zip(shape, ts):
+        if s is not None and s != x:
+            return False
+    return True
+
+
 def _need(name, key, t, device, dtype, shape=None):
     """t on `device`, of `dtype` (a dtype or a tuple of them), contiguous,
-    of `shape` (None entries unchecked)."""
+    of `shape` (None entries unchecked). The passing case is one
+    expression: the wrappers of kernels that take microseconds spend most
+    of a call in these checks."""
+    if (t.device == device and (t.dtype in dtype if isinstance(dtype, tuple)
+                                else t.dtype == dtype)
+            and t.is_contiguous()
+            and (shape is None or _fits(t.shape, shape))):
+        return
     if t.device != device:
         raise ValueError(f"{name}: {key} on {t.device}, not {device}")
     ok = dtype if isinstance(dtype, tuple) else (dtype,)
@@ -1438,16 +1451,52 @@ def quadratic_form2d(p, conn, g4, elem_h, mass):
     return out, Fp
 
 
+# SlotTables already checked, by id: (tables, device); the few most recent
+# (a run's path holds five), so that stale tables are not kept alive
+_TABLES_OK = {}
+
+
 def _slot_tables(name, dev, tab):
-    """The SlotTables' tensors on `dev`, int64, contiguous."""
-    i64 = torch.int64
-    n_slot = tab.udest.shape[0]
-    _need(name, "items", tab.items, dev, i64, (None,))
-    _need(name, "seg_off", tab.seg_off, dev, i64, (n_slot + 1,))
-    _need(name, "udest", tab.udest, dev, i64, (n_slot,))
+    """The SlotTables' tensors on `dev`, contiguous: the kernel's row
+    tables int32, the plain version's (src, dest) int64. Checked once per
+    tables object and device: a SlotTables is an immutable tuple of the
+    tensors dd2d.slot_tables built, so a repeat would find the same, and
+    K26's calls take microseconds on the card (the checks were most of a
+    call's host time)."""
+    hit = _TABLES_OK.get(id(tab))
+    if hit is not None and hit[0] is tab and hit[1] == dev:
+        return
+    i32, i64 = torch.int32, torch.int64
+    n_slot = tab.col.shape[0]
+    _need(name, "items", tab.items, dev, i32, (None,))
+    _need(name, "seg_off", tab.seg_off, dev, i32, (n_slot + 1,))
+    _need(name, "row_off", tab.row_off, dev, i32,
+          (tab.n_parts * tab.n + 1,))
+    _need(name, "col", tab.col, dev, i32, (n_slot,))
     _need(name, "src", tab.src, dev, i64, tab.items.shape)
     _need(name, "dest", tab.dest, dev, i64, tab.items.shape)
-    return n_slot
+    if tab.extra is not None:
+        _need(name, "extra", tab.extra, dev, torch.uint8, (n_slot,))
+    if len(_TABLES_OK) >= 8:
+        _TABLES_OK.clear()
+    _TABLES_OK[id(tab)] = (tab, dev)
+
+
+def _rows(tab):
+    """The kernel's row tables of `tab` as pointers: items, seg_off,
+    row_off, col."""
+    return (_ptr(tab.items), _ptr(tab.seg_off), _ptr(tab.row_off),
+            _ptr(tab.col))
+
+
+def _max_row(name, *tabs):
+    """The most slots a row of `tabs` holds, which the one-pass kernel
+    keeps in registers (at most dd2d.MAX_ROW)."""
+    m = max(t.max_row for t in tabs)
+    if m > dd2d.MAX_ROW:
+        raise ValueError(f"{name}: a row of {m} slots (the kernel takes at "
+                         f"most {dd2d.MAX_ROW})")
+    return m
 
 
 def subdomain_assemble2d(elem_h, free, mass_img, tab):
@@ -1462,18 +1511,17 @@ def subdomain_assemble2d(elem_h, free, mass_img, tab):
     _need(name, "elem_h", elem_h, dev, dt, (36, None))
     _need(name, "free", free, dev, dt, (P, N))
     _need(name, "mass_img", mass_img, dev, dt, (P, N))
-    n_slot = _slot_tables(name, dev, tab)
+    _slot_tables(name, dev, tab)
     if tab.dof != 2:
         raise ValueError(f"{name}: tables of {tab.dof} dofs per vertex")
     if not _route(name, elem_h):
         return dd2d.subdomain_assemble2d_ref(elem_h, free, mass_img, tab)
     lib = _load()
-    H = torch.empty((P, n, n), dtype=dt, device=dev)
-    d = torch.empty((P, n), dtype=dt, device=dev)
+    H = elem_h.new_empty((P, n, n))
+    d = elem_h.new_empty((P, n))
     err = lib.subdomain_assemble2d(
-        _DTYPES[dt], _ptr(elem_h), _ptr(tab.items), _ptr(tab.seg_off),
-        _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass_img), N, n, P, 2,
-        _ptr(H), _ptr(d), _stream(elem_h))
+        _DTYPES[dt], _ptr(elem_h), *_rows(tab), _ptr(free), _ptr(mass_img),
+        N, n, P, 2, _max_row(name, tab), _ptr(H), _ptr(d), _stream(elem_h))
     _ok(name, err)
     return H, d
 
@@ -1490,12 +1538,13 @@ def subdomain_scale2d(H, d, tab):
     P, n = tab.n_parts, tab.n
     _need(name, "H", H, dev, dt, (P, n, n))
     _need(name, "d", d, dev, dt, (P, n))
-    n_slot = _slot_tables(name, dev, tab)
+    _slot_tables(name, dev, tab)
     if not _route(name, H):
         return dd2d.subdomain_scale2d_ref(H, d, tab)
     lib = _load()
     err = lib.subdomain_scale2d(_DTYPES[dt], _ptr(H), _ptr(d),
-                                _ptr(tab.udest), n_slot, n, _stream(H))
+                                _ptr(tab.row_off), _ptr(tab.col), P * n, n,
+                                _stream(H))
     _ok(name, err)
     return H
 
@@ -1513,20 +1562,20 @@ def pd_assemble2d(g4, w, free, mass, tab):
     _need(name, "w", w, dev, dt, (n,))
     _need(name, "free", free, dev, dt, (nv,))
     _need(name, "mass", mass, dev, dt, (nv,))
-    n_slot = _slot_tables(name, dev, tab)
+    _slot_tables(name, dev, tab)
     if tab.dof != 1 or tab.n_parts != 1:
         raise ValueError(f"{name}: tables of {tab.n_parts} parts, "
                          f"{tab.dof} dofs per vertex")
     if not _route(name, g4):
         return dd2d.pd_assemble2d_ref(g4, w, free, mass, tab)
     lib = _load()
-    vals = torch.empty((9, n), dtype=dt, device=dev)
-    S = torch.empty((nv, nv), dtype=dt, device=dev)
-    d = torch.empty(nv, dtype=dt, device=dev)
+    vals = g4.new_empty((9, n))
+    S = g4.new_empty((nv, nv))
+    d = g4.new_empty(nv)
     err = lib.pd_assemble2d(
-        _DTYPES[dt], _ptr(g4), _ptr(w), n, _ptr(vals), _ptr(tab.items),
-        _ptr(tab.seg_off), _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass),
-        nv, _ptr(S), _ptr(d), _stream(g4))
+        _DTYPES[dt], _ptr(g4), _ptr(w), n, _ptr(vals), *_rows(tab),
+        _ptr(free), _ptr(mass), nv, _max_row(name, tab), _ptr(S), _ptr(d),
+        _stream(g4))
     _ok(name, err)
     return S, d
 
@@ -1787,22 +1836,21 @@ def w_assemble2d(elem_h, free, sfree, md_sh, w_tab, c_tab):
     _need(name, "free", free, dev, dt, (P, N))
     _need(name, "sfree", sfree, dev, dt, (ns1,))
     _need(name, "md_sh", md_sh, dev, dt, (ns1,))
-    w_slot = _slot_tables(name, dev, w_tab)
-    c_slot = _slot_tables(name, dev, c_tab)
+    _slot_tables(name, dev, w_tab)
+    _slot_tables(name, dev, c_tab)
     if w_tab.dof != 2 or c_tab.dof != 2 or c_tab.n_parts != 1:
         raise ValueError(f"{name}: W and C tables of 2 dofs, C of one part")
     if not _route(name, elem_h):
         return admm2d.w_assemble2d_ref(elem_h, free, sfree, md_sh, w_tab,
                                        c_tab)
     lib = _load()
-    Wm = torch.empty((P, n, n), dtype=dt, device=dev)
-    C = torch.empty((nc, nc), dtype=dt, device=dev)
-    dc = torch.empty(nc, dtype=dt, device=dev)
+    Wm = elem_h.new_empty((P, n, n))
+    C = elem_h.new_empty((nc, nc))
+    dc = elem_h.new_empty(nc)
     err = lib.w_assemble2d(
-        _DTYPES[dt], _ptr(elem_h), _ptr(w_tab.items), _ptr(w_tab.seg_off),
-        _ptr(w_tab.udest), w_slot, _ptr(free), N, n, P, _ptr(Wm),
-        _ptr(c_tab.items), _ptr(c_tab.seg_off), _ptr(c_tab.udest), c_slot,
-        _ptr(sfree), _ptr(md_sh), nc, _ptr(C), _ptr(dc), _stream(elem_h))
+        _DTYPES[dt], _ptr(elem_h), *_rows(w_tab), _ptr(free), N, n, P,
+        _ptr(Wm), *_rows(c_tab), _ptr(sfree), _ptr(md_sh), nc,
+        _max_row(name, w_tab, c_tab), _ptr(C), _ptr(dc), _stream(elem_h))
     _ok(name, err)
     return Wm, C, dc
 
@@ -1813,8 +1861,9 @@ def local_h_assemble2d(elem_h, Wm, free, mass, tab):
     row-major Hessians summed by slot in plan order, rows and columns of
     non-free dofs zeroed (free (P, N)), + Wm, + mass f + (1 - f) on the
     diagonal (mass (P, N)); d = sqrt(diag). tab: the own dd2d.SlotTables,
-    whose slots also cover every slot of Wm (so that K26's scaling entry on
-    `tab` reaches every nonzero)."""
+    whose slots also cover every slot of Wm, marked in tab.extra (K26's
+    scaling entry on `tab` then reaches every nonzero; the kernel reads Wm
+    at those slots only: it is 0 elsewhere)."""
     name, dev = "local_h_assemble2d", elem_h.device
     dt = _float(name, elem_h)
     P, N, n = tab.n_parts, tab.n_loc, tab.n
@@ -1822,17 +1871,19 @@ def local_h_assemble2d(elem_h, Wm, free, mass, tab):
     _need(name, "Wm", Wm, dev, dt, (P, n, n))
     _need(name, "free", free, dev, dt, (P, N))
     _need(name, "mass", mass, dev, dt, (P, N))
-    n_slot = _slot_tables(name, dev, tab)
+    _slot_tables(name, dev, tab)
     if tab.dof != 2:
         raise ValueError(f"{name}: tables of {tab.dof} dofs per vertex")
+    if tab.extra is None:
+        raise ValueError(f"{name}: own tables without W's slots")
     if not _route(name, elem_h):
         return admm2d.local_h_assemble2d_ref(elem_h, Wm, free, mass, tab)
     lib = _load()
-    H = torch.empty((P, n, n), dtype=dt, device=dev)
-    d = torch.empty((P, n), dtype=dt, device=dev)
+    H = elem_h.new_empty((P, n, n))
+    d = elem_h.new_empty((P, n))
     err = lib.local_h_assemble2d(
-        _DTYPES[dt], _ptr(elem_h), _ptr(tab.items), _ptr(tab.seg_off),
-        _ptr(tab.udest), n_slot, _ptr(free), _ptr(mass), _ptr(Wm), N, n, P,
-        _ptr(H), _ptr(d), _stream(elem_h))
+        _DTYPES[dt], _ptr(elem_h), *_rows(tab), _ptr(tab.extra), _ptr(free),
+        _ptr(mass), _ptr(Wm), N, n, P, _max_row(name, tab), _ptr(H), _ptr(d),
+        _stream(elem_h))
     _ok(name, err)
     return H, d

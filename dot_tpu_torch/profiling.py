@@ -153,6 +153,27 @@ def wrap_timed(obj, name, acc, module=None, label=None):
     return fn
 
 
+def device_kernels(fn, tries=3):
+    """{name: count} of the device work one synchronised call of `fn` ran
+    (kernels, memsets and copies), from torch.profiler: what a wrapper
+    launches, counted by the device rather than by the wrapper. The call
+    is profiled `tries` times and each name keeps the most launches a
+    trace saw: a trace can lose device events (seen on the card, now and
+    then), never gain them."""
+    from torch.profiler import ProfilerActivity, profile
+    most = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                most[e.key] = max(most.get(e.key, 0), e.count)
+    return most
+
+
 def profile_frames(sim, frames, out, trace=True):
     """Print the timed split and the device profile of `frames` frames
     (three passes) of a warmed-up CUDA Simulator; write the trace to

@@ -278,6 +278,41 @@ def test_local_hessian_matches_dot_tpu(pair, deformed, weights):
     assert _rel(H.numpy(), jH) <= EXACT
 
 
+@pytest.mark.parametrize("what", ["Wm", "H"])
+def test_rows_ref_matches_dot_tpu(pair, deformed, weights, what):
+    """K26's W and local-Hessian entries, mirrored on the CPU over the row
+    tables (dd2d.assemble_rows_ref; column chunks of one 16 B vector in
+    pieces of three: every row spans several pieces), are dot_tpu's masked W and augmented local Hessian
+    (d L L^T d from its factor) and the plain versions bit for bit."""
+    jst, tst = pair
+    jWm, _, _, jfree2f = weights["j"]
+    sys = tst.system
+    fixed = torch.as_tensor(deformed["fixed"])
+    free = tst._free(fixed)
+    if what == "Wm":
+        eh = sys.element_hessians(torch.as_tensor(deformed["x"]))
+        W, d = dd2d.assemble_rows_ref(eh, free, None, tst.w_tab, lanes=1,
+                                      seg_vecs=3)
+        assert d is None and torch.equal(W, weights["t"][0])
+        assert _rel(W.numpy(), jWm) <= EXACT
+        return
+    xl_j = _jflat(deformed["xl"])
+    U, s, V = jsoa2d.svd2_flip_soa(jst._local_fsvd(xl_j))
+    jL, jd = (np.asarray(v) for v in jax.jit(jst._local_h_factor)(
+        jnp.asarray(jWm), jnp.asarray(jfree2f), U, s, V))
+    xl = tst._to_flat(torch.as_tensor(deformed["xl"]))
+    eh = sys.k.elem_hessian2d(xl, tst.conn_local, tst.lg4, tst.lu, tst.llam,
+                              tst.lw, sys.mat, sys.dt_sq)
+    Wm = weights["t"][0]
+    mass = tst.mass_local + tst.mass_dif * free
+    H, d = dd2d.assemble_rows_ref(eh, free, mass, tst.own_tab, wadd=Wm,
+                                  lanes=1, seg_vecs=3)
+    Hr, dr = admm2d.local_h_assemble2d_ref(eh, Wm, free, mass, tst.own_tab)
+    assert torch.equal(H, Hr) and torch.equal(d, dr)
+    jH = jd[:, :, None] * (jL @ np.swapaxes(jL, 1, 2)) * jd[:, None, :]
+    assert _rel(H.numpy(), jH) <= EXACT and _rel(d.numpy(), jd) <= EXACT
+
+
 _frames = {}
 
 

@@ -963,16 +963,38 @@ def _dd_system_2d(dev, dtype, stepper="DOT", resolution=400, plan="element",
     return STEPPERS[stepper](sysm, sd)
 
 
+def _device_launches(fn, want):
+    """The device kernels one call of `fn` runs (torch.profiler): `want`
+    of them, every name one of the one-pass design's (no zero fill, no
+    memset)."""
+    from dot_tpu_torch.profiling import device_kernels
+    k = device_kernels(fn)
+    assert sum(k.values()) == want, k
+    assert all(any(f in name for f in ("assemble_kernel", "pd_pair_vals",
+                                       "sym_scale_kernel"))
+               for name in k), k
+
+
+# (resolution, parts): the 4-part plan of a small scene; one part at
+# n2p 8,640 (67 column chunks of the one-pass kernel in f32), K28's nV
+# 4,314 (rows off 32 B alignment: a head and a tail)
+DD2D_CASES = {"p4": (400, 4), "wide": (8400, 1)}
+
+
+@pytest.mark.parametrize("case", list(DD2D_CASES))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_dd2d_kernels_match_plain_versions(cuda, dtype):
-    """K25-K28 against their plain versions (kernels/dd2d.py) on the 4-part
+def test_dd2d_kernels_match_plain_versions(cuda, dtype, case):
+    """K25-K28 against their plain versions (kernels/dd2d.py) on an
     element plan of the spikes scene: f64 1e-12, f32 1e-5 max-rel (sums in
     the same order; K25's in a fixed order of its own, 1e-4 in f32); K26's
-    matrices symmetric bit for bit and scaled in place; the one-subdomain
-    scatter leaves every other vertex at 0; one launch each."""
+    matrices symmetric bit for bit, padding rows the unit diagonal alone,
+    scaled in place; the one-subdomain scatter leaves every other vertex at
+    0; one wrapper launch each; K26 one device kernel a call, K28 two (its
+    pair values and the one pass), the scaling one."""
     from dot_tpu_torch.kernels import dd2d
     tol = TOL_NEW[dtype][0]
-    st = _dd_system_2d(cuda, dtype)
+    resolution, parts = DD2D_CASES[case]
+    st = _dd_system_2d(cuda, dtype, resolution=resolution, parts=parts)
     sysm = st.system
     nv = sysm.n_vert
     rng = np.random.default_rng(11)
@@ -997,6 +1019,10 @@ def test_dd2d_kernels_match_plain_versions(cuda, dtype):
                                            sysm.asm_tab)
     assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
     assert torch.equal(Hk, Hk.mT)
+    pad = torch.repeat_interleave(~sysm.local_valid, 2, dim=-1)
+    assert bool(pad.any()) and bool((Hk[pad].abs().sum(-1) == 1).all())
+    if case == "wide":
+        assert sysm.asm_tab.n > 64 * 128
     Sr = dd2d.subdomain_scale2d_ref(Hr, dr, sysm.asm_tab)
     Sk = ops.subdomain_scale2d(Hk, dk, sysm.asm_tab)
     assert Sk.data_ptr() == Hk.data_ptr() and _rel_max(Sk, Sr) <= tol
@@ -1027,6 +1053,8 @@ def test_dd2d_kernels_match_plain_versions(cuda, dtype):
     Pr, pr = dd2d.pd_assemble2d_ref(sysm.g4, w, fv, sysm.mass, tab)
     assert _rel_max(Pk, Pr) <= tol and _rel_max(pk, pr) <= tol
     assert torch.equal(Pk, Pk.t())
+    if case == "wide":
+        assert nv > 32 * 128 and nv % 4 != 0
     hk = ops.hessian_diag2d(eh, sysm.mass, sysm.scatter_plan)
     hr = dd2d.hessian_diag2d_ref(eh, sysm.mass, sysm.scatter_plan)
     assert _rel_max(hk, hr) <= tol and bool((hk[:, 2] == 1).all())
@@ -1037,6 +1065,42 @@ def test_dd2d_kernels_match_plain_versions(cuda, dtype):
     assert ops.launches["subdomain_scale2d"] == 2      # + factorize_fast
     assert ops.launches["local_gather_one2d"] == sysm.n_parts
     assert ops.launches["local_scatter_one2d"] == sysm.n_parts
+    _device_launches(lambda: ops.subdomain_assemble2d(
+        eh, free, sysm.mass_img, sysm.asm_tab), 1)
+    _device_launches(lambda: ops.subdomain_scale2d(Hk, dk, sysm.asm_tab), 1)
+    _device_launches(lambda: ops.pd_assemble2d(sysm.g4, w, fv, sysm.mass,
+                                               tab), 2)
+
+
+@pytest.mark.parametrize("n_loc", [20, 40])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_one_pass_rows_of_more_than_32_slots(cuda, dtype, n_loc):
+    """K26's one-pass kernel on a dense synthetic batch (P 2, every row
+    holds 2 n_loc slots: 40 and 80, two and four slots a lane) against the
+    plain version (sums in the same order; 1e-12 / 1e-5 max-rel against
+    the card's atomic index_add_), one device kernel a call."""
+    from dot_tpu_torch.kernels import dd2d
+    rng = np.random.default_rng(13)
+    P, n, n_val = 2, 2 * n_loc, 36 * 50
+    # every slot of the batch, each with one to three values, plan order
+    # shuffled
+    dest = np.repeat(np.arange(P * n * n), rng.integers(1, 4, size=P * n * n))
+    src = rng.integers(0, n_val, size=dest.size)
+    order = rng.permutation(dest.size)
+    tab = dd2d.slot_tables(src[order], dest[order], P, n_loc, 2, cuda)
+    assert tab.max_row == n
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=cuda)
+    vals = t(np.abs(rng.normal(size=(36, n_val // 36))))
+    free = t((rng.uniform(size=(P, n_loc)) > 0.2).astype(np.float64))
+    mass = t(rng.uniform(1.0, 2.0, size=(P, n_loc)))
+    Hk, dk = ops.subdomain_assemble2d(vals, free, mass, tab)
+    Hr, dr = dd2d.subdomain_assemble2d_ref(vals, free, mass, tab)
+    tol = TOL_NEW[dtype][0]
+    assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
+    _device_launches(lambda: ops.subdomain_assemble2d(vals, free, mass, tab),
+                     1)
 
 
 def test_dot2d_step_on_card_matches_cpu(cuda):
@@ -1078,15 +1142,16 @@ def test_dot2d_step_on_card_matches_cpu(cuda):
 # ----------------------------------------------------------------------
 # K29, K30 and the ADMM-DD entries of K21 / K22 / K26: the 2D ADMM family
 # ----------------------------------------------------------------------
-def _admm_2d(dev, dtype, stepper, resolution=400, use_kernels=True):
+def _admm_2d(dev, dtype, stepper, resolution=400, use_kernels=True,
+             parts=4):
     from dot_tpu_torch import dim2, plan2d
     cfg = Config(energy="FCR", time_stepper=stepper, dt=0.025, rho=1000.0,
                  ym=1e5, pr=0.4, script="stretch", handle_ratio=0.03,
-                 shape="spikes", resolution=resolution, partition_amt=4)
+                 shape="spikes", resolution=resolution, partition_amt=parts)
     mesh = dim2.Mesh2D.from_config(cfg)
     sd = scripts.init_script(mesh, cfg.script)
     mesh.fixed_mask = sd.fixed0.copy()
-    plan = plan2d.build_plan_2d(mesh, 4) if stepper == "ADMMDD" else None
+    plan = plan2d.build_plan_2d(mesh, parts) if stepper == "ADMMDD" else None
     sysm = dim2.System2D(mesh, cfg, dtype=dtype, device=dev, plan=plan,
                          use_kernels=use_kernels)
     if stepper == "ADMM":
@@ -1094,13 +1159,17 @@ def _admm_2d(dev, dtype, stepper, resolution=400, use_kernels=True):
     return dim2.ADMMDD2D(sysm, sd)
 
 
+@pytest.mark.parametrize("parts", [4, 2])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_admm2d_kernels_match_plain_versions(cuda, dtype):
+def test_admm2d_kernels_match_plain_versions(cuda, dtype, parts):
     """K29, K30 and the four ADMM-DD entries against their plain versions
-    (kernels/admm2d.py) on the spikes scene: K29's loop counts equal on all
-    but 1e-3 of the triangles (the device library's angles), z and du where
-    they agree; the sums f64 1e-12, f32 1e-5 max-rel (K22 from F norm-wise);
-    W, C and the local Hessian symmetric bit for bit; one launch each."""
+    (kernels/admm2d.py) on the spikes scene, ADMM-DD on 4 parts and on 2
+    at n2p 4,416 (34 column chunks of the one-pass kernel): K29's loop counts
+    equal on all but 1e-3 of the triangles (the device library's angles),
+    z and du where they agree; the sums f64 1e-12, f32 1e-5 max-rel (K22
+    from F norm-wise); W, C and the local Hessian symmetric bit for bit,
+    padding rows of the local Hessian the unit diagonal alone; one wrapper
+    launch each; W and C one device kernel a call, the local Hessian one."""
     from dot_tpu_torch.kernels import admm2d, soa2d
     tol, tol_n = TOL_NEW[dtype]
     t_el = TOL[dtype][0]
@@ -1135,15 +1204,19 @@ def test_admm2d_kernels_match_plain_versions(cuda, dtype):
                                   free=free_v)
     assert _rel_max(rk, rr) <= tol
 
-    dd = _admm_2d(cuda, dtype, "ADMMDD")
+    dd = _admm_2d(cuda, dtype, "ADMMDD",
+                  **({} if parts == 4 else dict(resolution=8400, parts=2)))
     sysm = dd.system
+    nv = sysm.n_vert
+    x = t(dd.script_data.x0)
+    x[:, :2] += t(0.01 * rng.normal(size=(nv, 2)))
     fixed = torch.as_tensor(dd.script_data.fixed0, device=cuda)
     free = dd._free(fixed)
     xl = dd._to_flat(x[sysm.l2g][:, :, :2] * sysm.local_valid[..., None])
     F0 = dd._local_defgrad(xl)
     Fp = dd._local_defgrad(dd._to_flat(
         t(0.01 * rng.normal(size=(dd.P, dd.N, 2)))))
-    alpha = t([1.0, 0.5, 0.25, 0.125])
+    alpha = t([1.0, 0.5, 0.25, 0.125][:dd.P])
     e_args = (F0, Fp, alpha, dd.lu, dd.llam, dd.lw, sysm.mat, dd.P)
     ek = ops.ls_trial_energy2d_parts(*e_args)
     er = admm2d.ls_trial_energy2d_parts_ref(*e_args)
@@ -1170,11 +1243,17 @@ def test_admm2d_kernels_match_plain_versions(cuda, dtype):
     Hr, dr = admm2d.local_h_assemble2d_ref(*h_args)
     assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
     assert torch.equal(Hk, Hk.mT)
+    pad = torch.repeat_interleave(~sysm.local_valid, 2, dim=-1)
+    assert bool(pad.any()) and bool((Hk[pad].abs().sum(-1) == 1).all())
+    if parts == 2:
+        assert dd.own_tab.n > 32 * 128
     torch.cuda.synchronize()
     for k, m in (("admm_local_step2d", 1), ("dtw_scatter2d", 2),
                  ("ls_trial_energy2d_parts", 1), ("elem_gradient2d_from_F", 1),
                  ("w_assemble2d", 1), ("local_h_assemble2d", 1)):
         assert ops.launches[k] == m, (k, ops.launches[k])
+    _device_launches(lambda: ops.w_assemble2d(*w_args), 1)
+    _device_launches(lambda: ops.local_h_assemble2d(*h_args), 1)
 
 
 @pytest.mark.parametrize("stepper", ["ADMM", "ADMMDD"])

@@ -136,6 +136,37 @@ def test_assemble_subdomains(pair, assembled):
     assert (np.abs(pad).sum(axis=1) == 1.0).all()
 
 
+@pytest.mark.parametrize("lanes,seg", [(1, 3), (32, dd2d.SEG_VECS)])
+def test_rows_ref_matches_dot_tpu(pair, state, assembled, lanes, seg):
+    """K26's and K28's one-pass kernel, mirrored on the CPU over the row
+    tables (dd2d.assemble_rows_ref; column chunks of one 16 B vector in
+    pieces of three, and the kernel's 32 and 512: every row spans several
+    chunks), is dot_tpu's assemble_subdomains and _build_pd_factor's
+    matrix (d L L^T d from its factor) and the plain version bit for
+    bit."""
+    js, ts, _ = pair
+    Hj, Hd, d = assembled
+    free = torch.logical_and(ts.local_valid, torch.logical_not(
+        state.tfixed[ts.l2g])).double()
+    H, dm = dd2d.assemble_rows_ref(state.th, free, ts.mass_img, ts.asm_tab,
+                                   lanes=lanes, seg_vecs=seg)
+    assert torch.equal(H, Hd) and torch.equal(dm, d)
+    _close(H.numpy(), Hj, EXACT)
+    Lj, dj = (np.asarray(v) for v in js.build_pd_factor(
+        jnp.asarray(state.fixed)))
+    Sj = dj[:, None] * (Lj @ Lj.T) * dj[None, :]
+    tab = dd2d.pd_tables(ts.mesh.conn, ts.n_vert, "cpu")
+    w = ts.scalar(ts.dt_sq) * ts.vol_w * (2.0 * ts.u_e + ts.lam_e)
+    fv = torch.logical_not(state.tfixed).double()
+    S, ds = dd2d.assemble_rows_ref(dd2d.pd_pair_vals2d(ts.g4, w), fv[None],
+                                   ts.mass[None], tab, lanes=lanes,
+                                   seg_vecs=seg)
+    Sr, dr = dd2d.pd_assemble2d_ref(ts.g4, w, fv, ts.mass, tab)
+    assert torch.equal(S[0], Sr) and torch.equal(ds[0], dr)
+    _close(S[0].numpy(), Sj, EXACT)
+    _close(ds[0].numpy(), dj, EXACT)
+
+
 def _factor_pair(js, ts, Hj, Hd, d):
     Lj, dj = js.factorize_fast(jnp.asarray(Hj))
     Lt, dt = ts.factorize_fast(Hd.clone(), d.clone())

@@ -118,4 +118,4 @@ def test_pd_tables():
         assert (np.diff(run) > 0).all()
     assert np.isin(np.arange(m.n_vert) * (m.n_vert + 1),
                    tab.udest.numpy()).all()
-    assert tab.items.dtype == torch.int64
+    assert tab.items.dtype == torch.int32
