@@ -36,7 +36,11 @@ result line):
            in both modes at batch 1 and 3), K9's two entries at bar17's
            shape (m 5, n 49,419), the factor's level blocks (K7 on bf16 and
            f32 storage in f32 runs; one subdomain's strided blocks read in
-           place), the vertex gather and averaging; K13 on the same element
+           place), K7's solve entry on the factor and on one subdomain's
+           slice of it (one cooperative launch a solve: bit for bit the K7
+           launch sequence it replaces, one device kernel in a CUDA graph
+           capture and in torch.profiler's trace, single and back-to-back
+           times against the sequence), the vertex gather and averaging; K13 on the same element
            Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
            (bs 512, nb 33): the assembled band, the solve's block products
            with 3 right-hand sides (each column equal to K7's) and its
@@ -49,7 +53,11 @@ result line):
            real bar17 own-element plan (P 6, the ADMM-DD plan's W); the 2D
            device functions (svd2_flip, eigh2, make_pd2, the three
            materials) through their check entries, defgrad2d and K21-K24 at
-           the full-size 2D scene's shapes (spikes at resolution 20,000:
+           the full-size 2D scene's shapes (K24's assembly, K26's one pass
+           on whole-mesh tables: bit for bit the plain version's host sums,
+           one device kernel a call, back-to-back times, rows of 282 slots
+           on a fan, spread over several pieces of 2,202-column rows)
+           (spikes at resolution 20,000:
            19,873 triangles, 10,171 vertices, a (20,342)^2 dense matrix) on
            random, inverted, near-degenerate and rest-state deformations;
            K25-K28 at the
@@ -80,8 +88,9 @@ result line):
            sweep), DOT 6 with warmStart 5 (K13 once a frame), Newton (one
            exact P = 1 banded factorization per inner iteration), LBFGSH,
            LBFGSHI (factor from a matrix rounded through bf16), LBFGSJH 6
-           (node plan, dense blocks). Each run: finite sysE, stopped by tol
-           or rel_dec, the factor's kind, its kernels launched, sysE against
+           (node plan, dense blocks); K7's solve entry on Newton's P = 1
+           factor (f32, and its leaves cast to f64). Each run: finite sysE,
+           stopped by tol or rel_dec, the factor's kind, its kernels launched, sysE against
            the plain-path run of the same frames (rtol 1e-3) and against
            DOT's (rtol 1e-3; LBFGSJH and GSDD 5e-3)
   admm     bar17 twist, f32, relTol 1e-5, through sim.Simulator, 2 frames
@@ -109,8 +118,9 @@ result line):
            L-BFGS history (K9's two entries), and K6 and K7 at this
            path's own shapes (the
            (6P)^2 coarse block, the scan's lower-only (133, 768, 768)
-           stage, the two mat-vecs on Lc^{-1}), f64 and f32, timed with
-           library and bound; the first 2 frames again with the plain
+           stage, the two mat-vecs on Lc^{-1}), K7's solve entry on the
+           run's scan factor and on the coarse pair (library: two
+           torch.mv), f64 and f32, timed with library and bound; the first 2 frames again with the plain
            versions (sysE rtol 1e-3)
   dim2     the 2D path through dim2.Sim2D on scene files written here:
            the spikes stretch golden (resolution 200, Newton, f64, kernels
@@ -271,6 +281,8 @@ SOURCES = {
                  "dot_tpu/steppers/core.py:904"),
     "block_matvec": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
                      "dot_tpu/steppers/core.py:1061"),
+    "block_solve": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
+                    "dot_tpu/steppers/core.py:1061"),
     "h0_gather": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
                   "dot_tpu/steppers/core.py:1263"),
     "h0_average": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
@@ -325,7 +337,7 @@ SOURCES = {
                         "dot_tpu/dim2.py:463"),
     "elem_hessian2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
                        "dot_tpu/kernels/soa2d.py:252"),
-    "dense_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
+    "dense_assemble2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
                          "dot_tpu/dim2.py:486"),
     "dense_scale2d": ("cuda", "dot_tpu_torch/kernels/csrc/elem2d.cu",
                       "dot_tpu/dim2.py:494"),
@@ -392,7 +404,7 @@ SCALE_SCENE = SCENE_TMPL.replace("timeStepper DOT 6",
 # chunked band; bar135 takes the chunked band instead of K5's band)
 MAIN_KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
                 "direction_pass", "band_assemble", "chol_inv",
-                "block_matvec", "h0_gather", "h0_average", "lbfgs_first",
+                "block_solve", "h0_gather", "h0_average", "lbfgs_first",
                 "lbfgs_second")
 SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
     "coarse_assemble", "coarse_restrict", "coarse_prolong", "band_compact",
@@ -404,13 +416,13 @@ SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
 # same gradient tolerance with more low-frequency error left (dot_tpu's own
 # tests/test_admm.py:63 holds it at 3e-3 after 2 frames; it grows by frame)
 _QN = ("lbfgs_first", "lbfgs_second")
-_H0 = ("elem_hessian", "chol_inv", "block_matvec", "h0_gather", "h0_average")
+_H0 = ("elem_hessian", "chol_inv", "block_solve", "h0_gather", "h0_average")
 STEPPER_RUNS = {
     "LBFGS": ("LBFGS", 2, 3, 1e-3, _QN + (
         "pd_assemble", "chol_inv", "block_matvec_k", "pd_gather",
         "pd_scatter")),
     "GSDD6": ("GSDD 6", 2, 3, 5e-3, (
-        "elem_hessian", "band_assemble", "chol_inv", "block_matvec",
+        "elem_hessian", "band_assemble", "chol_inv", "block_solve",
         "local_gather_one", "local_scatter_one")),
     "DOT6ws5": ("DOT 6", 5, 3, 1e-3, _QN + _H0 + ("band_assemble",
                                                   "hessian_diag")),
@@ -429,7 +441,7 @@ ADMM_RUNS = {
         "elem_gradient", "direction_pass")),
     "ADMMDD6": ("ADMMDD 6", (
         "own_band_assemble", "w_matvec", "w_diag", "ls_trial_energy_parts",
-        "elem_gradient_from_F", "elem_hessian", "chol_inv", "block_matvec",
+        "elem_gradient_from_F", "elem_hessian", "chol_inv", "block_solve",
         "elem_gradient", "ls_trial_energy", "direction_pass")),
 }
 ADMM_KERNELS = ("admm_local_step", "dtw_scatter", "own_band_assemble",
@@ -634,6 +646,59 @@ def _report(torch, tag, kname, checks, fns, cost, bad, record,
             record[kname]["library_partial_ms"] = lib_ms
 
 
+def _solve_check(torch, tag, kname, kind, leaves, r, tol, bad, record,
+                 library=None):
+    """K7's solve entry on one factor (band.solve_program's `kind` on
+    `leaves`, right-hand sides r): bit for bit the launch sequence of K7
+    it replaces, the plain version (band.block_solve_ref) within `tol`
+    norm-wise, one device kernel a call (_work_check); timed single and
+    back to back against the plain version, the K7 sequence and `library`
+    (one PyTorch call computing the same function, or None). The f32
+    record gets the sequence's times, the back-to-back times, the stages
+    and the device kernels a call."""
+    from dot_tpu_torch.kernels import band, ops
+    prog = band.solve_program(kind, leaves)
+    z = ops.block_solve(prog, leaves, r)
+    # the launch sequence the entry replaces: one ops.block_matvec (K7's
+    # single-product entry) a product
+    seq_fn = (lambda: band.block_solve_ref(prog, leaves, r,
+                                           ops.block_matvec))
+    seq = seq_fn()
+    ref = band.block_solve_ref(prog, leaves, r)
+    n_dev = _work_check(tag, kname, lambda: ops.block_solve(prog, leaves, r),
+                        1, ("solve_kernel",), bad)
+    st = prog.stages
+    prod = st[st[:, band.F_OP] != band.OP_COPY]
+    n_seq = len(prod)
+    checks = [
+        (f"vs the K7 sequence of {n_seq} launches (bit for bit)",
+         0.0 if torch.equal(z, seq) else max(_rel_max(z, seq), 1e-300),
+         0.0, float((z - seq).abs().max())),
+        ("vs plain", _rel_norm(z, ref), tol, float((z - ref).abs().max()))]
+    say(f"kernels: {tag} {kname}: {kind}, P {prog.P}, nb {prog.nb}, n "
+        f"{prog.n}, leaves {str(leaves[0].dtype).split('.')[-1]}: "
+        f"{len(st)} stages ({int(st[:, band.F_SYNC].sum())} grid "
+        f"barriers)")
+    fns = (lambda: ops.block_solve(prog, leaves, r),
+           lambda: band.block_solve_ref(prog, leaves, r), library)
+    _report(torch, tag, kname, checks, fns, band.solve_cost(prog, leaves, r),
+            bad, record)
+    seq_ms = _median_ms(torch, seq_fn)
+    b2b = _back_to_back_ms(torch, fns[0])
+    seq_b2b = _back_to_back_ms(torch, seq_fn)
+    lib_b2b = None if library is None else _back_to_back_ms(torch, library)
+    say(f"kernels: {tag} {kname}: K7 sequence {seq_ms:.4f} ms a solve; "
+        f"back to back {b2b:.4f} ms a solve, K7 sequence {seq_b2b:.4f}"
+        + ("" if lib_b2b is None else f", library {lib_b2b:.4f}") + " ms")
+    if tag == "float32":
+        record[kname].update(
+            k7_sequence_ms=seq_ms, back_to_back_ms=b2b,
+            k7_sequence_back_to_back_ms=seq_b2b,
+            library_back_to_back_ms=lib_b2b, stages=len(st),
+            k7_launches_replaced=n_seq, launches_per_call=n_dev)
+    del z, seq, ref
+
+
 def phase_kernels(torch, record):
     from dot_tpu_torch.kernels import ops, soa
     mat = soa.FCR_SOA
@@ -775,6 +840,7 @@ def phase_h0_kernels(torch, record):
     and blocks."""
     from dot_tpu_torch.kernels import band, ops, pd
     from dot_tpu_torch.steppers import System
+    from dot_tpu_torch.steppers.core import factor_leaves
     tmp = tempfile.mkdtemp(prefix="dot_smoke_k_")
     try:
         sim = _simulator(torch, _bar_scene(tmp), os.path.join(tmp, "out"))
@@ -904,6 +970,18 @@ def phase_h0_kernels(torch, record):
                 lambda: torch.bmm(A7_up.mT, v[..., None]))
             costs["block_matvec"] = (A7.numel() * A7.element_size()
                                      + 3 * v.numel() * sz, 2 * A7.numel())
+            # K7's solve entry on the same factor (the main path's solve)
+            # and on one subdomain's slice of it (the GSDD sweep's)
+            leaves = factor_leaves(fac)
+            rs = torch.as_tensor(rng.normal(size=(P, sysm.n3)), dtype=dtype,
+                                 device="cuda")
+            _solve_check(torch, name, "block_solve", "cr", leaves, rs,
+                         tol["chol"], bad, record)
+            _solve_check(torch, name, "block_solve@slice", "cr",
+                         [t[:, part_i:part_i + 1] for t in leaves],
+                         rs[part_i:part_i + 1].contiguous(), tol["chol"],
+                         bad, record)
+            del leaves
 
             # K8
             rhs = torch.as_tensor(rng.normal(size=(sysm.n_vert, 3)),
@@ -1069,7 +1147,16 @@ def phase_main(torch, launches_out):
             f"lbfgs_second {launches['lbfgs_second']} over {n_it} "
             f"iterations (one of each a two-loop); K6 "
             f"{launches['chol_inv']} over 11 rebuilds")
+        k7 = launches["block_solve"] + launches["block_matvec"]
+        say(f"main: K7 launches: block_solve {launches['block_solve']} (one "
+            f"a solve; {launches['lbfgs_first']} two-loops), block_matvec "
+            f"{launches['block_matvec']}: {k7 / 11:.2f} a frame (at most "
+            "10)")
         problems = []
+        if k7 > 10 * 11 or launches["block_solve"] != launches["lbfgs_first"]:
+            problems.append(f"K7 launched {k7} times in 11 frames, "
+                            f"{launches['block_solve']} solves for "
+                            f"{launches['lbfgs_first']} applies")
         if launches["lbfgs_first"] != launches["lbfgs_second"]:
             problems.append("K9's two entries launched unequally")
         for r in fr:
@@ -1448,7 +1535,7 @@ def _factor_kind(fac):
     return type(fac).__name__, dts, shape
 
 
-def phase_steppers(torch, launches_out):
+def phase_steppers(torch, launches_out, record):
     """The non-ADMM steppers and warmStart 5 at bar17 through Simulator."""
     from dot_tpu_torch.kernels import ops
     tmp = tempfile.mkdtemp(prefix="dot_steppers_")
@@ -1484,6 +1571,17 @@ def phase_steppers(torch, launches_out):
             if tag == "Newton":   # its per-iteration factor, built once more
                 fac = sim.stepper.factor(sim.state.x, sim.state.fixed)[0]
             kind, leaf_dt, shape = _factor_kind(fac)
+            if tag == "Newton":
+                # K7's solve entry on the P = 1 factor (f64: its leaves
+                # cast), against the K7 sequence and the plain version
+                lv = list(fac)
+                rr = torch.randn((1, sysm.n3), device="cuda")
+                for dt_ in (torch.float64, torch.float32):
+                    nm = str(dt_).split(".")[-1]
+                    _solve_check(torch, nm, "block_solve@p1", "btd",
+                                 [t.to(dt_) for t in lv], rr.to(dt_),
+                                 TOL_H0[nm]["chol"], problems, record)
+                del lv, rr
             del fac
             sim.finalize()
             timed = fr[1:] or fr
@@ -2006,7 +2104,7 @@ def _dim2_inputs(torch, dtype, rng):
     rank ~1."""
     from dot_tpu_torch.config import Config
     from dot_tpu_torch.dim2 import Mesh2D
-    from dot_tpu_torch.kernels import soa2d
+    from dot_tpu_torch.kernels import dd2d, soa2d
     cfg = Config(energy="FCR", shape="spikes", resolution=SPIKES_FULL,
                  ym=1e5, pr=0.4, rho=1000.0, handle_ratio=0.03)
     mesh = Mesh2D.from_config(cfg)
@@ -2047,7 +2145,8 @@ def _dim2_inputs(torch, dtype, rng):
         x_tilta=t(xt), p=t(p), free=t(free), F0=t(f0),
         Fp=t(rng.normal(size=(4, n))), h3=t(rng.normal(size=(3, n))),
         alpha=torch.tensor(0.5, dtype=dtype, device=dev),
-        plan=soa2d.scatter2d_plan(mesh.conn, nv, dev))
+        plan=soa2d.scatter2d_plan(mesh.conn, nv, dev),
+        dense_tab=dd2d.dense_tables(mesh.conn, nv, dev))
 
 
 def _usv2(U, s, V):
@@ -2069,7 +2168,7 @@ def phase_dim2_kernels(torch, record):
     """The 2D kernels (K21-K24, defgrad2d) and the check entries of their
     device functions against the plain versions at the full-size spikes
     scene's shapes, and K6's host split on a 2,000^2 block."""
-    from dot_tpu_torch.kernels import band, ops, soa2d
+    from dot_tpu_torch.kernels import band, dd2d, ops, soa2d
     mat = soa2d.FCR2D
     rng = np.random.default_rng(20261020)
     dt_sq = 0.025 ** 2
@@ -2079,9 +2178,9 @@ def phase_dim2_kernels(torch, record):
         tol = TOL[name]
         mesh, d = _dim2_inputs(torch, dtype, rng)
         conn, g4, u, lam, w = d["conn"], d["g4"], d["u"], d["lam"], d["w"]
-        plan = d["plan"]
+        plan, tab = d["plan"], d["dense_tab"]
         n, nv, sz = mesh.n_elem, mesh.n_vert, d["x"].element_size()
-        n2, n_slot = 2 * nv, plan.udest.shape[0]
+        n2, n_slot = 2 * nv, tab.udest.shape[0]
 
         # ---- t1: the device functions, each through its check entry.
         # U, V and Q are not unique (R = 0, s0 = s1, b = 0 with a = c):
@@ -2187,18 +2286,63 @@ def phase_dim2_kernels(torch, record):
         costs["elem_hessian2d"] = ((3 * nv + 7 * n + 36 * n) * sz + 12 * n,
                                    ELEM2D_FLOPS["elem_hessian2d"] * n)
 
-        # ---- K24 on the plain version's element Hessians
-        Hk, dk = ops.dense_assemble2d(hr, d["free"], d["mass"], plan)
-        Hr, dr = soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"], plan)
+        # ---- K24 on the plain version's element Hessians: K26's one pass
+        # over the whole mesh as one part
+        Hk, dk = ops.dense_assemble2d(hr, d["free"], d["mass"], tab)
+        Hr, dr = soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"], tab)
         sym = float((Hk - Hk.t()).abs().max())
         res["dense_assemble2d"] = [
             ("H", _rel_max(Hk, Hr), TOL_SCALE[name]["elem"],
              float((Hk - Hr).abs().max())),
             ("d", _rel_max(dk, dr), TOL_SCALE[name]["elem"], None),
             ("|H - H^T|", sym, 0.0, None)]
-        Sr = soa2d.dense_scale2d_ref(Hr, dr, plan)
         del Hr
-        Sk = ops.dense_scale2d(Hk.clone(), dk, plan)
+        torch.cuda.empty_cache()
+        # bit for bit against the plain version's sequential sums on the
+        # host (the card's index_add_ sums with atomics, in no fixed order);
+        # its d = sqrt(diag) taken on the card (the host's sqrt and the
+        # card's differ in the last bit for ~0.7 % of values)
+        Hc, _ = soa2d.dense_assemble2d_ref(
+            hr.cpu(), d["free"].cpu(), d["mass"].cpu(),
+            dd2d.dense_tables(mesh.conn, nv, "cpu"))
+        h_same = torch.equal(Hk.cpu(), Hc)
+        dc = torch.sqrt(Hc.diagonal().to("cuda"))
+        d_off = int((dk != dc).sum())
+        res["dense_assemble2d"] += [
+            ("H vs host plain (bit for bit)", 0.0 if h_same else 1.0, 0.0,
+             None),
+            (f"d vs host plain (bit for bit; {d_off} of {n2} differ)",
+             0.0 if d_off == 0 else _rel_max(dk, dc), 0.0, None)]
+        del Hc, dc
+        # a fan around a vertex of 140 neighbours in a strip of 1,101
+        # vertices, the ids shuffled: rows of 282 slots (three windows of
+        # dd2d.MAX_ROW) spread over 2,202 columns, which the kernel cuts
+        # into two pieces (f32) or three (f64): a piece skips the windows
+        # left of it and carries its window from chunk to chunk
+        kf, fn = 140, 1101
+        fi = np.arange(1, kf + 1)
+        fj = np.arange(kf + 1, fn - 2)
+        fan = rng.permutation(fn)[np.concatenate([
+            np.stack([np.zeros(kf, np.int64), fi, fi % kf + 1], axis=1),
+            np.stack([fj, fj + 1, fj + 2], axis=1)])]
+        fv = (rng.uniform(size=fn) > 0.2).astype(np.float64)
+        fv[fan[0, 0]] = 1.0
+        f_args = [np.abs(rng.normal(size=(36, fan.shape[0]))), fv,
+                  rng.uniform(1.0, 2.0, size=fn)]
+        fan_out = []
+        for dev in ("cpu", "cuda"):
+            ftab = dd2d.dense_tables(fan, fn, dev)
+            fH, _ = ops.dense_assemble2d(
+                *[torch.as_tensor(a, dtype=dtype, device=dev)
+                  for a in f_args], ftab)
+            fan_out.append(fH.to("cuda"))
+        fan_same = torch.equal(*fan_out)
+        res["dense_assemble2d"].append(
+            (f"fan of {ftab.max_row}-slot rows over {ftab.n} columns vs "
+             "host plain (bit for bit)",
+             0.0 if fan_same else 1.0, 0.0, None))
+        Sr = soa2d.dense_scale2d_ref(Hk, dk, tab)
+        Sk = ops.dense_scale2d(Hk.clone(), dk, tab)
         res["dense_scale2d"] = [
             ("H / d / d", _rel_max(Sk, Sr), TOL_SCALE[name]["elem"],
              float((Sk - Sr).abs().max())),
@@ -2206,34 +2350,41 @@ def phase_dim2_kernels(torch, record):
              4 * torch.finfo(dtype).eps, None)]
         del Sk, Sr
         torch.cuda.empty_cache()
-        vals = hr.t().reshape(-1).contiguous()
+        vals = hr.reshape(-1)[tab.src].contiguous()
         # the library yardstick of an assembly: the zero-filled matrix and
         # its index_add_, both inside the timed call
-        times["dense_assemble2d"] = (
-            lambda: ops.dense_assemble2d(hr, d["free"], d["mass"], plan),
-            lambda: soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"],
-                                               plan),
-            lambda: torch.zeros(n2 * n2, dtype=dtype, device="cuda")
-            .index_add_(0, plan.hdest, vals))
+        k24 = (lambda: ops.dense_assemble2d(hr, d["free"], d["mass"], tab),
+               lambda: soa2d.dense_assemble2d_ref(hr, d["free"], d["mass"],
+                                                  tab),
+               lambda: torch.zeros(n2 * n2, dtype=dtype, device="cuda")
+               .index_add_(0, tab.dest, vals))
+        times["dense_assemble2d"] = k24
         costs["dense_assemble2d"] = (
-            (36 * n + 2 * nv + n2 * n2 + n2) * sz + 8 * 36 * n
-            + 8 * (2 * n_slot + 1), 36 * n + 4 * n_slot)
+            (36 * n + 2 * nv + n2 * n2 + n2) * sz
+            + 4 * (2 * tab.items.numel() + 2 * n_slot + n2 + 2),
+            36 * n + 4 * n_slot)
         # the scaling touches the assembled slots only: every other entry
         # of H is 0 before and after
         times["dense_scale2d"] = (
-            lambda: ops.dense_scale2d(Hk, dk, plan),
-            lambda: soa2d.dense_scale2d_ref(Hk, dk, plan), None)
+            lambda: ops.dense_scale2d(Hk, dk, tab),
+            lambda: soa2d.dense_scale2d_ref(Hk, dk, tab), None)
         costs["dense_scale2d"] = ((2 * n_slot + n2) * sz + 8 * n_slot,
                                   4 * n_slot)
         torch.cuda.synchronize()
         for kname, checks in res.items():
             _report(torch, name, kname, checks, times[kname], costs[kname],
                     bad, record, plain_reps=5)
+        lpc = {}
+        _one_pass_check(torch, "dense_assemble2d", k24[0], name, bad, lpc)
+        _back_to_back(torch, name, "dense_assemble2d", k24, record)
+        if name == "float32":
+            record["dense_assemble2d"].update(launches_per_call=lpc[
+                "dense_assemble2d"])
         say(f"kernels: {name} 2D shapes: spikes resolution {SPIKES_FULL}: "
             f"{n} triangles, {nv} vertices, dense matrix {n2}^2 "
             f"({n2 * n2 * sz / 1e9:.3f} GB), {n_slot} assembled slots from "
             f"{36 * n} entries")
-        del Hk, vals, hk, hr, d
+        del Hk, vals, hk, hr, d, k24
         torch.cuda.empty_cache()
 
     if bad:
@@ -2418,7 +2569,8 @@ def phase_dim2(torch, launches_out):
 # K26 / K28's one-pass design: device kernels a call (torch.profiler) and
 # the only kernel names those calls may run (no zero fill, no memset)
 ONE_PASS = {"subdomain_assemble2d": 1, "subdomain_scale2d": 1,
-            "pd_assemble2d": 2, "w_assemble2d": 1, "local_h_assemble2d": 1}
+            "pd_assemble2d": 2, "w_assemble2d": 1, "local_h_assemble2d": 1,
+            "dense_assemble2d": 1}
 ONE_PASS_KERNELS = ("assemble_kernel", "sym_scale_kernel",
                     "pd_pair_vals_kernel")
 
@@ -2456,22 +2608,38 @@ def _back_to_back(torch, tag, kname, fns, record):
         record[kname].update(back_to_back_ms=k, library_back_to_back_ms=lib)
 
 
-def _one_pass_check(torch, kname, fn, tag, bad, launches_per_call):
-    """Device kernels of one call of `fn` (K26 / K28's entries): as many as
-    ONE_PASS says, all of the one-pass design; the count is kept for the
-    record."""
-    from dot_tpu_torch.profiling import device_kernels
+def _work_check(tag, kname, fn, want, frags, bad):
+    """The device work of one call of `fn`, counted twice: by a CUDA graph
+    capture of the call (captured_work) and by torch.profiler
+    (device_kernels). The capture must hold `want` kernels, every one
+    named by one of `frags`, and nothing else (no memset, no copy); the
+    profiler must agree wherever its traces held device events (in this
+    long process they lose every event now and then). Returns the
+    capture's count."""
+    from dot_tpu_torch.profiling import captured_work, device_kernels
     k = device_kernels(fn)
-    n = sum(k.values())
-    others = [name for name in k
-              if not any(f in name for f in ONE_PASS_KERNELS)]
-    say(f"kernels: {tag} {kname}: {n} device kernel(s) a call "
-        f"(want {ONE_PASS[kname]}): "
-        + "; ".join(f"{name[:60]} x{c}" for name, c in k.items()))
-    if n != ONE_PASS[kname] or others:
-        bad.append(f"{kname} {tag}: {n} device kernels a call, want "
-                   f"{ONE_PASS[kname]}; not one-pass: {others}")
-    launches_per_call[kname] = n
+    g = captured_work(fn)
+    n, ng = sum(k.values()), sum(g.values())
+    others = [name for name in list(k) + list(g)
+              if not any(f in name for f in frags)]
+    say(f"kernels: {tag} {kname}: {ng} device kernel(s) a call (want "
+        f"{want}) in a graph capture: "
+        + "; ".join(f"{name[:60]} x{c}" for name, c in g.items())
+        + f"; torch.profiler: {n}" + ("" if n else " (the traces held no "
+                                        "device event)"))
+    if ng != want or n not in (0, want) or others:
+        bad.append(f"{kname} {tag}: {ng} device kernels a call in a capture"
+                   f", {n} in the profiler's trace, want {want}; others: "
+                   f"{others}")
+    return ng
+
+
+def _one_pass_check(torch, kname, fn, tag, bad, launches_per_call):
+    """Device kernels of one call of `fn` (K24, K26 / K28's entries): as
+    many as ONE_PASS says, all of the one-pass design (no zero fill, no
+    memset); the count is kept for the record."""
+    launches_per_call[kname] = _work_check(tag, kname, fn, ONE_PASS[kname],
+                                           ONE_PASS_KERNELS, bad)
 
 
 def phase_dd2d_kernels(torch, record):
@@ -3576,6 +3744,10 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
             lambda: torch.mv(li0.T, torch.mv(li0, v6[0])))
         costs["block_matvec@coarse"] = (2 * (n6 * n6 + 2 * n6) * sz,
                                         4 * n6 * n6)
+        # the pair as K7's solve entry: one launch, the yardstick two mv
+        _solve_check(torch, name, "block_solve@coarse", "pair", [li0], v6,
+                     ch["chol"], bad, record,
+                     library=lambda: torch.mv(li0.T, torch.mv(li0, v6[0])))
         torch.cuda.synchronize()
         for kname, checks in res.items():
             _report(torch, name, kname, checks, times[kname], costs[kname],
@@ -3671,6 +3843,19 @@ def phase_scale(torch, record, launches_out):
                                 "path")
         if problems:
             raise Fail("scale path: " + "; ".join(problems))
+        # K7's solve entry on the run's scan factor (bf16 leaves; f64: the
+        # leaves cast), against the K7 sequence and the plain version
+        rr = torch.randn((sysm.n_parts, sysm.n3), device="cuda")
+        for dt_ in (torch.float64, torch.float32):
+            nm = str(dt_).split(".")[-1]
+            _solve_check(torch, nm, "block_solve@bar135", "btd",
+                         [t if dt_ == torch.float32 else t.to(dt_)
+                          for t in fac], rr.to(dt_), TOL_H0[nm]["chol"],
+                         problems, record)
+            torch.cuda.empty_cache()
+        if problems:
+            raise Fail("scale path: " + "; ".join(problems))
+        del rr
 
         x = sim.state.x.detach().clone()
         fixed = sim.state.fixed.clone()
@@ -3747,7 +3932,7 @@ def main(argv=None):
         if "main" in phases:
             phase_main(torch, launches)
         if "steppers" in phases:
-            phase_steppers(torch, launches)
+            phase_steppers(torch, launches, record)
         if "admm" in phases:
             phase_admm(torch, launches)
         if "scale" in phases:
@@ -3779,7 +3964,7 @@ def main(argv=None):
             if k.startswith(name + "@"):
                 tag = k.split("@")[1]
                 if tag == "bar135":
-                    extra[tag] = v
+                    extra.setdefault(tag, {}).update(v)
                 elif tag in ("coarse", "scan"):
                     extra.setdefault("bar135", {})[tag] = v
                 else:

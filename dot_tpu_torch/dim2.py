@@ -213,10 +213,12 @@ class System2D(SystemBase):
         grav = np.asarray([0.0, GRAVITY_Y, 0.0])
         self.gravity = t(grav)
         self.grav_dt_sq = t(grav * self.dt_sq)
-        # the gradient's vertex-sorted incidences and the dense assembly's
-        # slot-sorted runs (dot_tpu's _gdest / _hdest), built once
+        # the gradient's vertex-sorted incidences (dot_tpu's _gdest) and
+        # the dense assembly's slot tables (its _hdest), built once
         self.scatter_plan = soa2d.scatter2d_plan(mesh.conn, mesh.n_vert,
                                                  self.device)
+        self.dense_tab = dd2d.dense_tables(mesh.conn, mesh.n_vert,
+                                           self.device)
 
         # characteristic tolerance pieces (Optimizer.cpp:612-651)
         self._sqnorm_l = mesh.sqnorm_face_area_sums
@@ -304,8 +306,8 @@ class System2D(SystemBase):
         its lower triangle and no symmetrized copy is made."""
         H36 = self.element_hessians(x)
         H, d = self.k.dense_assemble2d(H36, self._free(fixed), self.mass,
-                                       self.scatter_plan)
-        Hn = self.k.dense_scale2d(H, d, self.scatter_plan)
+                                       self.dense_tab)
+        Hn = self.k.dense_scale2d(H, d, self.dense_tab)
         del H
         L, info = torch.linalg.cholesky_ex(Hn)
         nan = torch.where(info != 0, torch.nan, 0.0).to(self.dtype)

@@ -8,6 +8,12 @@ K6 chol_inv        batched Cholesky L and L^{-1} of SPD blocks (the diagonal
                    blocks of core.py 853-1203)
 K7 block_matvec    out = c - op(A) v over a batch of blocks (core.py
                    1061-1135 _cr_solve, 1219-1261 _btd_solve)
+K7 block_solve     a whole block-tridiagonal / cyclic-reduction solve, or
+                   the coarse pair Lc^{-T} Lc^{-1} (core.py 1296-1317), as
+                   K7's products in one launch: the launch sequences
+                   btd_solve_ref / cr_solve_ref / pair_solve_ref, and the
+                   SolveProgram their kernel walks (solve_program; its CPU
+                   mirror run_solve_program_ref)
 K8 h0_gather /     the vertex gather and duplicate-averaging segment sum of
    h0_average      h0_apply (core.py 1263-1280)
 K5 band_compact    K5's other entry point: the finished compact unique-block
@@ -221,6 +227,362 @@ def block_matvec_ref(A, v, c=None, trans=False, out=None):
         return r
     out.copy_(r)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K7's solves: the launch sequences, and the same products as one program
+# ---------------------------------------------------------------------------
+def _mv(mv, A, v, c=None, trans=False, out=None):
+    """`mv` (block_matvec's signature over (B, n, n) blocks and (B, n) or
+    (B, n, k) vectors) on blocks of any leading shape: A (..., n, n); v, c
+    (..., n) or (..., n, k) with the same leading shape. A is viewed, never
+    copied: one subdomain's slice [:, i:i+1] of a scan-major leaf keeps its
+    batch stride."""
+    n = A.shape[-1]
+    flat = (-1, n) + tuple(v.shape[A.dim() - 1:])
+    r = mv(A.view(-1, n, n), v.reshape(flat),
+           None if c is None else c.reshape(flat), trans,
+           None if out is None else out.view(flat))
+    return r.view(v.shape)
+
+
+def _btd_scan(linv, sub, rT, mv):
+    """Forward / backward block substitution on scan-major right-hand
+    sides rT (nb, P, n[, k]) (dot_tpu core.py:1219-1261):
+      y_k = Linv_k (r_k - S_{k-1} y_{k-1}),
+      x_k = Linv_k^T (y_k - S_k^T x_{k+1}); returns x scan-major."""
+    nb = rT.shape[0]
+    ys, y = [], None
+    for k in range(nb):
+        t = rT[k] if y is None else _mv(mv, sub[k - 1], y, rT[k])
+        y = _mv(mv, linv[k], t)
+        ys.append(y)
+    xs, x = [None] * nb, None
+    for k in reversed(range(nb)):
+        t = ys[k] if x is None else _mv(mv, sub[k], x, ys[k], True)
+        x = _mv(mv, linv[k], t, trans=True)
+        xs[k] = x
+    return torch.stack(xs)
+
+
+def btd_solve_ref(linv, sub, r, mv=block_matvec_ref):
+    """The block-tridiagonal solve with the pre-inverted diagonal factors
+    (linv (nb, P, n, n), sub (nb - 1, P, n, n)) against r (P, nb n), or
+    (P, nb n, k) for k right-hand sides at once: 4 nb - 2 calls of `mv`
+    (block_matvec_ref; K7's launches with ops.block_matvec, K15's with
+    ops.block_matvec_k and k columns)."""
+    nb, P, n = linv.shape[0], linv.shape[1], linv.shape[-1]
+    tail = tuple(r.shape[2:])
+    rT = r.reshape((P, nb, n) + tail).transpose(0, 1).contiguous()
+    return _btd_scan(linv, sub, rT, mv).transpose(0, 1) \
+        .reshape((P, nb * n) + tail)
+
+
+def cr_solve_ref(levels, root_linv, root_sub, r, mv=block_matvec_ref):
+    """The solve against a cyclic-reduction factor (dot_tpu
+    core.py:1061-1135): per level (Li, G_lo, G_hi) (n_odd, P, n, n) the
+    forward reduction onto the even blocks, the root's block scan, then the
+    back substitution, every block product a call of `mv`. r (P, nb n)."""
+    P, n = levels[0][0].shape[1], levels[0][0].shape[-1]
+    nb = r.shape[1] // n
+    rT = r.reshape(P, nb, n).transpose(0, 1).contiguous()   # (nb, P, n)
+    stack = []
+    for Li, G_lo, G_hi in levels:
+        m = rT.shape[0]
+        n_odd = m // 2
+        n_even = m - n_odd
+        z = _mv(mv, Li, rT[1::2].contiguous())            # Li r_odd
+        re = rT[0::2].contiguous()
+        _mv(mv, G_lo, z, re[:n_odd], True, out=re[:n_odd])
+        if n_even > 1:
+            k = n_even - 1
+            _mv(mv, G_hi[:k], z[:k], re[1:], True, out=re[1:])
+        stack.append((z, m))
+        rT = re
+    xT = _btd_scan(root_linv, root_sub, rT, mv)
+    for (Li, G_lo, G_hi), (z, m) in zip(reversed(levels), reversed(stack)):
+        n_odd = m // 2
+        t = _mv(mv, G_lo, xT[:n_odd], z)                  # z - G_lo x_a
+        k = min(n_odd, xT.shape[0] - 1)                  # x_b past: zeros
+        if k > 0:
+            _mv(mv, G_hi[:k], xT[1:1 + k], t[:k], out=t[:k])
+        full = torch.empty((m, P, n), dtype=xT.dtype, device=xT.device)
+        full[0::2] = xT
+        full[1::2] = _mv(mv, Li, t, trans=True)           # Li^T t
+        xT = full
+    return xT.transpose(0, 1).reshape(P, nb * n)
+
+
+def pair_solve_ref(li, r, mv=block_matvec_ref):
+    """The coarse solve's pair Lc^{-T} (Lc^{-1} r) on Lc^{-1} (n, n), r
+    (1, n) (dot_tpu core.py:1296-1317): two calls of `mv`."""
+    y = _mv(mv, li[None], r)
+    return _mv(mv, li[None], y, trans=True)
+
+
+def block_solve_ref(prog, leaves, r, mv=block_matvec_ref):
+    """K7's solve entry, plain: the launch sequence of `prog`'s kind (a
+    SolveProgram; leaves and r as solve_program and ops.block_solve take
+    them), each block product a call of `mv` (ops.block_matvec: the K7
+    launches the entry replaced)."""
+    if prog.kind == "btd":
+        return btd_solve_ref(leaves[0], leaves[1], r, mv)
+    if prog.kind == "pair":
+        return pair_solve_ref(leaves[0], r, mv)
+    levels = [tuple(leaves[i:i + 3]) for i in range(0, len(leaves) - 2, 3)]
+    return cr_solve_ref(levels, leaves[-2], leaves[-1], r, mv)
+
+
+# a stage of a solve program: N_FIELDS int64, in csrc/block_matvec.cu's
+# order. F_A: A's leaf (on the card its address), whose block (j, p) lies
+# F_A_OFF + j F_A_SJ + p F_A_SP entries in; v, c (F_C -1: none) and out:
+# a buffer (BUF_*) and its block (j, p) at off + j sj + p sp; a batch of
+# F_NJ x F_NP blocks (P); F_OP one of OP_*; F_SYNC: a grid barrier first;
+# F_LOWER: A is an inverse Cholesky factor (exact zeros above the
+# diagonal), of which the kernel reads the lower triangle
+(F_A, F_A_OFF, F_A_SJ, F_A_SP, F_V, F_V_OFF, F_V_SJ, F_V_SP, F_C, F_C_OFF,
+ F_C_SJ, F_C_SP, F_O, F_O_OFF, F_O_SJ, F_O_SP, F_NJ, F_NP, F_OP, F_SYNC,
+ F_LOWER) = range(21)
+N_FIELDS = 21
+BUF_R, BUF_Z, BUF_WS = 0, 1, 2        # the input, the output, the workspace
+OP_A, OP_AT, OP_COPY = 0, 1, 2
+
+
+class SolveProgram(NamedTuple):
+    """One solve as a list of K7's stages (csrc/block_matvec.cu
+    dot_block_solve): `stages` (n_stage, N_FIELDS) int64 on the host with
+    F_A the index of the stage's leaf; `table` the same on the leaves' CUDA
+    device with F_A the leaf's address (None on the CPU). r and z are
+    (P, nb n); the workspace holds `ws` entries; `max_items` is the most
+    (block, 32-row or 32-column group) items a stage has; `ptrs` the
+    leaves' addresses (a call must pass the same leaves)."""
+    kind: str            # "btd", "cr" or "pair"
+    stages: np.ndarray
+    P: int
+    nb: int
+    n: int
+    ws: int
+    max_items: int
+    table: object
+    ptrs: tuple
+
+
+class _Stages:
+    """A solve program under construction: vector places are (buffer,
+    off, sj, sp); `orig` addresses blocks in r's (P, nb n) layout, `blk`
+    a workspace region of (m, P, n) blocks."""
+
+    def __init__(self, leaves, P, nb, n, lower):
+        self.strides = [(t.stride(0), t.stride(1)) for t in leaves]
+        self.lower = lower               # indices of the inverse factors
+        self.P, self.nb, self.n = P, nb, n
+        self.rows, self.ws = [], 0
+
+    def alloc(self, blocks):
+        off = self.ws
+        self.ws += blocks * self.P * self.n
+        return off
+
+    def leaf(self, i, k=0):
+        """A: blocks k, k + 1, ... of leaf i over the parts."""
+        s0, s1 = self.strides[i]
+        return (i, k * s0, s0, s1)
+
+    def orig(self, buf, base, k0, kstep):
+        return (buf, base + k0 * self.n, kstep * self.n, self.nb * self.n)
+
+    def blk(self, base, k=0):
+        return (BUF_WS, base + k * self.P * self.n, self.P * self.n, self.n)
+
+    def add(self, op, nj, a, v, out, c=None, sync=True):
+        row = np.zeros(N_FIELDS, np.int64)
+        if a is not None:
+            row[F_A:F_A + 4] = a
+        row[F_V:F_V + 4] = v
+        row[F_C:F_C + 4] = (-1, 0, 0, 0) if c is None else c
+        row[F_O:F_O + 4] = out
+        row[[F_NJ, F_NP, F_OP, F_SYNC]] = (nj, self.P, op, int(sync))
+        row[F_LOWER] = int(a is not None and a[0] in self.lower)
+        self.rows.append(row)
+
+    def scan(self, li, sb, nbr, rhs, tmp, out, sync):
+        """_btd_scan's products on leaves li (Linv) and sb (S): rhs(k) the
+        right-hand side of block k, tmp(k) where t_k goes, out(k) x_k."""
+        Y = self.alloc(nbr)
+        self.add(OP_A, 1, self.leaf(li, 0), rhs(0), self.blk(Y, 0),
+                 sync=sync)
+        for k in range(1, nbr):
+            self.add(OP_A, 1, self.leaf(sb, k - 1), self.blk(Y, k - 1),
+                     tmp(k), c=rhs(k))
+            self.add(OP_A, 1, self.leaf(li, k), tmp(k), self.blk(Y, k))
+        self.add(OP_AT, 1, self.leaf(li, nbr - 1), self.blk(Y, nbr - 1),
+                 out(nbr - 1))
+        for k in reversed(range(nbr - 1)):
+            self.add(OP_AT, 1, self.leaf(sb, k), out(k + 1), self.blk(Y, k),
+                     c=self.blk(Y, k))
+            self.add(OP_AT, 1, self.leaf(li, k), self.blk(Y, k), out(k))
+
+
+def _cr_program(b, n_lev):
+    """cr_solve_ref's products. The even blocks' right-hand sides are
+    reduced in place in R, a copy of r (block i of level l at block
+    i 2^l); each level's z in a region of its own; every x lands in z at
+    its block (no interleave)."""
+    R = b.alloc(b.nb)
+    m, zs = b.nb, []
+    for lev in range(n_lev):
+        s = 1 << lev
+        n_odd = m // 2
+        n_even = m - n_odd
+        Z = b.alloc(n_odd)
+        src = (BUF_R, 0) if lev == 0 else (BUF_WS, R)
+        b.add(OP_A, n_odd, b.leaf(3 * lev), b.orig(*src, s, 2 * s),
+              b.blk(Z), sync=lev > 0)
+        if lev == 0:      # R = r, beside the first products (no barrier)
+            b.add(OP_COPY, b.nb, None, b.orig(BUF_R, 0, 0, 1),
+                  b.orig(BUF_WS, R, 0, 1), sync=False)
+        re = b.orig(BUF_WS, R, 0, 2 * s)
+        b.add(OP_AT, n_odd, b.leaf(3 * lev + 1), b.blk(Z), re, c=re)
+        if n_even > 1:
+            re = b.orig(BUF_WS, R, 2 * s, 2 * s)
+            b.add(OP_AT, n_even - 1, b.leaf(3 * lev + 2),
+                  b.blk(Z), re, c=re)
+        zs.append((Z, m))
+        m = n_even
+    s = 1 << n_lev
+    b.scan(3 * n_lev, 3 * n_lev + 1, m,
+           lambda k: b.orig(BUF_WS, R, k * s, 0),
+           lambda k: b.orig(BUF_WS, R, k * s, 0),
+           lambda k: b.orig(BUF_Z, 0, k * s, 0), sync=True)
+    for lev in reversed(range(n_lev)):
+        Z, m = zs[lev]
+        s = 1 << lev
+        n_odd = m // 2
+        k = min(n_odd, m - n_odd - 1)
+        z = b.blk(Z)
+        b.add(OP_A, n_odd, b.leaf(3 * lev + 1),
+              b.orig(BUF_Z, 0, 0, 2 * s), z, c=z)
+        if k > 0:
+            b.add(OP_A, k, b.leaf(3 * lev + 2),
+                  b.orig(BUF_Z, 0, 2 * s, 2 * s), z, c=z)
+        b.add(OP_AT, n_odd, b.leaf(3 * lev), z,
+              b.orig(BUF_Z, 0, s, 2 * s))
+
+
+def solve_program(kind, leaves):
+    """The SolveProgram of one solve against factor leaves (tensors or
+    views with row-major blocks): "btd" (linv (nb, P, n, n), sub
+    (nb - 1, P, n, n)); "cr" each level's (Li, G_lo, G_hi) (n_odd, P, n, n),
+    then the root's (linv, sub); "pair" (Lc^{-1} (n, n),) against r (1, n).
+    Every leaf of one dtype. The inverse factors (linv, Li, Lc^{-1}) must
+    hold exact zeros above the diagonal, as K6 writes them: the kernel
+    reads their lower triangle only. Built on the host; on a CUDA device
+    the table is uploaded once (pinned, no host wait)."""
+    if kind == "pair":
+        leaves = [leaves[0].view(1, 1, *leaves[0].shape)]
+    n = leaves[0].shape[-1]
+    for t in leaves:
+        if t.dim() != 4 or t.shape[-2] != n or (
+                n > 1 and (t.stride(-1) != 1 or t.stride(-2) != n)):
+            raise ValueError(f"solve_program: a leaf of shape "
+                             f"{tuple(t.shape)}, strides {t.stride()}")
+        if t.dtype != leaves[0].dtype or t.device != leaves[0].device:
+            raise TypeError("solve_program: leaves of mixed dtype or device")
+    P = leaves[0].shape[1]
+    if kind == "btd":
+        nb = leaves[0].shape[0]
+        b = _Stages(leaves, P, nb, n, {0})
+        T = b.alloc(1)
+        b.scan(0, 1, nb, lambda k: b.orig(BUF_R, 0, k, 0),
+               lambda k: b.blk(T), lambda k: b.orig(BUF_Z, 0, k, 0),
+               sync=False)
+    elif kind == "cr":
+        n_lev = (len(leaves) - 2) // 3
+        if n_lev < 1 or len(leaves) != 3 * n_lev + 2:
+            raise ValueError(f"solve_program: {len(leaves)} leaves of a "
+                             "cyclic-reduction factor")
+        nb = sum(leaves[3 * i].shape[0] for i in range(n_lev)) \
+            + leaves[-2].shape[0]
+        b = _Stages(leaves, P, nb, n,
+                    {3 * i for i in range(n_lev)} | {3 * n_lev})
+        _cr_program(b, n_lev)
+    elif kind == "pair":
+        nb = 1
+        b = _Stages(leaves, 1, nb, n, {0})
+        Y = b.alloc(1)
+        b.add(OP_A, 1, b.leaf(0), b.orig(BUF_R, 0, 0, 0), b.blk(Y),
+              sync=False)
+        b.add(OP_AT, 1, b.leaf(0), b.blk(Y), b.orig(BUF_Z, 0, 0, 0))
+    else:
+        raise ValueError(f"solve_program: kind {kind!r}")
+    stages = np.stack(b.rows)
+    groups = -(-n // 32)
+    items = stages[:, F_NJ] * stages[:, F_NP] * np.where(
+        stages[:, F_OP] == OP_COPY, 1, groups)
+    table = None
+    dev = leaves[0].device
+    ptrs = tuple(t.data_ptr() for t in leaves)
+    if dev.type == "cuda":
+        ptr = np.asarray(ptrs, np.int64)
+        tab = stages.copy()
+        op = tab[:, F_OP] != OP_COPY
+        tab[op, F_A] = ptr[tab[op, F_A]]
+        table = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
+    return SolveProgram(kind=kind, stages=stages, P=int(P), nb=int(nb),
+                        n=int(n), ws=int(b.ws), max_items=int(items.max()),
+                        table=table, ptrs=ptrs)
+
+
+def solve_cost(prog, leaves, r):
+    """(bytes, operations) one solve of `prog` needs at least: each leaf
+    read once, of an inverse factor (the stages flag F_LOWER) its lower
+    triangles only, n (n + 1) / 2 entries a block; r read and z written
+    once; two operations an entry of each block product the stages do."""
+    n = prog.n
+    tri = n * (n + 1) // 2
+    st = prog.stages
+    prod = st[st[:, F_OP] != OP_COPY]
+    lower = set(prod[prod[:, F_LOWER] == 1, F_A].tolist())
+    nbytes = 2 * r.numel() * r.element_size()
+    for i, t in enumerate(leaves):
+        nbytes += t.numel() // (n * n) * (tri if i in lower else n * n) \
+            * t.element_size()
+    entries = np.where(prod[:, F_LOWER] == 1, tri, n * n)
+    return nbytes, 2 * int((prod[:, F_NJ] * prod[:, F_NP] * entries).sum())
+
+
+def run_solve_program_ref(prog, leaves, r):
+    """CPU mirror of K7's solve kernel: walks prog's stages in order over
+    r (P, nb n), the output z and a workspace, each stage's products as
+    one block_matvec_ref call on the blocks the table names (F_LOWER's
+    blocks whole: their zeros change no sum). Equal to block_solve_ref bit
+    for bit (the same calls on the same values)."""
+    P, nb, n = prog.P, prog.nb, prog.n
+    if prog.kind == "pair":
+        leaves = [leaves[0].view(1, 1, n, n)]
+    z = torch.empty((P, nb * n), dtype=r.dtype, device=r.device)
+    ws = torch.empty(prog.ws, dtype=r.dtype, device=r.device)
+    bufs = (r, z, ws)
+    for row in prog.stages.tolist():
+        shape = (row[F_NJ], row[F_NP])
+
+        def vec(f):
+            t = bufs[row[f]]
+            return t.as_strided(shape + (n,), (row[f + 2], row[f + 3], 1),
+                                t.storage_offset() + row[f + 1])
+        v, out = vec(F_V), vec(F_O)
+        if row[F_OP] == OP_COPY:
+            out.copy_(v)
+            continue
+        leaf = leaves[row[F_A]]
+        A = leaf.as_strided(shape + (n, n), (row[F_A_SJ], row[F_A_SP], n, 1),
+                            leaf.storage_offset() + row[F_A_OFF])
+        c = None if row[F_C] < 0 else vec(F_C).reshape(-1, n)
+        res = block_matvec_ref(A.reshape(-1, n, n),
+                               v.reshape(-1, n).contiguous(), c,
+                               row[F_OP] == OP_AT)
+        out.copy_(res.view(out.shape))
+    return z
 
 
 def h0_gather_ref(rhs, l2g, valid, d):

@@ -6,8 +6,8 @@ K10 coarse_assemble   Kc = Z^T (dt^2 K + M) Z over 6 rigid modes per part
                       up to the symmetrization)
 K11 coarse_restrict / the restriction Z^T r / dc and the prolongation
     coarse_prolong    Z (y / dc) of the coarse apply (core.py:1296-1317
-                      _coarse_apply); the solve between them is two K7
-                      launches on Lc^{-1}
+                      _coarse_apply); the solve between them is one
+                      launch of K7's solve entry on Lc^{-1}
 
 Z's columns for part p are, at each free vertex v it owns, the three
 translations and the three rotations e_k x xc_v about the part's centroid

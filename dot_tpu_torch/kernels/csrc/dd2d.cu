@@ -255,12 +255,15 @@ __device__ __forceinline__ void store_cs(double* p, const double (&e)[2]) {
 // into nseg pieces of an even segv (about kSegVecs: 8 KB of f32), the
 // head going with the first piece and the tail with the last, so that a
 // warp's work is short and even. Lane l holds the row's slots l, l + 32,
-// ... (S a lane; the table's longest row is at most 32 S) and computes the
-// value of each that falls in its piece (the run in plan order, the free
-// mask of row and column, wadd, the diagonal's mass term and d). The warp
+// ... (S a lane) and computes the value of each that falls in its piece
+// (the run in plan order, the free mask of row and column, wadd, the
+// diagonal's mass term and d). The warp
 // then writes its piece once, 32 vectors a step (a "column chunk" of
 // 32 x 16 B), each lane composing its vector from zeros and the slots that
-// fall in it (a ballot of the chunk's slots, then shuffles). Every byte of
+// fall in it (a ballot of the chunk's slots, then shuffles). A row of
+// more than 32 S slots (S = 4: dd2d.MAX_ROW, 128) is walked in windows of
+// 32 S slots in column order, a column range taking the next window when
+// it reaches past the current one's last column. Every byte of
 // H is written once, coalesced, with evict-first stores (the matrix is far
 // larger than L2 and read next by the library Cholesky); no barrier and no
 // shared memory, so an SM holds as many pieces in flight as its registers
@@ -300,31 +303,51 @@ assemble_kernel(AsmJob<T> j0, AsmJob<T> j1) {
   const int kbeg = ld_last(j.row_off + row, pol);
   const int kend = ld_last(j.row_off + row + 1, pol);
   const T fr = ld_last(j.freev + base + r / DOF, pol);
+  constexpr int kWin = 32 * S;
   int c[S];
   T v[S];
+  // the window of slots wk .. wk + kWin - 1 (lane l: wk + l, wk + l + 32,
+  // ...): the column and value of each slot that falls in this piece
+  auto load = [&](int wk) {
 #pragma unroll
-  for (int u = 0; u < S; ++u) {
-    const int k = kbeg + 32 * u + lane;
-    c[u] = k < kend ? ld_last(j.col + k, pol) : -1;
-    v[u] = T(0);
-    if (c[u] >= clo && c[u] < chi) {
-      const T fc = ld_last(j.freev + base + c[u] / DOF, pol);
-      // wadd is 0 off its own slots (those marked in wslot): read there only
-      const T wv = j.wadd != nullptr && (j.wslot == nullptr || j.wslot[k])
-                       ? j.wadd[rpos + c[u]] : T(0);
-      T s = run_sum(j.vals, j.items, ld_last(j.seg_off + k, pol),
-                    ld_last(j.seg_off + k + 1, pol), pol);
-      s = s * fr * fc;
-      if (j.wadd != nullptr) s = s + wv;
-      if (c[u] == r && j.mass != nullptr) {
-        s = s + (j.mass[base + r / DOF] * fr + (T(1) - fr));
-        j.d[row] = sqrt(s);
+    for (int u = 0; u < S; ++u) {
+      const int k = wk + 32 * u + lane;
+      c[u] = k < kend ? ld_last(j.col + k, pol) : -1;
+      v[u] = T(0);
+      if (c[u] >= clo && c[u] < chi) {
+        const T fc = ld_last(j.freev + base + c[u] / DOF, pol);
+        // wadd is 0 off its own slots (those marked in wslot): read there
+        // only
+        const T wv = j.wadd != nullptr && (j.wslot == nullptr || j.wslot[k])
+                         ? j.wadd[rpos + c[u]] : T(0);
+        T s = run_sum(j.vals, j.items, ld_last(j.seg_off + k, pol),
+                      ld_last(j.seg_off + k + 1, pol), pol);
+        s = s * fr * fc;
+        if (j.wadd != nullptr) s = s + wv;
+        if (c[u] == r && j.mass != nullptr) {
+          s = s + (j.mass[base + r / DOF] * fr + (T(1) - fr));
+          j.d[row] = sqrt(s);
+        }
+        v[u] = s;
+      } else {
+        c[u] = -1;                // not in this piece: in no window below
       }
-      v[u] = s;
-    } else {
-      c[u] = -1;                  // not in this piece: in no window below
     }
-  }
+  };
+  // a row of more than kWin slots is walked in windows, in column order:
+  // those wholly left of the piece are skipped, and a column range that
+  // reaches past the window's last column takes the next one
+  int wk = kbeg;
+  while (wk + kWin < kend && ld_last(j.col + wk + kWin - 1, pol) < clo)
+    wk += kWin;
+  load(wk);
+  auto next_window = [&](int hi) {
+    if (wk + kWin >= kend || ld_last(j.col + wk + kWin - 1, pol) >= hi)
+      return false;
+    wk += kWin;
+    load(wk);
+    return true;
+  };
   T* out = j.H + rpos;
   // the value at column `want` of this row from the lanes' slots (the
   // columns the lanes ask for lie in [lo, hi), the same for the warp)
@@ -341,16 +364,13 @@ assemble_kernel(AsmJob<T> j0, AsmJob<T> j1) {
       }
     }
   };
-  // head (first piece) and tail (last piece) entries: one lane an entry
+  // head entries (first piece): one lane an entry
   if (g == 0 && head > 0) {
     T h = T(0);
-    pick(lane, 0, head, h);
+    do {
+      pick(lane, 0, head, h);
+    } while (next_window(head));
     if (lane < head) out[lane] = h;
-  }
-  if (last && tail0 < n) {
-    T t = T(0);
-    pick(tail0 + lane, tail0, n, t);
-    if (tail0 + lane < n) out[tail0 + lane] = t;
   }
   // the piece's aligned vectors, 32 a step
   for (int v0 = v_lo; v0 < v_hi; v0 += 32) {
@@ -360,20 +380,30 @@ assemble_kernel(AsmJob<T> j0, AsmJob<T> j1) {
     T vec[kVec];
 #pragma unroll
     for (int e = 0; e < kVec; ++e) vec[e] = T(0);
+    do {
 #pragma unroll
-    for (int u = 0; u < S; ++u) {
-      unsigned m = __ballot_sync(0xffffffffu, c[u] >= lo && c[u] < hi);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const int cs = __shfl_sync(0xffffffffu, c[u], src);
-        const T vs = __shfl_sync(0xffffffffu, v[u], src);
+      for (int u = 0; u < S; ++u) {
+        unsigned m = __ballot_sync(0xffffffffu, c[u] >= lo && c[u] < hi);
+        while (m) {
+          const int src = __ffs(m) - 1;
+          m &= m - 1;
+          const int cs = __shfl_sync(0xffffffffu, c[u], src);
+          const T vs = __shfl_sync(0xffffffffu, v[u], src);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          if (cs == mine + e) vec[e] = vs;
+          for (int e = 0; e < kVec; ++e)
+            if (cs == mine + e) vec[e] = vs;
+        }
       }
-    }
+    } while (next_window(hi));
     if (v0 + lane < v_hi) store_cs(out + mine, vec);
+  }
+  // tail entries (last piece): one lane an entry
+  if (last && tail0 < n) {
+    T t = T(0);
+    do {
+      pick(tail0 + lane, tail0, n, t);
+    } while (next_window(n));
+    if (tail0 + lane < n) out[tail0 + lane] = t;
   }
 }
 
@@ -532,7 +562,7 @@ bool job_ok(long long n, long long n_parts) {
 }
 
 // one launch over j0's rows, then j1's (j1.blocks 0: none); max_row: the
-// most slots a row of either holds (at most 128)
+// most slots a row of either holds (beyond 128: windows of 128)
 template <typename T, int DOF>
 int assemble_dof(const AsmJob<T>& j0, const AsmJob<T>& j1, int nb,
                  int max_row, cudaStream_t st) {
@@ -541,10 +571,8 @@ int assemble_dof(const AsmJob<T>& j0, const AsmJob<T>& j1, int nb,
     assemble_kernel<T, DOF, 1><<<nb, nt, 0, st>>>(j0, j1);
   else if (max_row <= 64)
     assemble_kernel<T, DOF, 2><<<nb, nt, 0, st>>>(j0, j1);
-  else if (max_row <= 128)
-    assemble_kernel<T, DOF, 4><<<nb, nt, 0, st>>>(j0, j1);
   else
-    return 1;
+    assemble_kernel<T, DOF, 4><<<nb, nt, 0, st>>>(j0, j1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -655,7 +683,7 @@ int dot_quadratic_form2d(int dtype, const void* p, const void* conn,
 // (kernels/dd2d.py SlotTables), all int32: row_off (n_parts n + 1,) the
 // row's slots, col (n_slot,) their columns (every diagonal slot among
 // them), seg_off (n_slot + 1,) each slot's run of items (n_item,), indices
-// into vals. max_row: the most slots a row holds (at most 128).
+// into vals. max_row: the most slots a row holds.
 //
 // freev, mass (n_parts, n_loc); H (n_parts, n, n) and d (n_parts, n) are
 // written; dof: 1 or 2 (n = dof * n_loc).

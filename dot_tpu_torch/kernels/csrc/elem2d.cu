@@ -1,6 +1,7 @@
 // K21-K24: the kernels of the 2D (triangle-mesh) projected-Newton path, with
 // a plain C interface (loaded through ctypes by ops.py), and one check entry
-// per device function of elem2d.cuh.
+// per device function of elem2d.cuh (K24's assembly runs dd2d.cu's one-pass
+// kernel; its scaling is here).
 //
 // Layouts: F, restTriInv: (4, N) component rows (m00, m01, m10, m11); corner
 // ids: (3, N) int32; x: (nV, 3) with z = 0; the element Hessian (36, N)
@@ -40,14 +41,15 @@
 //   columns, a unit diagonal at fixed dofs, d = sqrt(diag); then
 //   H / d_i / d_j. dot_tpu makes four full-size temporaries there. Bound:
 //   bytes: the matrix written once (1.655 GB in f32 at 10,171 vertices:
-//   0.49 ms at 3.35 TB/s). Design: one launch fills the matrix with zeros
-//   (16 B stores, grid-stride); one launch has one thread per destination
-//   slot sum its host-sorted run of element entries in element order (K14's
-//   way: a Cholesky reads the sums, so no atomics), apply mass, mask and
-//   unit diagonal, write the slot and, on the diagonal, d. The scaling is a
-//   second entry over the same slots, in place: every other entry is 0 and
-//   stays 0, so the matrix is not read or written a second time. Slots are
-//   64-bit (n2^2 passes 2^31 above 23,170 vertices).
+//   0.49 ms at 3.35 TB/s). Design: the assembly is K26's one write pass
+//   (dd2d.cu assemble_kernel, dot_subdomain_assemble2d) with the whole mesh
+//   as one part (dd2d.dense_tables): every byte written once, no zero
+//   fill. Its diagonal term is mass f + (1 - f) after the mask, dot_tpu's
+//   (s + mass) f f + (1 - f) before it: the same bits where f is 0 or 1.
+//   The scaling (here) is a second entry over the same slots, in place:
+//   every other entry is 0 and stays 0, so the matrix is not read or
+//   written a second time. Its slots are 64-bit (n2^2 passes 2^31 above
+//   23,170 vertices).
 //
 // Two more entry points serve 2D ADMM-DD (their plain versions are in
 // kernels/admm2d.py):
@@ -78,7 +80,6 @@ namespace dotk2 {
 
 constexpr int kRedThreads = 256;   // K21 block size (power of two)
 constexpr int kElemThreads = 128;  // per-element / per-vertex / per-slot
-constexpr int kFillBlocks = 132 * 8;
 
 inline int blocks(int64_t n, int t) { return static_cast<int>((n + t - 1) / t); }
 
@@ -359,46 +360,7 @@ elem_hessian2d_kernel(const T* __restrict__ x, const int* __restrict__ conn,
     }
 }
 
-// K24: zero fill, 16 B a store
-__global__ void __launch_bounds__(kRedThreads)
-zero_fill_kernel(uint4* __restrict__ p, int64_t n16) {
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kRedThreads;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(kRedThreads) + threadIdx.x;
-       i < n16; i += step)
-    p[i] = z;
-}
-
-// K24: one thread per destination slot
-template <typename T>
-__global__ void __launch_bounds__(kElemThreads)
-dense_slots2d_kernel(const T* __restrict__ H36, int64_t n,
-                     const int64_t* __restrict__ items,
-                     const int64_t* __restrict__ seg_off,
-                     const int64_t* __restrict__ udest, int64_t n_slot,
-                     const T* __restrict__ freev, const T* __restrict__ mass,
-                     int64_t n2, T* __restrict__ H, T* __restrict__ d) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(kElemThreads) + threadIdx.x;
-  if (t >= n_slot) return;
-  T s = T(0);
-  const int64_t end = seg_off[t + 1];
-  for (int64_t k = seg_off[t]; k < end; ++k) {
-    const int64_t item = items[k];        // element * 36 + component
-    const int64_t e = item / 36;
-    s += H36[(item - e * 36) * n + e];
-  }
-  const int64_t slot = udest[t];
-  const int64_t row = slot / n2, col = slot - row * n2;
-  const T fr = freev[row >> 1], fc = freev[col >> 1];
-  if (row == col) s = s + mass[row >> 1];
-  s = s * fr * fc;
-  if (row == col) {
-    s = s + (T(1) - fr);
-    d[row] = sqrt(s);
-  }
-  H[slot] = s;
-}
-
+// K24's scaling: one thread per assembled slot, in place
 template <typename T>
 __global__ void __launch_bounds__(kElemThreads)
 dense_scale2d_kernel(T* __restrict__ H, const T* __restrict__ d,
@@ -543,24 +505,6 @@ void launch_material(const void* F, const void* u, const void* lam, int n,
       (const T*)F, (const T*)u, (const T*)lam, n, (T*)out);
 }
 
-template <typename T>
-int assemble(const void* H36, long long n, const void* items, const void* seg_off,
-             const void* udest, long long n_slot, const void* freev,
-             const void* mass, long long n2, void* H, void* d, cudaStream_t st) {
-  const int64_t bytes = n2 * n2 * static_cast<int64_t>(sizeof(T));
-  if (n2 <= 0 || bytes % 16 != 0) return 1;
-  zero_fill_kernel<<<kFillBlocks, kRedThreads, 0, st>>>(static_cast<uint4*>(H),
-                                                       bytes / 16);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (n_slot > 0)
-    dense_slots2d_kernel<T><<<blocks(n_slot, kElemThreads), kElemThreads, 0, st>>>(
-        (const T*)H36, n, (const int64_t*)items, (const int64_t*)seg_off,
-        (const int64_t*)udest, n_slot, (const T*)freev, (const T*)mass, n2, (T*)H,
-        (T*)d);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace dotk2
 
 // dtype: 0 float32, 1 float64; mat: 0 FCR, 1 SNH, 2 SNHWL. Each returns the
@@ -660,25 +604,6 @@ int dot_elem_hessian2d(int dtype, int mat, const void* x, const void* conn,
   if (n == 0) return 1;
   DOTK2_DISPATCH(dotk2::launch_hess, x, (const int*)conn, g4, u, lam, w, dt_sq, n,
                  out, (cudaStream_t)stream)
-}
-
-// H36 (36, n); items (36 n,) entries element * 36 + component sorted by slot,
-// seg_off (n_slot + 1,), udest (n_slot,) the slots row * n2 + col; freev, mass
-// (n2 / 2,); H (n2, n2) and d (n2,) are written (every diagonal slot must be
-// among udest).
-int dot_dense_assemble2d(int dtype, const void* H36, long long n,
-                         const void* items, const void* seg_off,
-                         const void* udest, long long n_slot, const void* freev,
-                         const void* mass, long long n2, void* H, void* d,
-                         void* stream) {
-  auto st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dotk2::assemble<float>(H36, n, items, seg_off, udest, n_slot, freev,
-                                  mass, n2, H, d, st);
-  if (dtype == 1)
-    return dotk2::assemble<double>(H36, n, items, seg_off, udest, n_slot, freev,
-                                   mass, n2, H, d, st);
-  return 1;
 }
 
 // H[slot] = H[slot] / d[row] / d[col] over the assembled slots, in place.

@@ -13,6 +13,7 @@ kernels against them on the card.
 
 from __future__ import annotations
 
+import bisect
 from typing import NamedTuple
 
 import numpy as np
@@ -30,9 +31,10 @@ BLOCK_TO_ROW = np.array([(c // 12 * 2 + c % 4 // 2) * 6
 # 16 B vectors of a row one warp of K26 / K28's one-pass kernel writes,
 # about (8 KB of f32): longer rows are cut into pieces of an even count
 SEG_VECS = 512
-# the most slots a row may hold on the card: K26 / K28's one-pass kernel
-# keeps a row's slots in its warp's registers, 32 S a row for S up to 4 (a
-# 2-dof row holds 2 (degree + 1) slots: a vertex of 63 neighbours)
+# the slots of a row K26 / K28's one-pass kernel holds in its warp's
+# registers at once (32 S, S up to 4); a longer row (a 2-dof row holds
+# 2 (degree + 1) slots: a vertex of 64 neighbours or more) is walked in
+# windows of MAX_ROW slots
 MAX_ROW = 128
 
 
@@ -109,6 +111,25 @@ def subdomain_tables(plan, n_elem, device):
                        plan.n_parts, plan.n_local_max, 2, device)
 
 
+def dense_tables(conn, n_vert, device):
+    """K24's tables: the whole-mesh (2 nV)^2 matrix as one part of K26's
+    batch. Value k N + e of the (36, N) row-major element Hessians lands at
+    slot row * 2 nV + col of the element's dofs (dot_tpu's _hdest); the
+    pairs in _hdest's order (element-major), so that each slot sums its run
+    in the order index_add_ does. Raises for a vertex in no triangle (it
+    would have no equation)."""
+    conn = np.asarray(conn, np.int64)
+    n, n2 = conn.shape[0], 2 * n_vert
+    dof = np.stack([2 * conn[:, c] + i for c in range(3) for i in range(2)],
+                   axis=1)                                   # (N, 6)
+    dest = (np.repeat(dof, 6, axis=1) * n2 + np.tile(dof, (1, 6)))
+    if np.unique(dof).size != n2:
+        raise ValueError("2D mesh has a vertex that belongs to no triangle")
+    src = np.arange(36)[None, :] * n + np.arange(n)[:, None]  # (N, 36)
+    return slot_tables(src.reshape(-1), dest.reshape(-1), 1, n_vert, 2,
+                       device)
+
+
 def pd_tables(conn, n_vert, device):
     """The K28 tables of the (nV)^2 scalar PD matrix: value (a*3 + b)*N + e
     of the (9, N) pair values lands at conn[e, a] * nV + conn[e, b]
@@ -169,21 +190,26 @@ def _assemble_ref(vals, free, mass, tab):
 
 
 def assemble_rows_ref(vals, free, mass, tab, wadd=None, lanes=32,
-                      seg_vecs=SEG_VECS):
+                      seg_vecs=SEG_VECS, window=MAX_ROW):
     """CPU mirror of K26 / K28's one-pass kernel (csrc/dd2d.cu
     assemble_kernel) over the row tables: one warp a row piece. A row's
-    slots row_off[row] <= k < row_off[row + 1] at columns col[k] each sum
-    their run (seg_off, items) in plan order, are masked by free at row and
-    column, get wadd (P, n, n) at the slot (read where tab.extra marks the
-    slot, 0 elsewhere) and mass f + (1 - f) on the diagonal (mass None:
-    neither, and d None). The row is written from
-    zeros in the kernel's pieces: its 16 B aligned vectors cut into nseg
-    even pieces of at most `seg_vecs` vectors, the entries before the first
-    aligned one (a head) with the first piece and those after the last
-    whole vector (a tail) with the last, each piece in column chunks of
-    `lanes` vectors (the kernel's warp step: 32), each chunk taking the
-    slots that fall in it. (H (P, n, n), d (P, n)): _assemble_ref's values
-    bit for bit, whatever `lanes` and `seg_vecs`."""
+    slots row_off[row] <= k < row_off[row + 1] at columns col[k] (ascending)
+    each sum their run (seg_off, items) in plan order, are masked by free
+    at row and column, get wadd (P, n, n) at the slot (read where tab.extra
+    marks the slot, 0 elsewhere) and mass f + (1 - f) on the diagonal
+    (mass None: neither, and d None). The row is written in the kernel's
+    pieces: its 16 B aligned vectors cut into nseg even pieces of at most
+    `seg_vecs` vectors, the entries before the first aligned one (a head)
+    with the first piece and those after the last whole vector (a tail)
+    with the last, each piece in column chunks of `lanes` vectors (the
+    kernel's warp step: 32), each chunk from zeros and the slots that fall
+    in it. A piece walks the row's slots in windows of `window` as the
+    kernel does: it skips the windows wholly left of its columns, and a
+    chunk takes the next window while the current one ends left of the
+    chunk's end; d is written where the diagonal's window is loaded.
+    (H (P, n, n), d (P, n)): _assemble_ref's values bit for bit, whatever
+    `lanes`, `seg_vecs` and `window` (an entry no chunk writes, or a slot
+    no window reaches, shows as NaN or a missing value)."""
     P, n, dof = tab.n_parts, tab.n, tab.dof
     dev, dt = vals.device, vals.dtype
     vec = 16 // vals.element_size()
@@ -196,17 +222,23 @@ def assemble_rows_ref(vals, free, mass, tab, wadd=None, lanes=32,
         torch.repeat_interleave(mass, dof, dim=-1).reshape(-1)
     wf = None if wadd is None else wadd.reshape(-1)
     row_off, col = tab.row_off.tolist(), tab.col.long()
+    cols_all = tab.col.tolist()
     seg_off, items = tab.seg_off.long(), tab.items.long()
-    H = torch.empty(P * n * n, dtype=dt, device=dev)
-    d = None if mass is None else torch.empty(P * n, dtype=dt, device=dev)
+    nan = float("nan")
+    H = torch.full((P * n * n,), nan, dtype=dt, device=dev)
+    d = None if mass is None else torch.full((P * n,), nan, dtype=dt,
+                                             device=dev)
     for row in range(P * n):
         r = row % n
-        k = torch.arange(row_off[row], row_off[row + 1], device=dev)
+        kb, ke = row_off[row], row_off[row + 1]
+        cols = cols_all[kb:ke]
+        # one lane a slot: its run in plan order (the kernel computes each
+        # slot in the piece its column falls in: the same bits)
+        k = torch.arange(kb, ke, device=dev)
         c = col[k]
-        # one lane a slot: its run in plan order
         lo, hi = seg_off[k], seg_off[k + 1]
         s = torch.zeros(k.shape[0], dtype=dt, device=dev)
-        for q in range(int((hi - lo).max()) if k.numel() else 0):
+        for q in range(int((hi - lo).max())):
             on = lo + q < hi
             s[on] += flat[items[lo[on] + q]]
         s = s * f[row] * f[row - r + c]
@@ -215,25 +247,51 @@ def assemble_rows_ref(vals, free, mass, tab, wadd=None, lanes=32,
             if tab.extra is not None:       # wadd read at its own slots only
                 w = torch.where(tab.extra[k].bool(), w, torch.zeros_like(w))
             s = s + w
-        if m is not None:
-            on = c == r
-            s[on] = s[on] + (m[row] * f[row] + (1.0 - f[row]))
-            d[row] = torch.sqrt(s[on][0])
-        # the row written once, piece by piece: head, column chunks, tail
-        out = torch.zeros(n, dtype=dt, device=dev)
+        diag = bisect.bisect_left(cols, r)
+        diag = diag if diag < len(cols) and cols[diag] == r else -1
+        if m is not None and diag >= 0:
+            s[diag] = s[diag] + (m[row] * f[row] + (1.0 - f[row]))
         mis = row * n % (2 * vec)
         head = 0 if mis == 0 else min(2 * vec - mis, n)
         nvec = (n - head) // vec
-        pieces = [(0, head), (head + nvec * vec, n)]
+        tail0 = head + nvec * vec
+        out = H[row * n:(row + 1) * n]
+        picked = []
         for g in range(nseg):
+            last = g == nseg - 1
             v_lo = min(g * segv, nvec)
-            v_hi = nvec if g == nseg - 1 else min(v_lo + segv, nvec)
-            pieces += [(head + a * vec, head + min(a + lanes, v_hi) * vec)
+            v_hi = nvec if last else min(v_lo + segv, nvec)
+            clo = 0 if g == 0 else head + v_lo * vec        # its columns
+            chi = n if last else head + v_hi * vec
+            chunks = [(0, head)] if g == 0 and head > 0 else []
+            chunks += [(head + a * vec, head + min(a + lanes, v_hi) * vec)
                        for a in range(v_lo, v_hi, lanes)]
-        for a, b in pieces:
-            on = (c >= a) & (c < b)
-            out[c[on]] = s[on]
-        H[row * n:(row + 1) * n] = out
+            if last and tail0 < n:
+                chunks.append((tail0, n))
+            wk = 0
+            while wk + window < len(cols) and cols[wk + window - 1] < clo:
+                wk += window
+
+            def load(wk):
+                we = min(wk + window, len(cols))
+                a = bisect.bisect_left(cols, clo, wk, we)
+                b = bisect.bisect_left(cols, chi, wk, we)
+                if d is not None and a <= diag < b:
+                    d[row] = torch.sqrt(s[diag])
+                return a, b
+            win = load(wk)
+            for a, b in chunks:
+                out[a:b] = 0
+                while True:
+                    picked += [j for j in range(*win)
+                               if a <= cols[j] < b]
+                    if wk + window >= len(cols) or \
+                            cols[wk + window - 1] >= b:
+                        break
+                    wk += window
+                    win = load(wk)
+        picked = torch.tensor(picked, dtype=torch.long, device=dev)
+        out[c[picked]] = s[picked]
     return H.reshape(P, n, n), None if d is None else d.reshape(P, n)
 
 

@@ -10,14 +10,16 @@ Each wrapper checks device, dtype, shape and contiguity, then
   decomposed path's K25-K28, kernels/admm2d.py for K29-K30 and the 2D
   ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
-  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 and K15's products:
-  csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
-  K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
-  passes: csrc/pd.cu, K17, K18 and K20: csrc/admm.cu, K19: band_asm.cu,
-  K21-K24: csrc/elem2d.cu, K25-K28: csrc/dd2d.cu, K29-K30:
-  csrc/admm2d.cu (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and
-  dd2d.cu), K9: csrc/lbfgs.cu, all through ctypes (K6 and K9 launch
-  cooperatively); K4: triton_qf.py),
+  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (its single products and
+  its whole solves) and K15's products: csrc/block_matvec.cu, K8 and
+  K16: csrc/h0.cu, K10-K11: csrc/coarse.cu, K12: csrc/band_equil.cu,
+  K13: csrc/hdiag.cu, K14 and K15's permute passes: csrc/pd.cu, K17,
+  K18 and K20: csrc/admm.cu, K19: band_asm.cu,
+  K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
+  K25-K28: csrc/dd2d.cu, K29-K30: csrc/admm2d.cu (K21 / K22 / K26's 2D
+  ADMM-DD entries in elem2d.cu and dd2d.cu), K9: csrc/lbfgs.cu, all
+  through ctypes (K6, K7's solves and K9 launch cooperatively); K4:
+  triton_qf.py),
   checks the launch's cudaGetLastError and adds one to its count in
   `launches`;
 - raises for any other device.
@@ -39,8 +41,8 @@ from . import admm, admm2d, band, coarse, dd2d, lbfgs, pd, soa, soa2d
 
 KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "direction_pass", "band_assemble", "chol_inv", "block_matvec",
-           "h0_gather", "h0_average", "lbfgs_first", "lbfgs_second",
-           "coarse_assemble", "coarse_restrict",
+           "block_solve", "h0_gather", "h0_average", "lbfgs_first",
+           "lbfgs_second", "coarse_assemble", "coarse_restrict",
            "coarse_prolong", "band_compact", "band_equil_scatter",
            "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
            "pd_scatter", "local_gather_one", "local_scatter_one",
@@ -64,6 +66,7 @@ plain = types.SimpleNamespace(
     band_assemble=band.band_assemble_ref,
     chol_inv=band.chol_inv_ref,
     block_matvec=band.block_matvec_ref,
+    block_solve=band.block_solve_ref,
     h0_gather=band.h0_gather_ref,
     h0_average=band.h0_average_ref,
     lbfgs_first=lbfgs.lbfgs_first_ref,
@@ -146,6 +149,8 @@ def _load():
             + [LL, I, I, LL, P],
             ("block_matvec", "dot_block_matvec_k"): [I, I] + [P] * 4
             + [LL, I, I, I, P],
+            ("block_matvec", "dot_block_solve"): [I, I, P, I, I, LL, P, P, P,
+                                                  I, P],
             ("h0", "dot_local_gather_one"): [I] + [P] * 4 + [LL, LL, P, P],
             ("h0", "dot_local_scatter_one"): [I] + [P] * 4
             + [LL, LL, LL, P, P],
@@ -186,8 +191,6 @@ def _load():
                                                    LL, P, P, P]),
             ("elem2d", "dot_elem_hessian2d"): ([I, I] + [P] * 6
                                                + [ctypes.c_double, I, P, P]),
-            ("elem2d", "dot_dense_assemble2d"): [I, P, LL, P, P, P, LL, P, P,
-                                                 LL, P, P, P],
             ("elem2d", "dot_dense_scale2d"): [I, P, P, P, LL, LL, P],
             ("elem2d", "dot_svd2_flip"): [I, P, I, P, P, P, P],
             ("elem2d", "dot_eigh2"): [I, P, I, P, P, P, P],
@@ -518,6 +521,42 @@ def block_matvec(A, v, c=None, trans=False, out=None):
                            stride, _stream(v))
     _ok(name, err)
     return out
+
+
+def block_solve(prog, leaves, r):
+    """K7's solve entry: z (P, nb n) = the solve of `prog` (a
+    band.SolveProgram: a block-tridiagonal scan, a cyclic-reduction solve
+    or the coarse pair) against r (P, nb n) in f32 or f64, on the factor
+    leaves the program was built for (bf16, f32 or f64), in one
+    cooperative launch. Raises where the launch is refused: no fallback."""
+    return _block_solve(prog, leaves, r, 0)
+
+
+def _block_solve(prog, leaves, r, grid):
+    """block_solve with the launch's grid: 0 the co-resident blocks (at
+    most one per item of the largest stage), else `grid` blocks (tests: a
+    grid above the co-resident limit must be refused)."""
+    name = "block_solve"
+    dt = _float(name, r)
+    _need(name, "r", r, r.device, dt, (prog.P, prog.nb * prog.n))
+    a_dt = leaves[0].dtype
+    if (a_dt not in _A_DTYPES or prog.ptrs != tuple(t.data_ptr()
+                                                    for t in leaves)
+            or any(t.dtype != a_dt or t.device != r.device for t in leaves)):
+        raise ValueError(f"{name}: leaves other than the program's, or of "
+                         f"mixed dtype or device")
+    if not _route(name, r):
+        return band.block_solve_ref(prog, leaves, r)
+    lib = _load()
+    size = prog.P * prog.nb * prog.n
+    buf = torch.empty(size + prog.ws, dtype=dt, device=r.device)
+    z = buf[:size].view(prog.P, -1)
+    err = lib.block_solve(_A_DTYPES[a_dt], _DTYPES[dt], _ptr(prog.table),
+                          prog.stages.shape[0], prog.n, prog.max_items,
+                          _ptr(r), _ptr(z), _ptr(buf[size:]), grid,
+                          _stream(r))
+    _ok_coop(name, err)
+    return z
 
 
 def h0_gather(rhs, l2g, valid, d):
@@ -1302,57 +1341,50 @@ def elem_hessian2d(x, conn, g4, u, lam, w, mat, dt_sq):
     return out
 
 
-def _slots2d(name, ref, plan):
-    n_slot = plan.udest.shape[0]
-    _need(name, "udest", plan.udest, ref.device, torch.int64, (n_slot,))
-    _need(name, "seg_off", plan.seg_off, ref.device, torch.int64,
-          (n_slot + 1,))
-    return n_slot
-
-
-def dense_assemble2d(H36, free, mass, plan):
+def dense_assemble2d(H36, free, mass, tab):
     """K24: (H (2 nV, 2 nV), d (2 nV,)) from the (36, N) element Hessians:
     the whole-mesh matrix summed by slot in a fixed order, + mass on the
     diagonal, rows and columns of fixed dofs zeroed with a unit diagonal;
-    d = sqrt(diag H). free, mass: (nV,); plan: a soa2d.Scatter2DPlan."""
+    d = sqrt(diag H). free, mass: (nV,); tab: dd2d.dense_tables. On the
+    card K26's one write pass over the whole mesh as one part (mass after
+    the mask, s f f + (m f + (1 - f)): the same bits for a 0 / 1 mask)."""
     name, dev = "dense_assemble2d", H36.device
     dt = _float(name, H36)
-    n, nv = H36.shape[-1], plan.n_vert
-    _need(name, "H36", H36, dev, dt, (36, n))
+    nv, n2 = tab.n_loc, tab.n
+    _need(name, "H36", H36, dev, dt, (36, None))
     _need(name, "free", free, dev, dt, (nv,))
     _need(name, "mass", mass, dev, dt, (nv,))
-    _need(name, "hdest", plan.hdest, dev, torch.int64, (36 * n,))
-    _need(name, "items", plan.items, dev, torch.int64, (36 * n,))
-    n_slot = _slots2d(name, H36, plan)
+    _slot_tables(name, dev, tab)
+    if tab.n_parts != 1 or tab.dof != 2:
+        raise ValueError(f"{name}: tables of {tab.n_parts} parts, "
+                         f"{tab.dof} dofs")
     if not _route(name, H36):
-        return soa2d.dense_assemble2d_ref(H36, free, mass, plan)
+        return soa2d.dense_assemble2d_ref(H36, free, mass, tab)
     lib = _load()
-    n2 = 2 * nv
     H = torch.empty((n2, n2), dtype=dt, device=dev)
     d = torch.empty(n2, dtype=dt, device=dev)
-    err = lib.dense_assemble2d(
-        _DTYPES[dt], _ptr(H36), n, _ptr(plan.items), _ptr(plan.seg_off),
-        _ptr(plan.udest), n_slot, _ptr(free), _ptr(mass), n2, _ptr(H),
-        _ptr(d), _stream(H36))
+    err = lib.subdomain_assemble2d(
+        _DTYPES[dt], _ptr(H36), *_rows(tab), _ptr(free), _ptr(mass), nv, n2,
+        1, 2, tab.max_row, _ptr(H), _ptr(d), _stream(H36))
     _ok(name, err)
     return H, d
 
 
-def dense_scale2d(H, d, plan):
+def dense_scale2d(H, d, tab):
     """K24's second entry: H / d_i / d_j (the Jacobi equilibration before
-    the Cholesky). On the card the assembled slots of H are scaled in place
-    and H is returned (every other entry is 0); the plain version returns a
-    new tensor."""
+    the Cholesky). On the card the assembled slots of H (tab.udest) are
+    scaled in place and H is returned (every other entry is 0); the plain
+    version returns a new tensor."""
     name, dev = "dense_scale2d", H.device
     dt = _float(name, H)
-    n2 = 2 * plan.n_vert
+    n2, n_slot = tab.n, tab.udest.shape[0]
     _need(name, "H", H, dev, dt, (n2, n2))
     _need(name, "d", d, dev, dt, (n2,))
-    n_slot = _slots2d(name, H, plan)
+    _need(name, "udest", tab.udest, dev, torch.int64, (n_slot,))
     if not _route(name, H):
-        return soa2d.dense_scale2d_ref(H, d, plan)
+        return soa2d.dense_scale2d_ref(H, d, tab)
     lib = _load()
-    err = lib.dense_scale2d(_DTYPES[dt], _ptr(H), _ptr(d), _ptr(plan.udest),
+    err = lib.dense_scale2d(_DTYPES[dt], _ptr(H), _ptr(d), _ptr(tab.udest),
                             n_slot, n2, _stream(H))
     _ok(name, err)
     return H
@@ -1489,16 +1521,6 @@ def _rows(tab):
             _ptr(tab.col))
 
 
-def _max_row(name, *tabs):
-    """The most slots a row of `tabs` holds, which the one-pass kernel
-    keeps in registers (at most dd2d.MAX_ROW)."""
-    m = max(t.max_row for t in tabs)
-    if m > dd2d.MAX_ROW:
-        raise ValueError(f"{name}: a row of {m} slots (the kernel takes at "
-                         f"most {dd2d.MAX_ROW})")
-    return m
-
-
 def subdomain_assemble2d(elem_h, free, mass_img, tab):
     """K26: (Hd (P, n2p, n2p), d (P, n2p)): the subdomain Hessians with
     interface completion summed by slot in plan order, the free mask on
@@ -1521,7 +1543,7 @@ def subdomain_assemble2d(elem_h, free, mass_img, tab):
     d = elem_h.new_empty((P, n))
     err = lib.subdomain_assemble2d(
         _DTYPES[dt], _ptr(elem_h), *_rows(tab), _ptr(free), _ptr(mass_img),
-        N, n, P, 2, _max_row(name, tab), _ptr(H), _ptr(d), _stream(elem_h))
+        N, n, P, 2, tab.max_row, _ptr(H), _ptr(d), _stream(elem_h))
     _ok(name, err)
     return H, d
 
@@ -1574,7 +1596,7 @@ def pd_assemble2d(g4, w, free, mass, tab):
     d = g4.new_empty(nv)
     err = lib.pd_assemble2d(
         _DTYPES[dt], _ptr(g4), _ptr(w), n, _ptr(vals), *_rows(tab),
-        _ptr(free), _ptr(mass), nv, _max_row(name, tab), _ptr(S), _ptr(d),
+        _ptr(free), _ptr(mass), nv, tab.max_row, _ptr(S), _ptr(d),
         _stream(g4))
     _ok(name, err)
     return S, d
@@ -1850,7 +1872,8 @@ def w_assemble2d(elem_h, free, sfree, md_sh, w_tab, c_tab):
     err = lib.w_assemble2d(
         _DTYPES[dt], _ptr(elem_h), *_rows(w_tab), _ptr(free), N, n, P,
         _ptr(Wm), *_rows(c_tab), _ptr(sfree), _ptr(md_sh), nc,
-        _max_row(name, w_tab, c_tab), _ptr(C), _ptr(dc), _stream(elem_h))
+        max(w_tab.max_row, c_tab.max_row), _ptr(C), _ptr(dc),
+        _stream(elem_h))
     _ok(name, err)
     return Wm, C, dc
 
@@ -1883,7 +1906,7 @@ def local_h_assemble2d(elem_h, Wm, free, mass, tab):
     d = elem_h.new_empty((P, n))
     err = lib.local_h_assemble2d(
         _DTYPES[dt], _ptr(elem_h), *_rows(tab), _ptr(tab.extra), _ptr(free),
-        _ptr(mass), _ptr(Wm), N, n, P, _max_row(name, tab), _ptr(H), _ptr(d),
+        _ptr(mass), _ptr(Wm), N, n, P, tab.max_row, _ptr(H), _ptr(d),
         _stream(elem_h))
     _ok(name, err)
     return H, d

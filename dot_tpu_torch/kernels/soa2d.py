@@ -6,7 +6,8 @@ that the kernels fuse).
 
 The CUDA kernels K21-K24 in csrc/elem2d.cu compute the same functions (one
 element, vertex or matrix slot per thread) with the device functions of
-csrc/elem2d.cuh. The CPU tests hold this module against
+csrc/elem2d.cuh; K24's assembly is K26's one-pass kernel (csrc/dd2d.cu) on
+the whole mesh as one part. The CPU tests hold this module against
 dot_tpu.kernels.soa2d, and chip_smoke.py holds each kernel against the
 fused references at the bottom of this file on the card. The expressions
 keep dot_tpu's operation order, so that a kernel built without FMA
@@ -323,37 +324,20 @@ def corner_basis2(g4):
 # host-side tables of the scatters
 # ---------------------------------------------------------------------------
 class Scatter2DPlan(NamedTuple):
-    """Static index tensors of the 2D gradient scatter and dense Hessian
-    assembly (one per System2D, built on the host once)."""
+    """Static index tensors of the 2D gradient scatter and the Hessian
+    diagonal (one per System2D, built on the host once; the dense
+    assembly's tables are dd2d.dense_tables)."""
     n_vert: int
     gdest: torch.Tensor      # (6 N,) int64 dof 2 v + i of value e*6 + c*2+i
     inc_perm: torch.Tensor   # (3 N,) int64 incidences e*3 + c sorted by vertex
     inc_off: torch.Tensor    # (nV + 1,) int64 CSR offsets of `inc_perm`
-    hdest: torch.Tensor      # (36 N,) int64 slot row * n2 + col of value
-                             #   e*36 + k (dot_tpu's _hdest)
-    items: torch.Tensor      # (36 N,) int64 values e*36 + k sorted by slot
-                             #   (stable: each run in element order)
-    seg_off: torch.Tensor    # (nSlot + 1,) int64 CSR offsets of `items`
-    udest: torch.Tensor      # (nSlot,) int64 the runs' slots, ascending
 
 
 def scatter2d_plan(conn, n_vert, device):
-    """Scatter2DPlan from the (N, 3) triangle connectivity (numpy). Slots
-    are 64-bit: (2 nV)^2 passes 2^31 at nV > 23,170. Every dof's diagonal
-    slot must occur (a vertex in no triangle has no equation)."""
+    """Scatter2DPlan from the (N, 3) triangle connectivity (numpy)."""
     conn = np.asarray(conn, np.int64)
-    n2 = 2 * n_vert
     dof = np.stack([2 * conn[:, c] + i for c in range(3) for i in range(2)],
                    axis=1)                                   # (N, 6)
-    rows = np.repeat(dof, 6, axis=1)                         # (N, 36)
-    cols = np.tile(dof, (1, 6))
-    hdest = (rows * n2 + cols).reshape(-1)
-    order = np.argsort(hdest, kind="stable")
-    udest, first = np.unique(hdest[order], return_index=True)
-    seg_off = np.concatenate([first, [order.size]]).astype(np.int64)
-    diag = np.arange(n2, dtype=np.int64) * (n2 + 1)
-    if not np.isin(diag, udest).all():
-        raise ValueError("2D mesh has a vertex that belongs to no triangle")
     flat = conn.reshape(-1)
     inc_perm = np.argsort(flat, kind="stable")
     inc_off = np.searchsorted(flat[inc_perm], np.arange(n_vert + 1))
@@ -362,9 +346,7 @@ def scatter2d_plan(conn, n_vert, device):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int64,
                                device=device)
     return Scatter2DPlan(n_vert=int(n_vert), gdest=t(dof.reshape(-1)),
-                         inc_perm=t(inc_perm), inc_off=t(inc_off),
-                         hdest=t(hdest), items=t(order), seg_off=t(seg_off),
-                         udest=t(udest))
+                         inc_perm=t(inc_perm), inc_off=t(inc_off))
 
 
 # ---------------------------------------------------------------------------
@@ -419,15 +401,16 @@ def elem_hessian2d_ref(x, conn, g4, u, lam, w, mat, dt_sq, project_spd=True):
     return torch.stack(H) * torch.tensor(dt_sq, dtype=x.dtype)
 
 
-def dense_assemble2d_ref(H36, free, mass, plan):
+def dense_assemble2d_ref(H36, free, mass, tab):
     """K24 plain: (H (2 nV, 2 nV), d (2 nV,)): the element Hessians
     scatter-added by slot, + the lumped mass on the diagonal, rows and
-    columns of fixed dofs zeroed, a unit diagonal there; d = sqrt(diag H).
-    H36: (36, N); free, mass: (nV,)."""
-    n2 = 2 * plan.n_vert
-    vals = H36.t().reshape(-1)                       # value e*36 + k
+    columns of fixed dofs zeroed, a unit diagonal there; d = sqrt(diag H)
+    (dot_tpu/dim2.py:486-496, in its order: the mass before the mask).
+    H36: (36, N); free, mass: (nV,); tab: dd2d.dense_tables (its (src,
+    dest) pairs in _hdest's order)."""
+    n2 = tab.n
     H = torch.zeros(n2 * n2, dtype=H36.dtype, device=H36.device)
-    H = H.index_add_(0, plan.hdest, vals).reshape(n2, n2)
+    H = H.index_add_(0, tab.dest, H36.reshape(-1)[tab.src]).reshape(n2, n2)
     H.diagonal().add_(torch.repeat_interleave(mass, 2))
     free2 = torch.repeat_interleave(free, 2)
     H = H * free2[:, None] * free2[None, :]
@@ -435,7 +418,7 @@ def dense_assemble2d_ref(H36, free, mass, plan):
     return H, torch.sqrt(H.diagonal())
 
 
-def dense_scale2d_ref(H, d, plan):
+def dense_scale2d_ref(H, d, tab):
     """K24's second entry, plain: H / d_i / d_j as a new tensor (the kernel
     scales the assembled slots of H in place: every other entry is 0)."""
     dinv = 1.0 / d

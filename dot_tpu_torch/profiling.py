@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import ctypes
 import os
 import shutil
 import sys
@@ -64,6 +65,7 @@ KERNEL_NAMES = {
     "band_assemble": ("band_assemble_kernel",),
     "chol_inv": ("chol_inv_kernel",),
     "block_matvec": ("matvec_kernel", "matvec_t_kernel"),
+    "block_solve": ("solve_kernel",),
     "h0_gather": ("h0_gather_kernel",),
     "h0_average": ("h0_average_kernel",),
     "lbfgs_first": ("lbfgs_first_kernel",),
@@ -89,6 +91,8 @@ KERNEL_NAMES = {
     "w_diag": (),                           # w_matvec_kernel's diagonal flag
     "ls_trial_energy_parts": ("ls_trial_energy_parts_kernel",),
     "elem_gradient_from_F": ("elem_gradient_from_F_kernel",),
+    # K24's assembly is K26's one-pass kernel (no 2D scene here)
+    "dense_assemble2d": ("dotdd::assemble_kernel",),
 }
 # spans inside rebuild_h0 and h0_apply (timed, not subtracted from the
 # host rest): the unchunked path assembles and factorizes, the chunked one
@@ -159,7 +163,8 @@ def device_kernels(fn, tries=3):
     launches, counted by the device rather than by the wrapper. The call
     is profiled `tries` times and each name keeps the most launches a
     trace saw: a trace can lose device events (seen on the card, now and
-    then), never gain them."""
+    then; in a long process, every event of a dozen traces in a row: see
+    captured_work), never gain them."""
     from torch.profiler import ProfilerActivity, profile
     most = {}
     for _ in range(tries):
@@ -172,6 +177,81 @@ def device_kernels(fn, tries=3):
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 most[e.key] = max(most.get(e.key, 0), e.count)
     return most
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of libcuda's graph API."""
+    _fields_ = [("func", ctypes.c_void_p), ("dims", ctypes.c_uint * 7),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+_NODE_TYPES = {1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "event wait", 7: "event record", 10: "mem alloc",
+               11: "mem free"}
+
+
+def captured_work(fn):
+    """{name: count} of the device work one call of `fn` enqueues, from a
+    CUDA graph capture of the call (torch.cuda.graph; the graph is read
+    through the CUDA runtime while it is captured, then dropped unrun):
+    kernel nodes by their (mangled) names, the other nodes by kind
+    ("memset", "memcpy", ...). It counts what a wrapper launches
+    (cooperative launches included) without the profiler's activity
+    records, which a trace can lose (device_kernels)."""
+    rt = ctypes.CDLL("libcudart.so.12")
+    drv = ctypes.CDLL("libcuda.so.1")
+    V, P = ctypes.c_void_p, ctypes.POINTER
+    # the 6-argument form (the header maps cudaStreamGetCaptureInfo to it;
+    # the library's plain symbol is the old 3-argument one)
+    info = rt.cudaStreamGetCaptureInfo_v2
+    info.argtypes = [V, P(ctypes.c_int), P(ctypes.c_ulonglong), P(V), P(V),
+                     P(ctypes.c_size_t)]
+    rt.cudaGraphGetNodes.argtypes = [V, V, P(ctypes.c_size_t)]
+    rt.cudaGraphNodeGetType.argtypes = [V, P(ctypes.c_int)]
+    # kernel names through libcuda: the kernels of the port's libraries
+    # belong to their own (static) runtimes, not to this one
+    drv.cuGraphKernelNodeGetParams_v2.argtypes = [V, P(_KernelNodeParams)]
+    drv.cuFuncGetName.argtypes = [P(ctypes.c_char_p), V]
+    drv.cuKernelGetName.argtypes = [P(ctypes.c_char_p), V]
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"captured_work: {what} failed (cudaError "
+                               f"{err})")
+    work = {}
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+        stream = V(torch.cuda.current_stream().cuda_stream)
+        status, graph = ctypes.c_int(), V()
+        ok(info(stream, ctypes.byref(status), None, ctypes.byref(graph),
+                None, None), "cudaStreamGetCaptureInfo")
+        n = ctypes.c_size_t()
+        ok(rt.cudaGraphGetNodes(graph, None, ctypes.byref(n)),
+           "cudaGraphGetNodes")
+        nodes = (V * n.value)()
+        ok(rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(n)),
+           "cudaGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int()
+            ok(rt.cudaGraphNodeGetType(node, ctypes.byref(kind)),
+               "cudaGraphNodeGetType")
+            name = _NODE_TYPES.get(kind.value, f"node type {kind.value}")
+            if kind.value == 0:
+                prm = _KernelNodeParams()
+                ok(drv.cuGraphKernelNodeGetParams_v2(node,
+                                                     ctypes.byref(prm)),
+                   "cuGraphKernelNodeGetParams")
+                cname = ctypes.c_char_p()
+                ok(drv.cuFuncGetName(ctypes.byref(cname), prm.func)
+                   if prm.func else
+                   drv.cuKernelGetName(ctypes.byref(cname), prm.kern),
+                   "cuFuncGetName")
+                name = cname.value.decode()
+            work[name] = work.get(name, 0) + 1
+    del g
+    return work
 
 
 def profile_frames(sim, frames, out, trace=True):

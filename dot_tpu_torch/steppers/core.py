@@ -22,11 +22,12 @@ otherwise, blocked or plain Cholesky on dense plans), the H0 apply
 
 The per-element passes go through the hand-written kernels K1-K4 of
 kernels/ops.py; the banded H0 rebuild and apply through K5-K8 (band
-assembly, diagonal-block Cholesky + inverse, block mat-vecs, the vertex
-gather / averaging); the coarse space through K10 (Kc assembly) and K11
-(restriction, prolongation), with its (6P)^2 factor on K6 and its solves
-on K7; the chunked band through K5's compact entry point and K12
-(equilibrate + bf16 scatter). The other steppers add K13 (the Hessian
+assembly, diagonal-block Cholesky + inverse, the block solves: K7's
+products, one launch a solve, the vertex gather / averaging); the coarse
+space through K10 (Kc assembly) and K11 (restriction, prolongation), with
+its (6P)^2 factor on K6 and its solve pair on K7 (one launch); the
+chunked band through K5's compact entry point and K12 (equilibrate + bf16
+scatter). The other steppers add K13 (the Hessian
 diagonal of warmStart 5), K14 (the LBFGS-PD matrix M + dt^2 D^T W D in its
 banded storage), K15 (its solve: block products against the three
 coordinates at once, and the permute / scale passes) and K16 (the GSDD
@@ -293,6 +294,7 @@ class System(SystemBase):
         self.n_parts = plan.n_parts if plan is not None else 0
         self.n3 = plan.n3 if plan is not None else 0
         self.n_syncs = 0
+        self._solve_progs = {}     # K7's solve programs (_block_solve)
         p = plan
 
         self.band_bs = int(getattr(p, "band_bs", 0) or 0)
@@ -782,7 +784,7 @@ class System(SystemBase):
         """Solve the factored subdomain systems against equilibrated
         right-hand sides r (P, n3) -> (P, n3)."""
         if isinstance(L, CRFactor):
-            return self._cr_solve(L, r)
+            return self._block_solve("cr", factor_leaves(L), r)
         if isinstance(L, BTDFactor):
             return self._btd_solve(L, r)
         rr = r.to(self._solve_dtype)[..., None]
@@ -790,98 +792,32 @@ class System(SystemBase):
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)
         return z[..., 0]
 
-    def _mv(self, A, v, c=None, trans=False, out=None):
-        """K7 on blocks of any leading shape: A (..., bs, bs), v and c
-        (..., bs) with the same leading shape; returns (..., bs). With a
-        trailing axis of k right-hand sides on v and c ((..., bs, k)) it is
-        K15. A is viewed, never copied: one subdomain's slice [:, i:i+1] of
-        a scan-major leaf keeps its batch stride."""
-        bs = A.shape[-1]
-        if v.dim() == A.dim():
-            k = v.shape[-1]
-            r = self.k.block_matvec_k(
-                A.view(-1, bs, bs), v.reshape(-1, bs, k),
-                None if c is None else c.reshape(-1, bs, k), trans,
-                None if out is None else out.view(-1, bs, k))
-            return r.view(v.shape)
-        r = self.k.block_matvec(
-            A.view(-1, bs, bs), v.reshape(-1, bs),
-            None if c is None else c.reshape(-1, bs), trans,
-            None if out is None else out.view(-1, bs))
-        return r.view(v.shape)
+    def _block_solve(self, kind, leaves, r):
+        """One solve against factor leaves (band.solve_program's kinds) as
+        K7's solve entry: one launch. The program is built once per factor
+        (leaves at the same addresses with the same shapes get the same
+        program, so it is cached by them and holds no tensor of its own)."""
+        key = (kind,) + tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                              for t in leaves)
+        prog = self._solve_progs.get(key)
+        if prog is None:
+            if len(self._solve_progs) >= 64:
+                self._solve_progs.clear()
+            prog = self._solve_progs[key] = band.solve_program(kind, leaves)
+        return self.k.block_solve(prog, leaves,
+                                  r.to(self._solve_dtype).contiguous())
 
     def _btd_solve(self, fac, r):
         """Forward/backward block substitution with the pre-inverted
-        diagonal factors (K7 launches; dot_tpu core.py:1219-1261):
-          y_k = Linv_k (r_k - S_{k-1} y_{k-1}),
-          z_k = Linv_k^T (y_k - S_k^T z_{k+1}).
-        r is (P, n), or (P, n, k) for k right-hand sides at once (K15
-        launches: each block is read once for all k)."""
-        nb, P, bs = fac.linv.shape[0], fac.linv.shape[1], fac.linv.shape[2]
-        tail = tuple(r.shape[2:])
-        rT = r.to(self._solve_dtype).reshape((P, nb, bs) + tail) \
-            .transpose(0, 1).contiguous()               # (nb, P, bs[, k])
-        ys, y = [], None
-        for k in range(nb):
-            t = rT[k] if y is None else self._mv(fac.sub[k - 1], y, rT[k])
-            y = self._mv(fac.linv[k], t)
-            ys.append(y)
-        zs, z = [None] * nb, None
-        for k in reversed(range(nb)):
-            t = ys[k] if z is None else self._mv(fac.sub[k], z, ys[k], True)
-            z = self._mv(fac.linv[k], t, trans=True)
-            zs[k] = z
-        return torch.stack(zs, dim=1).reshape((P, nb * bs) + tail)
-
-    def _cr_solve(self, fac, r):
-        """Solve against a CRFactor (dot_tpu core.py:1061-1135): forward
-        reduction onto the root, root scan solve, back substitution; every
-        block product a K7 launch."""
-        P, bs = fac.levels[0][0].shape[1], fac.levels[0][0].shape[2]
-        nb = r.shape[1] // bs
-        mv = self._mv
-        rT = r.to(self._solve_dtype).reshape(P, nb, bs).transpose(0, 1) \
-            .contiguous()                                   # (nb, P, bs)
-        stack = []
-        for Li, G_lo, G_hi in fac.levels:
-            m = rT.shape[0]
-            n_odd = m // 2
-            n_even = m - n_odd
-            z = mv(Li, rT[1::2].contiguous())            # Li r_odd
-            re = rT[0::2].contiguous()
-            mv(G_lo, z, re[:n_odd], True, out=re[:n_odd])
-            if n_even > 1:
-                k = n_even - 1
-                mv(G_hi[:k], z[:k], re[1:], True, out=re[1:])
-            stack.append((z, m))
-            rT = re
-
-        root = fac.root
-        nbr = rT.shape[0]
-        ys, y = [], None
-        for i in range(nbr):
-            t = rT[i] if y is None else mv(root.sub[i - 1], y, rT[i])
-            y = mv(root.linv[i], t)
-            ys.append(y)
-        xs, x = [None] * nbr, None
-        for i in reversed(range(nbr)):
-            t = ys[i] if x is None else mv(root.sub[i], x, ys[i], True)
-            x = mv(root.linv[i], t, trans=True)
-            xs[i] = x
-        xT = torch.stack(xs)
-
-        for (Li, G_lo, G_hi), (z, m) in zip(reversed(fac.levels),
-                                            reversed(stack)):
-            n_odd = m // 2
-            t = mv(G_lo, xT[:n_odd], z)                  # z - G_lo x_a
-            k = min(n_odd, xT.shape[0] - 1)              # x_b past: zeros
-            if k > 0:
-                mv(G_hi[:k], xT[1:1 + k], t[:k], out=t[:k])
-            full = torch.empty((m, P, bs), dtype=xT.dtype, device=xT.device)
-            full[0::2] = xT
-            full[1::2] = mv(Li, t, trans=True)           # Li^T t
-            xT = full
-        return xT.transpose(0, 1).reshape(P, nb * bs)
+        diagonal factors (dot_tpu core.py:1219-1261). r is (P, n): one
+        launch of K7's solve entry; or (P, n, k) for k right-hand sides at
+        once: band.btd_solve_ref's sequence of K15 launches (each block is
+        read once for all k)."""
+        if r.dim() == 3:
+            return band.btd_solve_ref(fac.linv, fac.sub,
+                                      r.to(self._solve_dtype),
+                                      self.k.block_matvec_k)
+        return self._block_solve("btd", list(fac), r)
 
     def h0_apply(self, L, d, rhs, kc=None, fixed=None):
         """Per-subdomain backsolve + duplicate averaging (reference:
@@ -943,14 +879,12 @@ class System(SystemBase):
 
     def _coarse_apply(self, kc, rhs, fixed, fine=None):
         """fine + Z Kc^{-1} Z^T rhs: K11's restriction to the 6P coarse
-        dofs (owner sums, / dc), Lc^{-T} Lc^{-1} as two K7 launches on
-        Lc^{-1}, K11's prolongation (/ dc, zero at fixed vertices) added to
-        `fine`."""
+        dofs (owner sums, / dc), Lc^{-T} Lc^{-1} on Lc^{-1} as one launch
+        of K7's solve entry, K11's prolongation (/ dc, zero at fixed
+        vertices) added to `fine`."""
         freev = torch.logical_not(fixed).to(self.dtype)
         rc = self.k.coarse_restrict(rhs, freev, kc.dc, self.coarse_plan)
-        li = kc.linv[None]
-        y = self._mv(li, rc.to(self._solve_dtype)[None])
-        y = self._mv(li, y, trans=True)[0].to(self.dtype)
+        y = self._block_solve("pair", [kc.linv], rc[None])[0].to(self.dtype)
         return self.k.coarse_prolong(y.contiguous(), kc.dc, freev,
                                      self.coarse_plan, fine)
 

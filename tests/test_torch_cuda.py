@@ -464,6 +464,83 @@ def test_block_matvec_on_a_strided_subdomain_slice(cuda, dtype):
         ops.block_matvec(A[:, 1].mT, v)
 
 
+def _solve_cases(dev, dtype):
+    """(kind, leaves, r's shape) of the solves the paths give, on factors
+    rebuilt at a deformed state: the cyclic-reduction factor of the
+    2-part band (bf16 leaves in f32) and the exact block scan of the same
+    matrices, each whole and on subdomain 1's slice; the same two on a
+    1-part band (P = 1); the coarse pair on Lc^{-1} of the coarse plan."""
+    from dot_tpu_torch.steppers.core import BTDFactor, CRFactor, factor_leaves
+    rng = np.random.default_rng(2)
+    cases = []
+    mesh, cfg, sd, _, _ = _banded_scene(dev, dtype)
+    for parts in (2, 1):
+        plan = partition.build_plan(mesh, parts, pad_elem_to=16,
+                                    pad_n3_to=48, band_bs_unit=48,
+                                    band_min_nb=3)
+        sysm = System(mesh, cfg, plan, dtype=dtype, device=dev)
+        x = torch.as_tensor(sd.x0 + 0.01 * rng.normal(size=sd.x0.shape),
+                            dtype=dtype, device=dev)
+        fixed = torch.as_tensor(sd.fixed0, device=dev)
+        _, L, _, _ = sysm.rebuild_h0(x, fixed)
+        H = sysm.assemble_subdomains(sysm.element_hessians(x), fixed)
+        Lb, _ = sysm.factorize(H, fast=False)
+        assert isinstance(L, CRFactor) and isinstance(Lb, BTDFactor)
+        for kind, leaves in (("cr", factor_leaves(L)), ("btd", list(Lb))):
+            cases.append((kind, leaves, (parts, sysm.n3)))
+            if parts > 1:
+                cases.append((kind, [t[:, 1:2] for t in leaves],
+                              (1, sysm.n3)))
+    sd, sysm = _coarse_system(dev, dtype)
+    x = torch.as_tensor(sd.x0, dtype=dtype, device=dev)
+    _, _, _, kc = sysm.rebuild_h0(x, torch.as_tensor(sd.fixed0, device=dev))
+    cases.append(("pair", [kc.linv], (1, kc.linv.shape[0])))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_block_solve_is_the_k7_sequence_bit_for_bit(cuda, dtype):
+    """K7's solve entry on every factor kind (cyclic reduction, block scan,
+    P = 1, a subdomain's strided slice, the coarse pair): one launch and
+    one device kernel a solve, bit for bit the sequence of K7 launches it
+    replaces, and the plain version within K7's tolerance."""
+    from dot_tpu_torch.kernels import band
+    from dot_tpu_torch.profiling import captured_work
+    rng = np.random.default_rng(4)
+    for kind, leaves, shape in _solve_cases(cuda, dtype):
+        r = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+        prog = band.solve_program(kind, leaves)
+        n0 = dict(ops.launches)
+        z = ops.block_solve(prog, leaves, r)
+        assert ops.launches["block_solve"] == n0["block_solve"] + 1
+        assert ops.launches["block_matvec"] == n0["block_matvec"]
+        # the launch sequence the entry replaces: one K7 launch a product
+        want = band.block_solve_ref(prog, leaves, r, ops.block_matvec)
+        assert torch.isfinite(z).all() and torch.equal(z, want), kind
+        assert _rel(z, band.block_solve_ref(prog, leaves, r)) \
+            <= TOL_H0[dtype][0]
+        k = captured_work(lambda: ops.block_solve(prog, leaves, r))
+        assert sum(k.values()) == 1 and "solve_kernel" in next(iter(k)), k
+
+
+def test_block_solve_raises_when_the_launch_is_refused(cuda):
+    """A grid above the co-resident limit (the C entry's grid argument) is
+    refused by the cooperative launch: the wrapper raises and nothing
+    falls back to K7's launch sequence."""
+    from dot_tpu_torch.kernels import band
+    kind, leaves, shape = _solve_cases(cuda, torch.float32)[0]
+    prog = band.solve_program(kind, leaves)
+    r = torch.ones(shape, device=cuda)
+    n0 = dict(ops.launches)
+    with pytest.raises(RuntimeError, match="block_solve"):
+        ops._block_solve(prog, leaves, r, 10 ** 6)
+    assert ops.launches == n0
+    z = ops.block_solve(prog, leaves, r)          # and the next one runs
+    torch.cuda.synchronize()
+    assert torch.equal(z, band.block_solve_ref(prog, leaves, r,
+                                               ops.block_matvec))
+
+
 def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
     """One LBFGS-PD time step (banded PD factor) and one GSDD time step
     (block-scan factor, 2 parts) on the card: the kernel path against the
@@ -828,7 +905,7 @@ def test_dim2_kernels_match_plain_versions(cuda, dtype, name):
     library are not torch's bit for bit): f64 1e-10, f32 1e-5, norm-wise
     1e-4 on the f32 gradient and Hessians. U, V and Q are compared through
     the products they enter."""
-    from dot_tpu_torch.kernels import soa2d
+    from dot_tpu_torch.kernels import dd2d, soa2d
     tol, tol_n = TOL[dtype]
     mat = soa2d.SOA2D_MATERIALS[name]
     st = _scene_2d(cuda, dtype)
@@ -892,13 +969,22 @@ def test_dim2_kernels_match_plain_versions(cuda, dtype, name):
     h_args = (x, *el, sysm.dt_sq)
     hk, hr = ops.elem_hessian2d(*h_args), soa2d.elem_hessian2d_ref(*h_args)
     assert _rel(hk, hr) <= tol_n
-    Hk, dk = ops.dense_assemble2d(hr, free, sysm.mass, sysm.scatter_plan)
-    Hr, dr = soa2d.dense_assemble2d_ref(hr, free, sysm.mass,
-                                        sysm.scatter_plan)
+    tab = sysm.dense_tab
+    Hk, dk = ops.dense_assemble2d(hr, free, sysm.mass, tab)
+    Hr, dr = soa2d.dense_assemble2d_ref(hr, free, sysm.mass, tab)
     assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
     assert torch.equal(Hk, Hk.t())
-    Sr = soa2d.dense_scale2d_ref(Hr, dr, sysm.scatter_plan)
-    Sk = ops.dense_scale2d(Hk, dk, sysm.scatter_plan)
+    # K26's one pass (mass after the mask) against the plain version's
+    # sequential sums on the CPU (mass before it): the same bits; d as the
+    # plain version takes it on the card (the host's sqrt rounds otherwise
+    # in the last bit now and then)
+    Hc, _ = soa2d.dense_assemble2d_ref(
+        hr.cpu(), free.cpu(), sysm.mass.cpu(), dd2d.dense_tables(
+            st.system.mesh.conn, nv, "cpu"))
+    assert torch.equal(Hk.cpu(), Hc)
+    assert torch.equal(dk, torch.sqrt(Hc.diagonal().to(cuda)))
+    Sr = soa2d.dense_scale2d_ref(Hr, dr, tab)
+    Sk = ops.dense_scale2d(Hk, dk, tab)
     assert Sk.data_ptr() == Hk.data_ptr()       # scaled in place
     assert _rel_max(Sk, Sr) <= tol
     torch.cuda.synchronize()
@@ -906,6 +992,9 @@ def test_dim2_kernels_match_plain_versions(cuda, dtype, name):
               "ls_trial_energy2d", "elem_gradient2d", "elem_hessian2d",
               "dense_assemble2d", "dense_scale2d"):
         assert ops.launches[k] == 1, (k, ops.launches[k])
+    # K24's assembly: one device kernel a call, the one-pass kernel's
+    _device_launches(lambda: ops.dense_assemble2d(hr, free, sysm.mass, tab),
+                     1)
 
 
 def test_newton2d_step_on_card_matches_cpu(cuda):
@@ -1072,13 +1161,14 @@ def test_dd2d_kernels_match_plain_versions(cuda, dtype, case):
                                                tab), 2)
 
 
-@pytest.mark.parametrize("n_loc", [20, 40])
+@pytest.mark.parametrize("n_loc", [20, 40, 80])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_one_pass_rows_of_more_than_32_slots(cuda, dtype, n_loc):
     """K26's one-pass kernel on a dense synthetic batch (P 2, every row
-    holds 2 n_loc slots: 40 and 80, two and four slots a lane) against the
-    plain version (sums in the same order; 1e-12 / 1e-5 max-rel against
-    the card's atomic index_add_), one device kernel a call."""
+    holds 2 n_loc slots: 40, 80 and 160, two and four slots a lane, and
+    at 160 two windows of dd2d.MAX_ROW) against the plain version (sums
+    in the same order; 1e-12 / 1e-5 max-rel against the card's atomic
+    index_add_), one device kernel a call."""
     from dot_tpu_torch.kernels import dd2d
     rng = np.random.default_rng(13)
     P, n, n_val = 2, 2 * n_loc, 36 * 50
@@ -1101,6 +1191,60 @@ def test_one_pass_rows_of_more_than_32_slots(cuda, dtype, n_loc):
     assert _rel_max(Hk, Hr) <= tol and _rel_max(dk, dr) <= tol
     _device_launches(lambda: ops.subdomain_assemble2d(vals, free, mass, tab),
                      1)
+
+
+@pytest.mark.parametrize("n_vert", [None, 1101])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_and_pd_assembly_of_rows_longer_than_a_window(cuda, dtype,
+                                                            n_vert):
+    """K24 and K28 on a fan whose centre vertex has 140 neighbours (rows of
+    282 and 141 slots: three and two windows of dd2d.MAX_ROW) against
+    their plain versions on the CPU, bit for bit (sequential sums there,
+    the same order in the kernel; d = sqrt(diag) taken on the card, whose
+    sqrt rounds otherwise than the host's in the last bit now and then).
+    The fan alone, and the fan in a strip of 1,101 vertices with its ids
+    shuffled: K24's rows of 2,202 columns are cut into two pieces (f32) or
+    three (f64) of dd2d.SEG_VECS vectors, K28's of 1,101 into two in f64,
+    and the long rows' slots spread over every piece, so that a piece
+    skips the windows left of it and carries its window from chunk to
+    chunk."""
+    from dot_tpu_torch.kernels import dd2d, soa2d
+    k = 140
+    i = np.arange(1, k + 1)
+    conn = np.stack([np.zeros(k, np.int64), i, i % k + 1], axis=1)
+    nv = k + 1
+    if n_vert is not None:
+        j = np.arange(k + 1, n_vert - 2)
+        conn = np.concatenate([conn, np.stack([j, j + 1, j + 2], axis=1)])
+        conn = np.random.default_rng(3).permutation(n_vert)[conn]
+        nv = n_vert
+    n_el = conn.shape[0]
+    rng = np.random.default_rng(11)
+    if n_vert is not None:       # K24's rows span pieces of the kernel
+        vec = 128 // torch.finfo(dtype).bits          # a 16 B vector
+        assert 2 * nv // vec > dd2d.SEG_VECS
+
+    def t(a, dev):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    vals = np.abs(rng.normal(size=(36, n_el)))
+    free = (rng.uniform(size=nv) > 0.2).astype(np.float64)
+    free[conn[0, 0]] = 1.0
+    mass = rng.uniform(1.0, 2.0, size=nv)
+    g4, w = rng.normal(size=(4, n_el)), rng.uniform(0.5, 1.0, size=n_el)
+    out = []
+    for dev in ("cpu", cuda):
+        tab = dd2d.dense_tables(conn, nv, dev)
+        ptab = dd2d.pd_tables(conn, nv, dev)
+        assert tab.max_row == 2 * (k + 1) and ptab.max_row == k + 1
+        H, d = ops.dense_assemble2d(t(vals, dev), t(free, dev),
+                                    t(mass, dev), tab)
+        S, ds = ops.pd_assemble2d(t(g4, dev), t(w, dev), t(free, dev),
+                                  t(mass, dev), ptab)
+        out.append((H.to(cuda), S.to(cuda), d.to(cuda), ds.to(cuda)))
+    (H0, S0, _, _), (H1, S1, d1, ds1) = out
+    assert torch.equal(H1, H0) and torch.equal(S1, S0)
+    assert torch.equal(d1, torch.sqrt(H0.diagonal()))
+    assert torch.equal(ds1, torch.sqrt(S0.diagonal()))
 
 
 def test_dot2d_step_on_card_matches_cpu(cuda):

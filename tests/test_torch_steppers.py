@@ -32,7 +32,7 @@ from dot_tpu.config import Config
 from dot_tpu.mesh_gen import bar_mesh
 from dot_tpu_torch import convert
 from dot_tpu_torch import steppers as tsteppers
-from dot_tpu_torch.kernels import ops
+from dot_tpu_torch.kernels import band, ops
 from dot_tpu_torch.steppers.core import BTDFactor, CRFactor
 
 _CACHE = {}
@@ -159,20 +159,20 @@ def _factored(kind):
 def test_subdomain_solve_is_one_row_of_the_batched_solve(kind, monkeypatch):
     """K16 gather -> the solve on subdomain i's slice of the factor -> K16
     scatter equals row i of the batched solve, scattered; the slice's
-    blocks reach the block mat-vec as strided views of the leaves (no
-    copy)."""
+    blocks reach K7's solve entry as strided views of the leaves (no
+    copy), its program stepping over the other subdomains' blocks."""
     tsys, L, d = _factored(kind)
     q = torch.as_tensor(np.random.default_rng(1).normal(
         size=(tsys.n_vert, 3)))
     r = tsys.k.h0_gather(q, tsys.l2g, tsys.local_valid, d)
     z = tsys.solve_local(L, r) / d                       # (P, n3)
     seen = []
-    real = ops.block_matvec
+    real = ops.block_solve
 
-    def spy(A, *a, **k):
-        seen.append((A.data_ptr(), A.stride(0), A.shape[0]))
-        return real(A, *a, **k)
-    monkeypatch.setattr(ops, "block_matvec", spy)
+    def spy(prog, leaves, *a):
+        seen.append((prog, leaves))
+        return real(prog, leaves, *a)
+    monkeypatch.setattr(ops, "block_solve", spy)
     leaves = {t.data_ptr(): t for t in
               ([] if kind == "dense" else
                (list(L) if kind == "scan" else
@@ -185,17 +185,21 @@ def test_subdomain_solve_is_one_row_of_the_batched_solve(kind, monkeypatch):
         np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=1e-12,
                                    atol=1e-14)
     if kind != "dense":
-        assert seen
+        assert len(seen) == tsys.n_parts
         bs = tsys.band_bs
         lo = min(leaves)
         hi = max(p_ + t.numel() * t.element_size()
                  for p_, t in leaves.items())
+        st = np.concatenate([prog.stages for prog, _ in seen])
         # every block read lies inside a factor leaf, and batches of
         # several blocks step over the other subdomain's blocks
-        assert all(lo <= ptr < hi for ptr, _, _ in seen)
-        assert all(st == tsys.n_parts * bs * bs for _, st, n in seen if n > 1)
+        assert all(lo <= t.data_ptr() < hi and t.shape[1] == 1
+                   for _, lv in seen for t in lv)
+        several = st[(st[:, band.F_NJ] > 1) & (st[:, band.F_OP]
+                                               != band.OP_COPY)]
+        assert (several[:, band.F_A_SJ] == tsys.n_parts * bs * bs).all()
         if kind == "cr":
-            assert any(n > 1 for _, _, n in seen)
+            assert len(several)
 
 
 def test_local_scatter_one_leaves_vertex_0_to_its_owner():
