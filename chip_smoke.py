@@ -44,12 +44,18 @@ result line):
            Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
            (bs 512, nb 33): the assembled band, the solve's block products
            with 3 right-hand sides (each column equal to K7's) and its
-           permute / scale passes; K17 (with the Newton iterations and
+           permute / scale passes (yardsticks, off the paths), and
+           pd_solve as one launch of K7's solve entry ("pd": bit for bit
+           that 132-launch sequence, one device kernel a call, single and
+           back-to-back times); K17 (with the Newton iterations and
            energy evaluations each element took, which must equal the plain
            version's and which set its bound), its SPD projection alone,
            and K18 with both epilogues at the ADMM-PD shapes on random,
-           inverted and near-degenerate Dx + u; K19, K20 (and its diagonal
-           flag) and the per-slab / from-F entry points of K1 / K2 on the
+           inverted and near-degenerate Dx + u; K19, K20 (its diagonal
+           flag, and its line-search entry w_quad against its plain version
+           and the two w_matvec + sums it replaced, the same bits in two
+           runs, one device kernel a call) and the per-slab / from-F entry
+           points of K1 / K2 on the
            real bar17 own-element plan (P 6, the ADMM-DD plan's W); the 2D
            device functions (svd2_flip, eigh2, make_pd2, the three
            materials) through their check entries, defgrad2d and K21-K24 at
@@ -83,7 +89,8 @@ result line):
            versions of the kernels on the same card (sysE rtol 1e-3)
   steppers bar17 twist, f32, relTol 1e-5, through sim.Simulator, 3 frames
            each (Newton 2): DOT 6 (the yardstick), LBFGS (LBFGS-PD: exact
-           f32 P = 1 BTDFactor of the PD band; K14, K15), GSDD 6 (K16 and K7
+           f32 P = 1 BTDFactor of the PD band; K14; pd_solve one launch of
+           K7's solve entry an iteration, no K15 product), GSDD 6 (K16 and K7
            on one subdomain's blocks: 2 launches of K16 per subdomain per
            sweep), DOT 6 with warmStart 5 (K13 once a frame), Newton (one
            exact P = 1 banded factorization per inner iteration), LBFGSH,
@@ -94,9 +101,10 @@ result line):
            the plain-path run of the same frames (rtol 1e-3) and against
            DOT's (rtol 1e-3; LBFGSJH and GSDD 5e-3)
   admm     bar17 twist, f32, relTol 1e-5, through sim.Simulator, 2 frames
-           each: `timeStepper ADMM` (K17, K18, K14, K15 and the global
-           K1 / K2 passes; one host read an iteration) and `timeStepper
-           ADMMDD 6` (K19, K20 and its diagonal flag, both new entry points,
+           each: `timeStepper ADMM` (K17, K18, K14, pd_solve one launch an
+           iteration and the global K1 / K2 passes; one host read an
+           iteration) and `timeStepper ADMMDD 6` (K19, K20, its diagonal
+           flag and w_quad once an iteration, both new entry points,
            K3, K6, K7, K2; banded_local and an exact f32 BTDFactor
            (13, 6, 768, 768) as the local factor). Each run: finite sysE,
            every frame stopped by tol or at its cap (printed), iterations,
@@ -325,6 +333,8 @@ SOURCES = {
                  "dot_tpu/steppers/admm_dd.py:221"),
     "w_diag": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
                "dot_tpu/steppers/admm_dd.py:244"),
+    "w_quad": ("cuda", "dot_tpu_torch/kernels/csrc/admm.cu",
+               "dot_tpu/steppers/admm_dd.py:524"),
     "ls_trial_energy_parts": ("cuda", "dot_tpu_torch/kernels/csrc/elem.cu",
                               "dot_tpu/steppers/admm_dd.py:532"),
     "elem_gradient_from_F": ("cuda", "dot_tpu_torch/kernels/csrc/elem.cu",
@@ -380,7 +390,7 @@ ALL_PHASES = ("probe", "build", "kernels", "golden", "main", "steppers",
 # no PyTorch call computes their function, so the record holds
 # library_ms null and that call's time as library_partial_ms
 PARTIAL_LIBRARY = ("elem_gradient", "h0_average", "hessian_diag",
-                   "pd_assemble", "dtw_scatter", "w_matvec", "w_diag",
+                   "pd_assemble", "dtw_scatter", "w_matvec", "w_diag", "w_quad",
                    "elem_gradient_from_F", "elem_gradient2d", "h0_average2d",
                    "hessian_diag2d", "coarse_restrict", "band_compact",
                    "dtw_scatter2d", "elem_gradient2d_from_F")
@@ -419,8 +429,7 @@ _QN = ("lbfgs_first", "lbfgs_second")
 _H0 = ("elem_hessian", "chol_inv", "block_solve", "h0_gather", "h0_average")
 STEPPER_RUNS = {
     "LBFGS": ("LBFGS", 2, 3, 1e-3, _QN + (
-        "pd_assemble", "chol_inv", "block_matvec_k", "pd_gather",
-        "pd_scatter")),
+        "pd_assemble", "chol_inv", "block_solve")),
     "GSDD6": ("GSDD 6", 2, 3, 5e-3, (
         "elem_hessian", "band_assemble", "chol_inv", "block_solve",
         "local_gather_one", "local_scatter_one")),
@@ -437,19 +446,24 @@ ADMM_FRAMES = 2
 ADMM_RUNS = {
     "ADMM": ("ADMM", (
         "admm_local_step", "dtw_scatter", "pd_assemble", "chol_inv",
-        "block_matvec_k", "pd_gather", "pd_scatter", "ls_trial_energy",
-        "elem_gradient", "direction_pass")),
+        "block_solve", "ls_trial_energy", "elem_gradient",
+        "direction_pass")),
     "ADMMDD6": ("ADMMDD 6", (
-        "own_band_assemble", "w_matvec", "w_diag", "ls_trial_energy_parts",
+        "own_band_assemble", "w_matvec", "w_diag", "w_quad",
+        "ls_trial_energy_parts",
         "elem_gradient_from_F", "elem_hessian", "chol_inv", "block_solve",
         "elem_gradient", "ls_trial_energy", "direction_pass")),
 }
 ADMM_KERNELS = ("admm_local_step", "dtw_scatter", "own_band_assemble",
-                "w_matvec", "w_diag", "ls_trial_energy_parts",
+                "w_matvec", "w_diag", "w_quad", "ls_trial_energy_parts",
                 "elem_gradient_from_F")
-STEPPER_KERNELS = ("hessian_diag", "pd_assemble", "block_matvec_k",
-                   "pd_gather", "pd_scatter", "local_gather_one",
+# K15's single products and permute passes (block_matvec_k, pd_gather,
+# pd_scatter) are off every path since pd_solve is one launch of K7's
+# solve entry: their yardstick checks stay in the kernels phase, and the
+# steppers and admm phases require them to stay at 0 launches
+STEPPER_KERNELS = ("hessian_diag", "pd_assemble", "local_gather_one",
                    "local_scatter_one")
+K15_OFF_PATH = ("block_matvec_k", "pd_gather", "pd_scatter")
 # K9-K16 vs plain: f64 1e-12, f32 1e-5 max-rel and 1e-4 norm-wise (sums
 # in another order); K12's bf16 band: at most 1 bf16 ulp apart
 TOL_SCALE = {"float64": dict(elem=1e-12, sum=1e-12),
@@ -649,36 +663,42 @@ def _report(torch, tag, kname, checks, fns, cost, bad, record,
 def _solve_check(torch, tag, kname, kind, leaves, r, tol, bad, record,
                  library=None):
     """K7's solve entry on one factor (band.solve_program's `kind` on
-    `leaves`, right-hand sides r): bit for bit the launch sequence of K7
-    it replaces, the plain version (band.block_solve_ref) within `tol`
-    norm-wise, one device kernel a call (_work_check); timed single and
-    back to back against the plain version, the K7 sequence and `library`
+    `leaves`, right-hand sides r): bit for bit the launch sequence it
+    replaces (K7's single products; for "pd" K15's gather, 3-column
+    products and scatter), the plain version (band.block_solve_ref) within
+    `tol` norm-wise, one device kernel a call (_work_check); timed single
+    and back to back against the plain version, the sequence and `library`
     (one PyTorch call computing the same function, or None). The f32
     record gets the sequence's times, the back-to-back times, the stages
     and the device kernels a call."""
     from dot_tpu_torch.kernels import band, ops
     prog = band.solve_program(kind, leaves)
     z = ops.block_solve(prog, leaves, r)
-    # the launch sequence the entry replaces: one ops.block_matvec (K7's
-    # single-product entry) a product
-    seq_fn = (lambda: band.block_solve_ref(prog, leaves, r,
-                                           ops.block_matvec))
+    # the launch sequence the entry replaces: one launch a product
+    if kind == "pd":
+        def seq_fn():
+            return band.block_solve_ref(prog, leaves, r, ops.block_matvec_k,
+                                        ops.pd_gather, ops.pd_scatter)
+    else:
+        def seq_fn():
+            return band.block_solve_ref(prog, leaves, r, ops.block_matvec)
     seq = seq_fn()
     ref = band.block_solve_ref(prog, leaves, r)
     n_dev = _work_check(tag, kname, lambda: ops.block_solve(prog, leaves, r),
                         1, ("solve_kernel",), bad)
     st = prog.stages
-    prod = st[st[:, band.F_OP] != band.OP_COPY]
-    n_seq = len(prod)
+    prod = st[np.isin(st[:, band.F_OP], (band.OP_A, band.OP_AT))]
+    n_seq = len(prod) + (2 if kind == "pd" else 0)
+    seq_name = "K15" if kind == "pd" else "K7"
     checks = [
-        (f"vs the K7 sequence of {n_seq} launches (bit for bit)",
+        (f"vs the {seq_name} sequence of {n_seq} launches (bit for bit)",
          0.0 if torch.equal(z, seq) else max(_rel_max(z, seq), 1e-300),
          0.0, float((z - seq).abs().max())),
         ("vs plain", _rel_norm(z, ref), tol, float((z - ref).abs().max()))]
     say(f"kernels: {tag} {kname}: {kind}, P {prog.P}, nb {prog.nb}, n "
-        f"{prog.n}, leaves {str(leaves[0].dtype).split('.')[-1]}: "
-        f"{len(st)} stages ({int(st[:, band.F_SYNC].sum())} grid "
-        f"barriers)")
+        f"{prog.n}, k {prog.k}, leaves "
+        f"{str(leaves[0].dtype).split('.')[-1]}: {len(st)} stages "
+        f"({int(st[:, band.F_SYNC].sum())} grid barriers)")
     fns = (lambda: ops.block_solve(prog, leaves, r),
            lambda: band.block_solve_ref(prog, leaves, r), library)
     _report(torch, tag, kname, checks, fns, band.solve_cost(prog, leaves, r),
@@ -687,8 +707,9 @@ def _solve_check(torch, tag, kname, kind, leaves, r, tol, bad, record,
     b2b = _back_to_back_ms(torch, fns[0])
     seq_b2b = _back_to_back_ms(torch, seq_fn)
     lib_b2b = None if library is None else _back_to_back_ms(torch, library)
-    say(f"kernels: {tag} {kname}: K7 sequence {seq_ms:.4f} ms a solve; "
-        f"back to back {b2b:.4f} ms a solve, K7 sequence {seq_b2b:.4f}"
+    say(f"kernels: {tag} {kname}: {seq_name} sequence {seq_ms:.4f} ms a "
+        f"solve; back to back {b2b:.4f} ms a solve, {seq_name} sequence "
+        f"{seq_b2b:.4f}"
         + ("" if lib_b2b is None else f", library {lib_b2b:.4f}") + " ms")
     if tag == "float32":
         record[kname].update(
@@ -1515,6 +1536,11 @@ def phase_pd_kernels(torch, record):
             for kname, checks in res.items():
                 _report(torch, name, kname, checks, times[kname],
                         costs[kname], bad, record)
+            # K15 redesigned: pd_solve as one launch of K7's solve entry,
+            # bit for bit the gather + 4 nb - 2 products + scatter above
+            _solve_check(torch, name, "block_solve@pd", "pd",
+                         [L.linv, L.sub, bp.inv, bp.perm, d[0]], rhs,
+                         tol["sum"], bad, record)
             say(f"kernels: {name} PD band: bs {bs}, nb {nb}, nv_p {bp.nv_p}, "
                 f"{n_it} items into {bp.udest.numel()} slots of "
                 f"{bp.total}; factor {type(L).__name__} {L.linv.dtype}; "
@@ -1611,15 +1637,19 @@ def phase_steppers(torch, launches_out, record):
                     problems.append(f"{tag}: kernel {k} never launched")
             iters = sum(r["iters"] for r in fr)
             if tag == "LBFGS":
+                # one pd_solve an iteration (the H0 apply): one launch of
+                # K7's solve entry, no K15 product, gather or scatter
                 bp = sysm.pd_band_plan
+                k15 = {k: launches[k] for k in K15_OFF_PATH}
                 say(f"steppers: LBFGS: PD band bs {bp.bs}, nb {bp.nb}; "
-                    f"K14 {launches['pd_assemble']} launch, K15 "
-                    f"{launches['block_matvec_k'] / max(iters, 1):.1f} "
-                    f"products and {launches['pd_gather'] / max(iters, 1):.1f}"
-                    " gather per iteration")
+                    f"K14 {launches['pd_assemble']} launch; pd_solve "
+                    f"{launches['block_solve'] / max(iters, 1):.2f} solve "
+                    f"launches per iteration (want 1), K15 products / "
+                    f"permute passes {k15} (want 0)")
                 if (kind != "BTDFactor" or leaf_dt != ["float32"]
                         or shape[1] != 1 or launches["pd_assemble"] != 1
-                        or launches["pd_gather"] != iters):
+                        or launches["block_solve"] != iters
+                        or any(k15.values())):
                     problems.append(f"LBFGS: factor {kind} {leaf_dt} "
                                     f"{shape}, launches {launches}")
             if tag == "GSDD6":
@@ -1678,6 +1708,10 @@ def phase_steppers(torch, launches_out, record):
             if total[k] <= 0:
                 problems.append(f"kernel {k} never launched on the steppers "
                                 "path")
+        for k in K15_OFF_PATH:
+            if total[k]:
+                problems.append(f"{k} launched {total[k]} times on the "
+                                "steppers path (pd_solve is one launch)")
         if problems:
             raise Fail("steppers path: " + "; ".join(problems))
     finally:
@@ -1872,6 +1906,46 @@ def phase_admm_kernels(torch, record):
             costs["w_diag"] = ((sz + 8) * n_w + 8 * (n_rows + 1)
                                + 3 * n_rows * sz, 3 * n_w + 2 * n_rows)
 
+            # K20's line-search entry: the (3, P) W terms in one launch,
+            # against its plain version and the launches it replaced (two
+            # w_matvec and the sums)
+            aug0 = torch.as_tensor(rng.normal(size=n_rows), dtype=dtype,
+                                   device="cuda")
+            pa = torch.as_tensor(0.1 * rng.normal(size=n_rows), dtype=dtype,
+                                 device="cuda")
+            q_args = (wv, free3f, aug0, pa, wp, P)
+
+            def q_seq():
+                Wa0 = ops.w_matvec(wv, free3f, aug0, wp).view(P, -1)
+                Wpa = ops.w_matvec(wv, free3f, pa, wp).view(P, -1)
+                a0, p_ = aug0.view(P, -1), pa.view(P, -1)
+                return torch.stack([
+                    0.5 * torch.sum(a0 * Wa0, dim=1),
+                    0.5 * (torch.sum(p_ * Wa0, dim=1)
+                           + torch.sum(a0 * Wpa, dim=1)),
+                    0.5 * torch.sum(p_ * Wpa, dim=1)])
+            qk, qr, qs = ops.w_quad(*q_args), kadmm.w_quad_ref(*q_args), \
+                q_seq()
+            same = torch.equal(ops.w_quad(*q_args), qk)
+            res["w_quad"] = [
+                ("a0c, a1c, a2c", _rel_max(qk, qr), tol["elem"],
+                 float((qk - qr).abs().max())),
+                ("vs 2 w_matvec + sums", _rel_max(qk, qs), tol["elem"], None),
+                ("two runs (bit for bit)", 0.0 if same else 1.0, 0.0, None)]
+            csr = torch.sparse_csr_tensor(wp.row_off, wp.col, wm,
+                                          (n_rows, n_rows))
+            two = torch.stack([aug0, pa], dim=1)
+            times["w_quad"] = (
+                lambda: ops.w_quad(*q_args),
+                lambda: kadmm.w_quad_ref(*q_args),
+                lambda: csr @ two)
+            # each W entry, column and row offset once, the four vectors
+            # once, the (3, P) result; per entry two products for the mask
+            # and two multiply-adds, per row 14 operations
+            costs["w_quad"] = ((sz + 8) * n_w + 8 * (n_rows + 1)
+                               + 4 * n_rows * sz + 3 * P * sz,
+                               6 * n_w + 14 * n_rows)
+
             F0 = dd._local_defgrad(xl_flat)
             p_flat = dd._to_flat(torch.as_tensor(
                 0.01 * rng.normal(size=(P, nmax, 3)), dtype=dtype,
@@ -1928,13 +2002,26 @@ def phase_admm_kernels(torch, record):
                 _report(torch, name, kname, checks, times[kname],
                         costs[kname], bad, record,
                         plain_reps=2 if kname == "admm_local_step" else 15)
+            n_dev = _work_check(name, "w_quad", times["w_quad"][0], 1,
+                                ("w_quad_kernel",), bad)
+            seq_ms = _median_ms(torch, q_seq)
+            b2b = _back_to_back_ms(torch, times["w_quad"][0])
+            seq_b2b = _back_to_back_ms(torch, q_seq)
+            say(f"kernels: {name} w_quad: the sequence it replaced (2 "
+                f"w_matvec + sums) {seq_ms:.4f} ms; back to back {b2b:.4f} "
+                f"ms a call, the sequence {seq_b2b:.4f} ms")
+            if dtype == torch.float32:
+                record["w_quad"].update(
+                    sequence_ms=seq_ms, back_to_back_ms=b2b,
+                    sequence_back_to_back_ms=seq_b2b,
+                    launches_per_call=n_dev)
             say(f"kernels: {name} ADMM shapes: K17 / K18 on {mesh.n_elem} "
                 f"elements and {nv} vertices; own band {obp.total} values "
                 f"from {n_asm} tuples in {n_ub} blocks; W {n_w} entries "
                 f"({n_drop} in upper-neighbour blocks, dropped) on {n_rows} "
                 f"rows; slabs {P} x {n // P} elements; local rows "
                 f"{P * nmax}")
-            del sysm, dd, eh, fk, F0, Fp, forces
+            del sysm, dd, eh, fk, F0, Fp, forces, csr, two
             torch.cuda.empty_cache()
         if bad:
             raise Fail("kernel disagrees with its plain version: "
@@ -2000,14 +2087,18 @@ def phase_admm(torch, launches_out):
                     problems.append(f"{tag}: kernel {k} never launched")
             if tag == "ADMM":
                 kind, leaf_dt, shape = _factor_kind(sim.state.chol)
+                k15 = {k: launches[k] for k in K15_OFF_PATH}
                 say(f"admm: ADMM: global factor {kind} {leaf_dt} {shape}; "
                     f"K17 {launches['admm_local_step'] / max(iters, 1):.2f}, "
-                    f"K18 {launches['dtw_scatter'] / max(iters, 1):.2f}, K15 "
-                    f"gather {launches['pd_gather'] / max(iters, 1):.2f} per "
-                    "iteration")
+                    f"K18 {launches['dtw_scatter'] / max(iters, 1):.2f}, "
+                    f"pd_solve {launches['block_solve'] / max(iters, 1):.2f} "
+                    f"solve launches per iteration (want 1); K15 products "
+                    f"/ permute passes {k15} (want 0)")
                 if (kind != "BTDFactor" or leaf_dt != ["float32"]
                         or launches["admm_local_step"] != iters
-                        or launches["dtw_scatter"] != iters + len(fr)):
+                        or launches["dtw_scatter"] != iters + len(fr)
+                        or launches["block_solve"] != iters
+                        or any(k15.values())):
                     problems.append(f"ADMM: factor {kind} {leaf_dt}, "
                                     f"launches {launches}")
             else:
@@ -2022,18 +2113,24 @@ def phase_admm(torch, launches_out):
                     f"factor {kind} {leaf_dt} {shape}; consensus factor "
                     f"{tuple(s_.cons_chol.shape)} {s_.cons_chol.dtype}; "
                     f"local refactorizations {n_ref} (K19) in {iters} "
-                    f"iterations; K20 "
-                    f"{launches['w_matvec'] / max(iters, 1):.2f}, per-slab "
+                    f"iterations; K20 family "
+                    f"{(launches['w_matvec'] + launches['w_quad']) / max(iters, 1):.2f}"
+                    f" (w_matvec {launches['w_matvec'] / max(iters, 1):.2f}, "
+                    f"w_quad {launches['w_quad'] / max(iters, 1):.2f}), "
+                    f"per-slab "
                     f"K1 {launches['ls_trial_energy_parts'] / max(iters, 1):.2f}"
                     f", from-F K2 "
                     f"{launches['elem_gradient_from_F'] / max(iters, 1):.2f} "
                     "per iteration")
                 if (not st.banded_local or not isinstance(L, BTDFactor)
                         or leaf_dt != ["float32"]
-                        or shape != (13, 6, 768, 768)):
+                        or shape != (13, 6, 768, 768)
+                        or launches["w_quad"] != iters):
                     problems.append(f"ADMMDD6: local factor {kind} "
                                     f"{leaf_dt} {shape}, banded_local "
-                                    f"{st.banded_local}")
+                                    f"{st.banded_local}, w_quad "
+                                    f"{launches['w_quad']} in {iters} "
+                                    "iterations")
                 del L, s_
             sim.finalize()
             a = np.asarray([r["sys_e"] for r in fr])
@@ -2070,6 +2167,10 @@ def phase_admm(torch, launches_out):
         for k in ADMM_KERNELS:
             if total[k] <= 0:
                 problems.append(f"kernel {k} never launched on the admm path")
+        for k in K15_OFF_PATH:
+            if total[k]:
+                problems.append(f"{k} launched {total[k]} times on the admm "
+                                "path (pd_solve is one launch)")
         if problems:
             raise Fail("admm path: " + "; ".join(problems))
     finally:

@@ -176,9 +176,10 @@ class System2D(SystemBase):
     Energy at dim 2 + Optimizer::computePrecondMtr / computeGradient at
     dim 2, DOTTimeStepper / LBFGSTimeStepper at DIM = 2)."""
 
-    def __init__(self, mesh: Mesh2D, cfg, dtype=torch.float64, device="cpu",
+    def __init__(self, mesh: Mesh2D, cfg, dtype=torch.float64, device=None,
                  use_kernels=True, plan=None, factor_dtype=None):
-        """`use_kernels=False` runs the plain PyTorch versions of K21-K28
+        """`device`: None for the card (raises without one: pass "cpu" to
+        run on the CPU). `use_kernels=False` runs the plain PyTorch versions of K21-K28
         on any device (a comparison run; the main path keeps the default).
         `plan`: a plan2d.Plan2D (an element plan for DOT / GSDD, one part
         for LBFGS-H / HI, a node plan for LBFGS-JH) or None (Newton,
@@ -188,7 +189,7 @@ class System2D(SystemBase):
         self.cfg = cfg
         self.dtype = dtype
         self.factor_dtype = factor_dtype or dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.use_kernels = use_kernels
         self.k = ops if use_kernels else ops.plain
         self.mat = soa2d.SOA2D_MATERIALS[cfg.energy]

@@ -17,6 +17,8 @@ K19 own_band_assemble ADMM-DD's augmented local Hessian in its banded flat
                       admm_dd.py 348-361)
 K20 w_matvec          the compact interface-weight operator and its diagonal
                       (admm_dd.py 213-252 _w_masked, w_matvec, w_diag, _md3f)
+K20 w_quad            the line search's two W products and their per-part
+                      quadratic terms a0c, a1c, a2c (admm_dd.py 524-529)
 K1  ls_trial_energy_parts   the line-search trial with one alpha and one sum
                       per subdomain slab (admm_dd.py 532-543)
 K2  elem_gradient_from_F    the element gradient from carried deformation
@@ -237,6 +239,20 @@ def w_matvec_ref(w_vals, free3f, a, wp, diag_only=False):
     y = torch.zeros_like(free3f).index_add_(0, wp.row, v)
     md = wp.md3 * free3f
     return y + (md if diag_only else md * a)
+
+
+def w_quad_ref(w_vals, free3f, aug0, pa, wp, n_parts):
+    """K20's line-search entry, plain: (3, P) [a0c, a1c, a2c] with
+    a0c = aug0.W aug0 / 2, a1c = (pa.W aug0 + aug0.W pa) / 2, a2c =
+    pa.W pa / 2 per part (the sums of dot_tpu admm_dd.py:524-529 as
+    written); aug0, pa (P n3,)."""
+    Wa0 = w_matvec_ref(w_vals, free3f, aug0, wp).view(n_parts, -1)
+    Wpa = w_matvec_ref(w_vals, free3f, pa, wp).view(n_parts, -1)
+    a0, p = aug0.view(n_parts, -1), pa.view(n_parts, -1)
+    a0c = 0.5 * torch.sum(a0 * Wa0, dim=1)
+    a1c = 0.5 * (torch.sum(p * Wa0, dim=1) + torch.sum(a0 * Wpa, dim=1))
+    a2c = 0.5 * torch.sum(p * Wpa, dim=1)
+    return torch.stack([a0c, a1c, a2c])
 
 
 # ----------------------------------------------------------------------

@@ -8,12 +8,14 @@ K6 chol_inv        batched Cholesky L and L^{-1} of SPD blocks (the diagonal
                    blocks of core.py 853-1203)
 K7 block_matvec    out = c - op(A) v over a batch of blocks (core.py
                    1061-1135 _cr_solve, 1219-1261 _btd_solve)
-K7 block_solve     a whole block-tridiagonal / cyclic-reduction solve, or
-                   the coarse pair Lc^{-T} Lc^{-1} (core.py 1296-1317), as
-                   K7's products in one launch: the launch sequences
-                   btd_solve_ref / cr_solve_ref / pair_solve_ref, and the
-                   SolveProgram their kernel walks (solve_program; its CPU
-                   mirror run_solve_program_ref)
+K7 block_solve     a whole block-tridiagonal / cyclic-reduction solve, the
+                   coarse pair Lc^{-T} Lc^{-1} (core.py 1296-1317), or
+                   LBFGS-PD's 3-column pd_solve with its permute / scale
+                   passes (core.py 1704-1719: K15's products), as K7's
+                   products in one launch: the launch sequences
+                   btd_solve_ref / cr_solve_ref / pair_solve_ref /
+                   pd_solve_ref, and the SolveProgram their kernel walks
+                   (solve_program; its CPU mirror run_solve_program_ref)
 K8 h0_gather /     the vertex gather and duplicate-averaging segment sum of
    h0_average      h0_apply (core.py 1263-1280)
 K5 band_compact    K5's other entry point: the finished compact unique-block
@@ -34,6 +36,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import pd
 
 
 class BandPlan(NamedTuple):
@@ -320,11 +324,32 @@ def pair_solve_ref(li, r, mv=block_matvec_ref):
     return _mv(mv, li[None], y, trans=True)
 
 
-def block_solve_ref(prog, leaves, r, mv=block_matvec_ref):
+def pd_solve_ref(linv, sub, inv, perm, d, rhs, mv=pd.block_matvec_k_ref,
+                 gather=pd.pd_gather_ref, scatter=pd.pd_scatter_ref):
+    """LBFGS-PD's solve against its P = 1 factor (linv (nb, 1, n, n), sub
+    (nb - 1, 1, n, n)) for rhs (nV, 3), the three coordinates as right-hand
+    sides (dot_tpu core.py:1704-1719): `gather` (rows permuted by inv,
+    zero-padded, / d), btd_solve_ref with 3 columns (4 nb - 2 calls of the
+    k-column `mv`), `scatter` (/ d, rows un-permuted by perm). With
+    ops.block_matvec_k, ops.pd_gather and ops.pd_scatter: the K15 launch
+    sequence that K7's solve entry replaced."""
+    rp = gather(rhs, inv, d)
+    z = btd_solve_ref(linv, sub, rp[None], mv)[0]
+    return scatter(z.contiguous(), perm, d)
+
+
+def block_solve_ref(prog, leaves, r, mv=None, gather=pd.pd_gather_ref,
+                    scatter=pd.pd_scatter_ref):
     """K7's solve entry, plain: the launch sequence of `prog`'s kind (a
     SolveProgram; leaves and r as solve_program and ops.block_solve take
-    them), each block product a call of `mv` (ops.block_matvec: the K7
-    launches the entry replaced)."""
+    them), each block product a call of `mv` (default block_matvec_ref, or
+    pd.block_matvec_k_ref for the 3-column "pd" kind; ops.block_matvec /
+    ops.block_matvec_k: the launches the entry replaced); "pd" also calls
+    `gather` and `scatter` (ops.pd_gather / ops.pd_scatter)."""
+    if prog.kind == "pd":
+        return pd_solve_ref(*leaves, r, mv or pd.block_matvec_k_ref, gather,
+                            scatter)
+    mv = mv or block_matvec_ref
     if prog.kind == "btd":
         return btd_solve_ref(leaves[0], leaves[1], r, mv)
     if prog.kind == "pair":
@@ -336,27 +361,35 @@ def block_solve_ref(prog, leaves, r, mv=block_matvec_ref):
 # a stage of a solve program: N_FIELDS int64, in csrc/block_matvec.cu's
 # order. F_A: A's leaf (on the card its address), whose block (j, p) lies
 # F_A_OFF + j F_A_SJ + p F_A_SP entries in; v, c (F_C -1: none) and out:
-# a buffer (BUF_*) and its block (j, p) at off + j sj + p sp; a batch of
-# F_NJ x F_NP blocks (P); F_OP one of OP_*; F_SYNC: a grid barrier first;
-# F_LOWER: A is an inverse Cholesky factor (exact zeros above the
-# diagonal), of which the kernel reads the lower triangle
+# a buffer (BUF_*) and its block (j, p) at off + j sj + p sp, in entries
+# (a block of a k-column program is n k entries, row-major (n, k)); a
+# batch of F_NJ x F_NP blocks (P); F_OP one of OP_*; F_SYNC: a grid
+# barrier first; F_LOWER: A is an inverse Cholesky factor (exact zeros
+# above the diagonal), of which the kernel reads the lower triangle. The
+# element-wise stages (OP_GATHER, OP_SCATTER) take F_NJ rows of k entries,
+# F_A their int64 row table (inv, perm) and F_D the scale d (leaves; on
+# the card addresses): gather out[i] = (inv[i] >= 0 ? v[inv[i]] : 0) /
+# d[i], scatter out[i] = v[perm[i]] / d[perm[i]] (row i of k entries).
 (F_A, F_A_OFF, F_A_SJ, F_A_SP, F_V, F_V_OFF, F_V_SJ, F_V_SP, F_C, F_C_OFF,
  F_C_SJ, F_C_SP, F_O, F_O_OFF, F_O_SJ, F_O_SP, F_NJ, F_NP, F_OP, F_SYNC,
- F_LOWER) = range(21)
-N_FIELDS = 21
+ F_LOWER, F_D) = range(22)
+N_FIELDS = 22
 BUF_R, BUF_Z, BUF_WS = 0, 1, 2        # the input, the output, the workspace
-OP_A, OP_AT, OP_COPY = 0, 1, 2
+OP_A, OP_AT, OP_COPY, OP_GATHER, OP_SCATTER = 0, 1, 2, 3, 4
+ELEMENTWISE = (OP_GATHER, OP_SCATTER)
 
 
 class SolveProgram(NamedTuple):
     """One solve as a list of K7's stages (csrc/block_matvec.cu
     dot_block_solve): `stages` (n_stage, N_FIELDS) int64 on the host with
-    F_A the index of the stage's leaf; `table` the same on the leaves' CUDA
-    device with F_A the leaf's address (None on the CPU). r and z are
-    (P, nb n); the workspace holds `ws` entries; `max_items` is the most
-    (block, 32-row or 32-column group) items a stage has; `ptrs` the
-    leaves' addresses (a call must pass the same leaves)."""
-    kind: str            # "btd", "cr" or "pair"
+    F_A (and F_D) the index of the stage's leaf; `table` the same on the
+    leaves' CUDA device with the leaves' addresses (None on the CPU). r
+    and z have `shape`: (P, nb n), or (nV, 3) for "pd"; the workspace holds
+    `ws` entries; `max_items` is the most (block, row or column group)
+    items a product or copy stage has (the element-wise stages stride over
+    the grid); `ptrs` the leaves' addresses (a call must pass the same
+    leaves); `k` the right-hand sides a block product takes (3 for "pd")."""
+    kind: str            # "btd", "cr", "pair" or "pd"
     stages: np.ndarray
     P: int
     nb: int
@@ -365,6 +398,15 @@ class SolveProgram(NamedTuple):
     max_items: int
     table: object
     ptrs: tuple
+    k: int = 1
+    shape: tuple = ()
+
+
+def rows_per_item(k):
+    """Rows of an op = A item of the solve kernel: 32 (4 a warp) for one
+    column, 8 (a warp a row: at n = 512 and P = 1 a stage has 64 items,
+    not 16) for k columns. A row's sum is the same wherever it runs."""
+    return 32 if k == 1 else 8
 
 
 class _Stages:
@@ -372,15 +414,16 @@ class _Stages:
     off, sj, sp); `orig` addresses blocks in r's (P, nb n) layout, `blk`
     a workspace region of (m, P, n) blocks."""
 
-    def __init__(self, leaves, P, nb, n, lower):
+    def __init__(self, leaves, P, nb, n, lower, k=1):
         self.strides = [(t.stride(0), t.stride(1)) for t in leaves]
         self.lower = lower               # indices of the inverse factors
         self.P, self.nb, self.n = P, nb, n
+        self.vn = n * k                  # entries of a vector block
         self.rows, self.ws = [], 0
 
     def alloc(self, blocks):
         off = self.ws
-        self.ws += blocks * self.P * self.n
+        self.ws += blocks * self.P * self.vn
         return off
 
     def leaf(self, i, k=0):
@@ -389,10 +432,11 @@ class _Stages:
         return (i, k * s0, s0, s1)
 
     def orig(self, buf, base, k0, kstep):
-        return (buf, base + k0 * self.n, kstep * self.n, self.nb * self.n)
+        return (buf, base + k0 * self.vn, kstep * self.vn, self.nb * self.vn)
 
     def blk(self, base, k=0):
-        return (BUF_WS, base + k * self.P * self.n, self.P * self.n, self.n)
+        return (BUF_WS, base + k * self.P * self.vn, self.P * self.vn,
+                self.vn)
 
     def add(self, op, nj, a, v, out, c=None, sync=True):
         row = np.zeros(N_FIELDS, np.int64)
@@ -403,6 +447,18 @@ class _Stages:
         row[F_O:F_O + 4] = out
         row[[F_NJ, F_NP, F_OP, F_SYNC]] = (nj, self.P, op, int(sync))
         row[F_LOWER] = int(a is not None and a[0] in self.lower)
+        self.rows.append(row)
+
+    def add_rows(self, op, rows, tab, d, v, out, sync=True):
+        """An element-wise stage (OP_GATHER / OP_SCATTER) over `rows` rows:
+        the row table and d are leaves `tab` and `d`; v and out (buffer,
+        offset)."""
+        row = np.zeros(N_FIELDS, np.int64)
+        row[F_A], row[F_D] = tab, d
+        row[F_V:F_V + 2] = v
+        row[F_C] = -1
+        row[F_O:F_O + 2] = out
+        row[[F_NJ, F_NP, F_OP, F_SYNC]] = (rows, 1, op, int(sync))
         self.rows.append(row)
 
     def scan(self, li, sb, nbr, rhs, tmp, out, sync):
@@ -469,33 +525,74 @@ def _cr_program(b, n_lev):
               b.orig(BUF_Z, 0, s, 2 * s))
 
 
+def _pd_tables(leaves):
+    """The "pd" kind's leaves: (linv, sub) and the plan's inv (nb n,),
+    perm (nV,) int64 and the scale d (nb n,), checked."""
+    linv, sub, inv, perm, d = leaves
+    nv_p = linv.shape[0] * linv.shape[-1]
+    if linv.dim() != 4 or linv.shape[1] != 1:
+        raise ValueError(f"solve_program: pd takes a P = 1 factor, not "
+                         f"{tuple(linv.shape)}")
+    for name, t, dt, size in (("inv", inv, torch.int64, nv_p),
+                              ("perm", perm, torch.int64, None),
+                              ("d", d, None, nv_p)):
+        if (t.dim() != 1 or not t.is_contiguous()
+                or (size is not None and t.shape[0] != size)
+                or (dt is not None and t.dtype != dt)
+                or t.device != linv.device):
+            raise ValueError(f"solve_program: pd's {name} is {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    return [linv, sub], int(perm.shape[0])
+
+
 def solve_program(kind, leaves):
     """The SolveProgram of one solve against factor leaves (tensors or
     views with row-major blocks): "btd" (linv (nb, P, n, n), sub
     (nb - 1, P, n, n)); "cr" each level's (Li, G_lo, G_hi) (n_odd, P, n, n),
-    then the root's (linv, sub); "pair" (Lc^{-1} (n, n),) against r (1, n).
-    Every leaf of one dtype. The inverse factors (linv, Li, Lc^{-1}) must
-    hold exact zeros above the diagonal, as K6 writes them: the kernel
-    reads their lower triangle only. Built on the host; on a CUDA device
-    the table is uploaded once (pinned, no host wait)."""
+    then the root's (linv, sub); "pair" (Lc^{-1} (n, n),) against r (1, n);
+    "pd" (linv (nb, 1, n, n), sub, inv, perm, d) against r (nV, 3): the
+    gather stage (rows permuted by inv, zero-padded, / d) into the
+    workspace, the scan's 4 nb - 2 products on (n, 3) blocks (each x_k
+    over its own right-hand side there), the scatter stage (/ d, un-permuted
+    by perm) into z (nV, 3). Every factor leaf of one dtype. The inverse
+    factors (linv, Li, Lc^{-1}) must hold exact zeros above the diagonal,
+    as K6 writes them: the kernel reads their lower triangle only. Built on
+    the host; on a CUDA device the table is uploaded once (pinned, no host
+    wait)."""
     if kind == "pair":
         leaves = [leaves[0].view(1, 1, *leaves[0].shape)]
-    n = leaves[0].shape[-1]
-    for t in leaves:
+    fac, k = leaves, 1
+    if kind == "pd":
+        fac, n_vert = _pd_tables(leaves)
+        k = 3
+    n = fac[0].shape[-1]
+    for t in fac:
         if t.dim() != 4 or t.shape[-2] != n or (
                 n > 1 and (t.stride(-1) != 1 or t.stride(-2) != n)):
             raise ValueError(f"solve_program: a leaf of shape "
                              f"{tuple(t.shape)}, strides {t.stride()}")
-        if t.dtype != leaves[0].dtype or t.device != leaves[0].device:
+        if t.dtype != fac[0].dtype or t.device != fac[0].device:
             raise TypeError("solve_program: leaves of mixed dtype or device")
-    P = leaves[0].shape[1]
-    if kind == "btd":
-        nb = leaves[0].shape[0]
-        b = _Stages(leaves, P, nb, n, {0})
-        T = b.alloc(1)
-        b.scan(0, 1, nb, lambda k: b.orig(BUF_R, 0, k, 0),
-               lambda k: b.blk(T), lambda k: b.orig(BUF_Z, 0, k, 0),
-               sync=False)
+    P = fac[0].shape[1]
+    shape = None
+    if kind in ("btd", "pd"):
+        nb = fac[0].shape[0]
+        b = _Stages(fac, P, nb, n, {0}, k)
+        if kind == "btd":
+            T = b.alloc(1)
+            b.scan(0, 1, nb, lambda j: b.orig(BUF_R, 0, j, 0),
+                   lambda j: b.blk(T), lambda j: b.orig(BUF_Z, 0, j, 0),
+                   sync=False)
+        else:
+            # R: the gathered right-hand side, block j at R + j n 3; x_j
+            # overwrites its r_j (read by the forward pass only)
+            R, T = b.alloc(nb), b.alloc(1)
+            b.add_rows(OP_GATHER, nb * n, 2, 4, (BUF_R, 0), (BUF_WS, R),
+                       sync=False)
+            b.scan(0, 1, nb, lambda j: b.blk(R, j), lambda j: b.blk(T),
+                   lambda j: b.blk(R, j), sync=True)
+            b.add_rows(OP_SCATTER, n_vert, 3, 4, (BUF_WS, R), (BUF_Z, 0))
+            shape = (n_vert, k)
     elif kind == "cr":
         n_lev = (len(leaves) - 2) // 3
         if n_lev < 1 or len(leaves) != 3 * n_lev + 2:
@@ -516,59 +613,81 @@ def solve_program(kind, leaves):
     else:
         raise ValueError(f"solve_program: kind {kind!r}")
     stages = np.stack(b.rows)
-    groups = -(-n // 32)
-    items = stages[:, F_NJ] * stages[:, F_NP] * np.where(
-        stages[:, F_OP] == OP_COPY, 1, groups)
+    op = stages[:, F_OP]
+    groups = np.where(op == OP_A, -(-n // rows_per_item(k)), -(-n // 32))
+    items = stages[:, F_NJ] * stages[:, F_NP] * np.where(op == OP_COPY, 1,
+                                                         groups)
+    items = items[~np.isin(op, ELEMENTWISE)]
     table = None
-    dev = leaves[0].device
+    dev = fac[0].device
     ptrs = tuple(t.data_ptr() for t in leaves)
     if dev.type == "cuda":
         ptr = np.asarray(ptrs, np.int64)
         tab = stages.copy()
-        op = tab[:, F_OP] != OP_COPY
-        tab[op, F_A] = ptr[tab[op, F_A]]
+        has_a = op != OP_COPY
+        tab[has_a, F_A] = ptr[tab[has_a, F_A]]
+        rows = np.isin(op, ELEMENTWISE)
+        tab[rows, F_D] = ptr[tab[rows, F_D]]
         table = torch.from_numpy(tab).pin_memory().to(dev, non_blocking=True)
     return SolveProgram(kind=kind, stages=stages, P=int(P), nb=int(nb),
                         n=int(n), ws=int(b.ws), max_items=int(items.max()),
-                        table=table, ptrs=ptrs)
+                        table=table, ptrs=ptrs, k=k,
+                        shape=shape or (int(P), int(nb * n)))
 
 
 def solve_cost(prog, leaves, r):
-    """(bytes, operations) one solve of `prog` needs at least: each leaf
-    read once, of an inverse factor (the stages flag F_LOWER) its lower
-    triangles only, n (n + 1) / 2 entries a block; r read and z written
-    once; two operations an entry of each block product the stages do."""
-    n = prog.n
+    """(bytes, operations) one solve of `prog` needs at least: each factor
+    leaf read once, of an inverse factor (the stages flag F_LOWER) its
+    lower triangles only, n (n + 1) / 2 entries a block; the "pd" kind's
+    inv, perm and d once; r read and z written once; two operations an
+    entry of each block product the stages do, per column, and one an
+    entry of the element-wise stages (a division)."""
+    n, k = prog.n, prog.k
     tri = n * (n + 1) // 2
     st = prog.stages
-    prod = st[st[:, F_OP] != OP_COPY]
+    prod = st[~np.isin(st[:, F_OP], (OP_COPY,) + ELEMENTWISE)]
     lower = set(prod[prod[:, F_LOWER] == 1, F_A].tolist())
     nbytes = 2 * r.numel() * r.element_size()
+    n_fac = 2 if prog.kind == "pd" else len(leaves)
     for i, t in enumerate(leaves):
-        nbytes += t.numel() // (n * n) * (tri if i in lower else n * n) \
-            * t.element_size()
+        blocks = t.numel() // (n * n)
+        nbytes += (t.numel() if i >= n_fac else blocks * (
+            tri if i in lower else n * n)) * t.element_size()
     entries = np.where(prod[:, F_LOWER] == 1, tri, n * n)
-    return nbytes, 2 * int((prod[:, F_NJ] * prod[:, F_NP] * entries).sum())
+    rows = st[np.isin(st[:, F_OP], ELEMENTWISE), F_NJ]
+    return nbytes, 2 * k * int((prod[:, F_NJ] * prod[:, F_NP]
+                                * entries).sum()) + k * int(rows.sum())
 
 
 def run_solve_program_ref(prog, leaves, r):
     """CPU mirror of K7's solve kernel: walks prog's stages in order over
-    r (P, nb n), the output z and a workspace, each stage's products as
-    one block_matvec_ref call on the blocks the table names (F_LOWER's
-    blocks whole: their zeros change no sum). Equal to block_solve_ref bit
-    for bit (the same calls on the same values)."""
-    P, nb, n = prog.P, prog.nb, prog.n
+    r, the output z (prog.shape) and a workspace, each stage's products as
+    one block_matvec_ref call (pd.block_matvec_k_ref with k columns) on the
+    blocks the table names (F_LOWER's blocks whole: their zeros change no
+    sum), the element-wise stages as pd.pd_gather_ref / pd_scatter_ref.
+    Equal to block_solve_ref bit for bit (the same calls on the same
+    values)."""
+    n, k = prog.n, prog.k
+    vn = n * k
     if prog.kind == "pair":
         leaves = [leaves[0].view(1, 1, n, n)]
-    z = torch.empty((P, nb * n), dtype=r.dtype, device=r.device)
+    z = torch.empty(prog.shape, dtype=r.dtype, device=r.device)
     ws = torch.empty(prog.ws, dtype=r.dtype, device=r.device)
     bufs = (r, z, ws)
     for row in prog.stages.tolist():
         shape = (row[F_NJ], row[F_NP])
+        if row[F_OP] in ELEMENTWISE:
+            src = bufs[row[F_V]].reshape(-1)[row[F_V_OFF]:].view(-1, k)
+            tab, d = leaves[row[F_A]], leaves[row[F_D]]
+            res = (pd.pd_gather_ref(src, tab, d) if row[F_OP] == OP_GATHER
+                   else pd.pd_scatter_ref(src[:d.shape[0]], tab, d))
+            off = row[F_O_OFF]
+            bufs[row[F_O]].view(-1)[off:off + res.numel()] = res.view(-1)
+            continue
 
         def vec(f):
             t = bufs[row[f]]
-            return t.as_strided(shape + (n,), (row[f + 2], row[f + 3], 1),
+            return t.as_strided(shape + (vn,), (row[f + 2], row[f + 3], 1),
                                 t.storage_offset() + row[f + 1])
         v, out = vec(F_V), vec(F_O)
         if row[F_OP] == OP_COPY:
@@ -577,11 +696,16 @@ def run_solve_program_ref(prog, leaves, r):
         leaf = leaves[row[F_A]]
         A = leaf.as_strided(shape + (n, n), (row[F_A_SJ], row[F_A_SP], n, 1),
                             leaf.storage_offset() + row[F_A_OFF])
-        c = None if row[F_C] < 0 else vec(F_C).reshape(-1, n)
-        res = block_matvec_ref(A.reshape(-1, n, n),
-                               v.reshape(-1, n).contiguous(), c,
-                               row[F_OP] == OP_AT)
-        out.copy_(res.view(out.shape))
+        c = None if row[F_C] < 0 else vec(F_C).reshape(-1, n, k)
+        vv = v.reshape(-1, n, k).contiguous()
+        if k == 1:
+            res = block_matvec_ref(A.reshape(-1, n, n), vv[..., 0],
+                                   None if c is None else c[..., 0],
+                                   row[F_OP] == OP_AT)
+        else:
+            res = pd.block_matvec_k_ref(A.reshape(-1, n, n), vv, c,
+                                        row[F_OP] == OP_AT)
+        out.copy_(res.reshape(out.shape))
     return z
 
 

@@ -47,12 +47,34 @@
 //   Design: CSR by row (the entries arrive sorted by row; offsets built
 //   once on the host); one thread per row sums its entries in order, so
 //   the line search's a0c, a1c, a2c are the same from run to run.
+// K20 w_quad -- replaces the line search's setup of
+//   dot_tpu/steppers/admm_dd.py:524-529: W aug0 and W pa and the per-part
+//   quadratic terms a0c = aug0.W aug0 / 2, a1c = (pa.W aug0 + aug0.W pa)
+//   / 2, a2c = pa.W pa / 2, (3, P), in ONE cooperative launch (the two
+//   w_matvec launches and the four sums and products they fed: ~12
+//   launches a line search).
+//   Bound: memory, and small: the nUW entries once (value, column, and the
+//   two gathered columns) for both products + 4 vectors of P n3; at bar17
+//   with 6 parts ~10 MB, ~3 us. Launches cost more.
+//   Design: items of 64 rows of one part (a part's rows in fixed chunks),
+//   grid-strided over the co-resident blocks; four lanes a row, each
+//   summing every 4th entry in order for both columns at once (each W
+//   entry read once; the rows' gathers are latency-bound, and an
+//   interface row holds tens of entries), a fixed xor tree over the four;
+//   the row's four products into its first lane's partials, and a fixed
+//   shuffle tree plus the warps in order give the item's four sums; after
+//   a grid barrier a warp a part adds its chunks (lanes in order, then a
+//   fixed tree). No atomics: two runs give the same bits, and the grid
+//   size changes no sum.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "elem.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace dotadmm {
 
@@ -250,6 +272,167 @@ w_matvec_kernel(const T* __restrict__ w_vals, const T* __restrict__ free3f,
   out[r] = diag_only ? y + md : y + md * a[r];
 }
 
+// the K20 line-search entry. Stage 1: item = part p's rows [ch rows_per,
+// (ch + 1) rows_per), four lanes a row (kLanesRow): lane u of a row sums
+// its entries u, u + 4, ... in order for both columns, a fixed xor tree
+// adds the four, and the row's first lane adds the row's four products to
+// its partials; the item's four sums by a fixed shuffle tree and the
+// warps in order. Stage 2 (after the grid barrier): a warp a part, lane l
+// adding chunks l, l + 32, ... in order, then a fixed shuffle tree.
+constexpr int kLanesRow = 4;
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+w_quad_kernel(const T* __restrict__ w_vals, const T* __restrict__ free3f,
+              const T* __restrict__ aug0, const T* __restrict__ pa,
+              const int64_t* __restrict__ col,
+              const int64_t* __restrict__ row_off, const T* __restrict__ md3,
+              int64_t n3, int n_parts, int chunks, T* part, T* out) {
+  constexpr int kWarpsQ = kRowThreads / 32;
+  constexpr int kRowsPass = kRowThreads / kLanesRow;
+  __shared__ T red[4][kWarpsQ];
+  cg::grid_group grid = cg::this_grid();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = threadIdx.x % kLanesRow;
+  const int64_t rows_per = (n3 + chunks - 1) / chunks;
+  const int64_t items = static_cast<int64_t>(n_parts) * chunks;
+  for (int64_t it = blockIdx.x; it < items; it += gridDim.x) {
+    const int64_t p = it / chunks, ch = it - p * chunks;
+    const int64_t r1 = p * n3 + (ch * rows_per + rows_per < n3
+                                     ? ch * rows_per + rows_per : n3);
+    T s[4] = {T(0), T(0), T(0), T(0)};
+    // the pass's condition is the block's: every lane reaches the shuffles
+    for (int64_t r0 = p * n3 + ch * rows_per; r0 < r1; r0 += kRowsPass) {
+      const int64_t r = r0 + threadIdx.x / kLanesRow;
+      const bool on = r < r1;
+      T fr = T(0), y0 = T(0), y1 = T(0);
+      if (on) {
+        fr = free3f[r];
+        const int64_t end = row_off[r + 1];
+        int64_t k = row_off[r] + sub;
+        for (; k + kLanesRow < end; k += 2 * kLanesRow) {
+          const int64_t c0 = col[k], c1 = col[k + kLanesRow];
+          const T w0 = w_vals[k] * fr * free3f[c0];
+          const T w1 = w_vals[k + kLanesRow] * fr * free3f[c1];
+          const T a0 = aug0[c0], a1 = aug0[c1], q0 = pa[c0], q1 = pa[c1];
+          y0 += w0 * a0;
+          y1 += w0 * q0;
+          y0 += w1 * a1;
+          y1 += w1 * q1;
+        }
+        if (k < end) {
+          const int64_t c = col[k];
+          const T wm = w_vals[k] * fr * free3f[c];
+          y0 += wm * aug0[c];
+          y1 += wm * pa[c];
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < kLanesRow; o <<= 1) {
+        y0 += __shfl_xor_sync(0xffffffffu, y0, o);
+        y1 += __shfl_xor_sync(0xffffffffu, y1, o);
+      }
+      if (on && sub == 0) {
+        const T md = md3[r] * fr;
+        const T a = aug0[r], q = pa[r];
+        const T wa = y0 + md * a;          // (W aug0)[r]
+        const T wq = y1 + md * q;          // (W pa)[r]
+        s[0] += a * wa;
+        s[1] += q * wa;
+        s[2] += a * wq;
+        s[3] += q * wq;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s[m] += __shfl_xor_sync(0xffffffffu, s[m], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m) red[m][warp] = s[m];
+    }
+    __syncthreads();
+    if (threadIdx.x < 4) {
+      T t = red[threadIdx.x][0];
+#pragma unroll
+      for (int w = 1; w < kWarpsQ; ++w) t += red[threadIdx.x][w];
+      part[it * 4 + threadIdx.x] = t;
+    }
+    __syncthreads();               // red is written again by the next item
+  }
+  grid.sync();
+  for (int64_t p = static_cast<int64_t>(blockIdx.x) * kWarpsQ + warp;
+       p < n_parts; p += static_cast<int64_t>(gridDim.x) * kWarpsQ) {
+    T t[4] = {T(0), T(0), T(0), T(0)};
+    for (int ch = lane; ch < chunks; ch += 32) {
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        t[m] += __ldcg(part + (p * chunks + ch) * 4 + m);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        t[m] += __shfl_xor_sync(0xffffffffu, t[m], o);
+    }
+    if (lane == 0) {
+      out[p] = T(0.5) * t[0];
+      out[n_parts + p] = T(0.5) * (t[1] + t[2]);
+      out[2 * n_parts + p] = T(0.5) * t[3];
+    }
+  }
+}
+
+// w_quad's cooperative launch: the co-resident blocks, at most one an item
+template <typename T>
+int launch_w_quad(const void* w_vals, const void* free3f, const void* aug0,
+                  const void* pa, const int64_t* col, const int64_t* row_off,
+                  const void* md3, long long n3, int n_parts, int chunks,
+                  void* part, void* out, cudaStream_t st) {
+  auto kern = w_quad_kernel<T>;
+  constexpr int kMaxDev = 64;
+  static int most_of[kMaxDev] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDev) return -4;
+  if (most_of[dev] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (!coop) return -2;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      kRowThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return -3;
+    most_of[dev] = per_sm * sms;
+  }
+  const long long items = static_cast<long long>(n_parts) * chunks;
+  const unsigned nb = static_cast<unsigned>(items < most_of[dev]
+                                                ? items : most_of[dev]);
+  auto wv = static_cast<const T*>(w_vals);
+  auto fr = static_cast<const T*>(free3f);
+  auto a0 = static_cast<const T*>(aug0);
+  auto pp = static_cast<const T*>(pa);
+  auto md = static_cast<const T*>(md3);
+  auto pt = static_cast<T*>(part);
+  auto o = static_cast<T*>(out);
+  int64_t n3v = n3;
+  void* args[] = {&wv, &fr, &a0, &pp, &col, &row_off, &md, &n3v, &n_parts,
+                  &chunks, &pt, &o};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kern),
+                                  dim3(nb), dim3(kRowThreads), args, 0, st);
+  if (e != cudaSuccess) {
+    cudaGetLastError();   // a refused launch: not left for the next check
+    return static_cast<int>(e);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline unsigned blocks(int64_t n, int t) {
   return static_cast<unsigned>((n + t - 1) / t);
 }
@@ -354,6 +537,28 @@ int dot_w_matvec(int dtype, const void* w_vals, const void* free3f,
         static_cast<const double*>(a), cl, ro, static_cast<const double*>(md3),
         n_rows, diag_only, static_cast<double*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// K20's line-search entry: w_vals (nUW,), col, row_off as dot_w_matvec;
+// free3f, aug0, pa, md3: (n_parts n3,); part: (n_parts chunks 4,)
+// scratch; out (3, n_parts): a0c, a1c, a2c. Cooperative; returns 0, a
+// CUDA error code, or -2 / -3 / -4 as dot_block_solve.
+int dot_w_quad(int dtype, const void* w_vals, const void* free3f,
+               const void* aug0, const void* pa, const void* col,
+               const void* row_off, const void* md3, long long n3,
+               int n_parts, int chunks, void* part, void* out,
+               void* stream) {
+  if (n_parts <= 0) return 0;
+  if (n3 <= 0 || chunks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cl = static_cast<const int64_t*>(col);
+  auto ro = static_cast<const int64_t*>(row_off);
+  if (dtype == 0)
+    return dotadmm::launch_w_quad<float>(w_vals, free3f, aug0, pa, cl, ro,
+                                         md3, n3, n_parts, chunks, part, out,
+                                         st);
+  return dotadmm::launch_w_quad<double>(w_vals, free3f, aug0, pa, cl, ro, md3,
+                                        n3, n_parts, chunks, part, out, st);
 }
 
 }  // extern "C"

@@ -64,6 +64,22 @@
 // launch reads each entry of A once and feeds K accumulators; per column
 // the products are summed in K7's order (same lane strides, same shuffle
 // tree, same shared-memory order), so column j equals K7 on column j.
+// Since the one-launch pd_solve it is the yardstick of the solve's
+// K-column stages, off every path.
+//
+// K15 redesigned: the solve entry with K = 3 columns (the program's kind
+// "pd"): pd_solve in ONE launch. Its stages are the gather (rows permuted
+// by inv, zero-padded, / d: pd.cu's pd_gather), the scan's 4 nb - 2
+// K-column products and the scatter (/ d, un-permuted: pd_scatter), so
+// the launch is bit for bit the 132-launch sequence at bar17 (nb 33):
+// rows_item_k / cols_item_k sum each column in matvec_k_kernel's /
+// matvec_kt_kernel's order (lane strides, shuffle tree, the 8 warps'
+// partials in order); the element-wise stages divide as pd.cu does. Bound:
+// latency. At P = 1 and n = 512 a stage is one 1 MiB block (f32), so the
+// op = A stages take one row a warp (64 items, not 16: a row's sum does
+// not depend on where it runs); the op = A^T stages keep K7's 32-column
+// items (their 8 partial sums fix the order), 16 at n = 512. The ~130 grid
+// barriers (~3 us each) are the design's floor.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -247,22 +263,135 @@ matvec_t_kernel(const TA* __restrict__ A, const T* __restrict__ v,
 // A stage: kFields int64 (kernels/band.py: the same field order). kA is
 // A's address; its block (j, p) starts kAOff + j kASj + p kASp entries
 // further. v, c and out name a buffer (0 the input r, 1 the output z, 2 the
-// workspace; c: -1 for none) and its block (j, p) at off + j sj + p sp.
-// The stage's batch is kNj x kNp blocks; kOp: 0 op = A, 1 op = A^T, 2 a
-// copy of v to out (no A); kSync: a grid barrier before the stage; kLower:
-// A is lower triangular (an inverse Cholesky factor, whose entries above
-// the diagonal K6 writes as exact zeros), and the stage reads its lower
-// part only. Its products are the same bits: a partial sum that starts at
-// +0 is never -0, so the zero products it skips (+0 or -0 added) leave it
-// as it is on finite v.
+// workspace; c: -1 for none) and its block (j, p) at off + j sj + p sp
+// (entries; a block of a K-column program is n K of them, (n, K)
+// row-major). The stage's batch is kNj x kNp blocks; kOp: 0 op = A, 1
+// op = A^T, 2 a copy of v to out (no A), 3 a gather and 4 a scatter (kNj
+// rows of K entries, kA their int64 row table, kD the scale d); kSync: a
+// grid barrier before the stage; kLower: A is lower triangular (an
+// inverse Cholesky factor, whose entries above the diagonal K6 writes as
+// exact zeros), and the stage reads its lower part only. Its products are
+// the same bits: a partial sum that starts at +0 is never -0, so the zero
+// products it skips (+0 or -0 added) leave it as it is on finite v.
 enum : int {
   kA, kAOff, kASj, kASp,
   kVBuf, kVOff, kVSj, kVSp,
   kCBuf, kCOff, kCSj, kCSp,
   kOBuf, kOOff, kOSj, kOSp,
-  kNj, kNp, kOp, kSync, kLower, kFields
+  kNj, kNp, kOp, kSync, kLower, kD, kFields
 };
-constexpr int kOpA = 0, kOpAT = 1, kOpCopy = 2;
+constexpr int kOpA = 0, kOpAT = 1, kOpCopy = 2, kOpGather = 3,
+              kOpScatter = 4;
+
+// op = A with K right-hand sides on one block, in the solve: row
+// kWarps group + warp, one row a warp; lane l sums j = l, l + 32, ... in
+// that order for each column, a fixed xor-shuffle tree sums the lanes:
+// matvec_k_kernel's order, kStrides strides of loads in flight.
+template <typename TA, typename T, int K>
+__device__ __forceinline__ void rows_item_k(const TA* __restrict__ a,
+                                            const T* v, const T* c, T* out,
+                                            int n, int group, bool lower) {
+  constexpr int kStrides = 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = group * kWarps + warp;
+  if (row >= n) return;
+  const int jend = lower ? row + 1 : n;    // a lower A: columns <= row
+  const TA* ar = a + static_cast<int64_t>(row) * n;
+  const int lines = (jend * static_cast<int>(sizeof(TA)) + 127) / 128;
+  for (int l = lane; l < lines; l += 32)
+    prefetch_l2(reinterpret_cast<const char*>(ar) + 128 * l);
+  T acc[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) acc[q] = T(0);
+  int j = lane;
+  for (; j + 32 * (kStrides - 1) < jend; j += 32 * kStrides) {
+    T x[kStrides], vj[kStrides][K];
+#pragma unroll
+    for (int u = 0; u < kStrides; ++u) {
+      x[u] = up<T>(ar[j + 32 * u]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) vj[u][q] = __ldcg(v + (j + 32 * u) * K + q);
+    }
+#pragma unroll
+    for (int u = 0; u < kStrides; ++u)
+#pragma unroll
+      for (int q = 0; q < K; ++q) acc[q] += x[u] * vj[u][q];
+  }
+  for (; j < jend; j += 32) {
+    const T x = up<T>(ar[j]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) acc[q] += x * __ldcg(v + j * K + q);
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      out[row * K + q] = c != nullptr ? __ldcg(c + row * K + q) - acc[q]
+                                      : acc[q];
+  }
+}
+
+// op = A^T with K right-hand sides on one block, in the solve: columns
+// [32 group, 32 group + 32), lane = column, warp w summing rows w, w + 8,
+// ... per column, the 8 partials added in order: matvec_kt_kernel's order.
+// A block barrier before warp 0's sums (the solve alternates two `part`s).
+template <typename TA, typename T, int K>
+__device__ __forceinline__ void cols_item_k(const TA* __restrict__ a,
+                                            const T* v, const T* c, T* out,
+                                            int n, int group,
+                                            T (*part)[kWarps][33],
+                                            bool lower) {
+  constexpr int kStrides = 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = group * 32 + lane;
+  const int i0 = lower && 32 * group > warp
+                     ? warp + (32 * group - warp + kWarps - 1) / kWarps * kWarps
+                     : warp;
+  for (int i = i0 + kWarps * lane; i < n; i += kWarps * 32)
+    prefetch_l2(a + static_cast<int64_t>(i) * n + group * 32);
+  T acc[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) acc[q] = T(0);
+  if (col < n) {
+    int i = i0;
+    for (; i + kWarps * (kStrides - 1) < n; i += kWarps * kStrides) {
+      T x[kStrides], vi[kStrides][K];
+#pragma unroll
+      for (int u = 0; u < kStrides; ++u) {
+        x[u] = up<T>(a[static_cast<int64_t>(i + kWarps * u) * n + col]);
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+          vi[u][q] = __ldcg(v + (i + kWarps * u) * K + q);
+      }
+#pragma unroll
+      for (int u = 0; u < kStrides; ++u)
+#pragma unroll
+        for (int q = 0; q < K; ++q) acc[q] += x[u] * vi[u][q];
+    }
+    for (; i < n; i += kWarps) {
+      const T x = up<T>(a[static_cast<int64_t>(i) * n + col]);
+#pragma unroll
+      for (int q = 0; q < K; ++q) acc[q] += x * __ldcg(v + i * K + q);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) part[q][warp][lane] = acc[q];
+  __syncthreads();
+  if (warp == 0 && col < n) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      T s = part[q][0][lane];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) s += part[q][w][lane];
+      out[col * K + q] = c != nullptr ? __ldcg(c + col * K + q) - s : s;
+    }
+  }
+}
 
 // block (j, p) of the stage's field f (kVBuf, kCBuf or kOBuf) in its buffer
 template <typename T>
@@ -279,16 +408,20 @@ __device__ __forceinline__ T* at(const T* r, T* z, T* ws,
 // item loop, which would cost the kernel its occupancy). v and c are read
 // past L1 by each warp (no shared staging), so a block moves from one
 // row-group item to the next without a barrier; op = A^T items alternate
-// two buffers of partial sums (one barrier an item).
-template <typename TA, typename T>
+// two buffers of partial sums (one barrier an item). K: the right-hand
+// sides of every product (1; 3 for pd_solve, whose element-wise gather
+// and scatter stages stride over the grid's threads).
+template <typename TA, typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 solve_kernel(const long long* __restrict__ prog, int n_stage, int n,
              const T* r, T* z, T* ws) {
-  __shared__ T part[2][kWarps][33];
+  __shared__ T part[2][K][kWarps][33];
   __shared__ long long stage[kFields];
   const volatile long long* sd = stage;
   cg::grid_group grid = cg::this_grid();
   const int groups = (n + 31) / 32;
+  // op = A items: 32 rows (4 a warp) at K = 1, 8 (a row a warp) at K > 1
+  const int groups_a = K == 1 ? groups : (n + kWarps - 1) / kWarps;
   int buf = 0;
   for (int s = 0; s < n_stage; ++s) {
     const long long* st = prog + static_cast<int64_t>(s) * kFields;
@@ -297,8 +430,27 @@ solve_kernel(const long long* __restrict__ prog, int n_stage, int n,
     if (threadIdx.x < kFields) stage[threadIdx.x] = st[threadIdx.x];
     __syncthreads();
     const int op = static_cast<int>(sd[kOp]);
+    if (op == kOpGather || op == kOpScatter) {
+      const int64_t cnt = sd[kNj] * K;
+      const int64_t* tab = reinterpret_cast<const int64_t*>(sd[kA]);
+      const T* d = reinterpret_cast<const T*>(sd[kD]);
+      const T* v = at(r, z, ws, sd, kVBuf, 0, 0);
+      T* out = at(r, z, ws, sd, kOBuf, 0, 0);
+      for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads
+                       + threadIdx.x;
+           e < cnt; e += static_cast<int64_t>(gridDim.x) * kThreads) {
+        const int64_t row = e / K;
+        const int q = static_cast<int>(e - row * K);
+        const int64_t i = tab[row];
+        if (op == kOpGather)
+          out[e] = (i >= 0 ? __ldcg(v + i * K + q) : T(0)) / d[row];
+        else
+          out[e] = __ldcg(v + i * K + q) / d[i];
+      }
+      continue;
+    }
     const int64_t np = sd[kNp];
-    const int64_t per = op == kOpCopy ? 1 : groups;
+    const int64_t per = op == kOpCopy ? 1 : (op == kOpA ? groups_a : groups);
     const int64_t items = sd[kNj] * np * per;
     for (int64_t g = blockIdx.x; g < items; g += gridDim.x) {
       // block b's groups rotated by b: a block's items (g, g + grid, ...)
@@ -310,7 +462,8 @@ solve_kernel(const long long* __restrict__ prog, int n_stage, int n,
       const T* v = at(r, z, ws, sd, kVBuf, j, p);
       T* out = at(r, z, ws, sd, kOBuf, j, p);
       if (op == kOpCopy) {
-        for (int e = threadIdx.x; e < n; e += kThreads) out[e] = __ldcg(v + e);
+        for (int e = threadIdx.x; e < n * K; e += kThreads)
+          out[e] = __ldcg(v + e);
         continue;
       }
       const T* c = sd[kCBuf] < 0 ? nullptr : at(r, z, ws, sd, kCBuf, j, p);
@@ -318,10 +471,15 @@ solve_kernel(const long long* __restrict__ prog, int n_stage, int n,
                     + j * sd[kASj] + p * sd[kASp];
       const bool lower = sd[kLower] != 0;
       if (op == kOpAT) {
-        cols_item<true, TA, T>(a, v, c, out, n, grp, part[buf], lower);
+        if constexpr (K == 1)
+          cols_item<true, TA, T>(a, v, c, out, n, grp, part[buf][0], lower);
+        else
+          cols_item_k<TA, T, K>(a, v, c, out, n, grp, part[buf], lower);
         buf ^= 1;
-      } else {
+      } else if constexpr (K == 1) {
         rows_item<true, TA, T>(a, v, c, out, n, grp, lower);
+      } else {
+        rows_item_k<TA, T, K>(a, v, c, out, n, grp, lower);
       }
     }
   }
@@ -447,13 +605,13 @@ int launch_k(const void* A, const void* v, const void* c, void* out,
 // times the SMs), at most one per item of the largest stage; `grid` > 0
 // takes that many blocks instead (a grid above the co-resident limit is
 // refused by the cooperative launch)
-template <typename TA, typename T>
+template <typename TA, typename T, int K>
 int launch_solve(const long long* prog, int n_stage, int n,
                  long long max_items, const void* r, void* z, void* ws,
                  int grid, cudaStream_t s) {
   if (n_stage <= 0) return 0;
   if (n <= 0 || max_items <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = solve_kernel<TA, T>;
+  auto kern = solve_kernel<TA, T, K>;
   constexpr int kMaxDev = 64;
   static int per_sm_of[kMaxDev] = {0};
   static int sms_of[kMaxDev] = {0};
@@ -529,27 +687,37 @@ extern "C" int dot_block_matvec_k(int a_dtype, int dtype, const void* A,
   return launch_k<__nv_bfloat16, double>(A, v, c, out, batch, n, k, trans, s);
 }
 
-// A solve program in one cooperative launch: prog (n_stage, 21) int64 on
+// A solve program in one cooperative launch: prog (n_stage, 22) int64 on
 // the device (kernels/band.py SolveProgram.table), every A of one dtype
-// (a_dtype as above), blocks of width n; r (read), z (written) and ws
-// (scratch) in dtype; max_items: the most items a stage holds; grid: 0 for
-// the co-resident blocks (at most max_items), else that many blocks (a
-// test's way to a refused launch). Returns 0, a CUDA error code, -2 when
-// the device has no cooperative launch, -3 when no block fits on an SM,
-// -4 for a device ordinal beyond the kernel's cache.
-extern "C" int dot_block_solve(int a_dtype, int dtype, const void* prog,
-                               int n_stage, int n, long long max_items,
-                               const void* r, void* z, void* ws, int grid,
-                               void* stream) {
+// (a_dtype as above), blocks of width n, k right-hand sides a product (1
+// or 3); r (read), z (written) and ws (scratch) in dtype; max_items: the
+// most items a product or copy stage holds; grid: 0 for the co-resident
+// blocks (at most max_items), else that many blocks (a test's way to a
+// refused launch). Returns 0, a CUDA error code, -2 when the device has no
+// cooperative launch, -3 when no block fits on an SM, -4 for a device
+// ordinal beyond the kernel's cache.
+template <int K>
+int solve_k(int a_dtype, int dtype, const long long* pg, int n_stage, int n,
+            long long max_items, const void* r, void* z, void* ws, int grid,
+            cudaStream_t s) {
   using dotk7::launch_solve;
+  if (dtype == 0) {
+    if (a_dtype == 0) return launch_solve<float, float, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+    if (a_dtype == 1) return launch_solve<double, float, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+    return launch_solve<__nv_bfloat16, float, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+  }
+  if (a_dtype == 0) return launch_solve<float, double, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+  if (a_dtype == 1) return launch_solve<double, double, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+  return launch_solve<__nv_bfloat16, double, K>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+}
+
+extern "C" int dot_block_solve(int a_dtype, int dtype, const void* prog,
+                               int n_stage, int n, int k,
+                               long long max_items, const void* r, void* z,
+                               void* ws, int grid, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto pg = static_cast<const long long*>(prog);
-  if (dtype == 0) {
-    if (a_dtype == 0) return launch_solve<float, float>(pg, n_stage, n, max_items, r, z, ws, grid, s);
-    if (a_dtype == 1) return launch_solve<double, float>(pg, n_stage, n, max_items, r, z, ws, grid, s);
-    return launch_solve<__nv_bfloat16, float>(pg, n_stage, n, max_items, r, z, ws, grid, s);
-  }
-  if (a_dtype == 0) return launch_solve<float, double>(pg, n_stage, n, max_items, r, z, ws, grid, s);
-  if (a_dtype == 1) return launch_solve<double, double>(pg, n_stage, n, max_items, r, z, ws, grid, s);
-  return launch_solve<__nv_bfloat16, double>(pg, n_stage, n, max_items, r, z, ws, grid, s);
+  if (k == 1) return solve_k<1>(a_dtype, dtype, pg, n_stage, n, max_items, r, z, ws, grid, s);
+  if (k == 3) return solve_k<3>(a_dtype, dtype, pg, n_stage, n, max_items, r, z, ws, grid, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

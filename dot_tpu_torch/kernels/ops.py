@@ -11,14 +11,15 @@ Each wrapper checks device, dtype, shape and contiguity, then
   ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (its single products and
-  its whole solves) and K15's products: csrc/block_matvec.cu, K8 and
-  K16: csrc/h0.cu, K10-K11: csrc/coarse.cu, K12: csrc/band_equil.cu,
-  K13: csrc/hdiag.cu, K14 and K15's permute passes: csrc/pd.cu, K17,
-  K18 and K20: csrc/admm.cu, K19: band_asm.cu,
+  its whole solves, pd_solve's included) and K15's products:
+  csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
+  K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
+  passes: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad
+  too): csrc/admm.cu, K19: band_asm.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
   K25-K28: csrc/dd2d.cu, K29-K30: csrc/admm2d.cu (K21 / K22 / K26's 2D
   ADMM-DD entries in elem2d.cu and dd2d.cu), K9: csrc/lbfgs.cu, all
-  through ctypes (K6, K7's solves and K9 launch cooperatively); K4:
+  through ctypes (K6, K7's solves, K9 and w_quad launch cooperatively); K4:
   triton_qf.py),
   checks the launch's cudaGetLastError and adds one to its count in
   `launches`;
@@ -47,7 +48,7 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
            "pd_scatter", "local_gather_one", "local_scatter_one",
            "admm_local_step", "make_pd3", "dtw_scatter", "own_band_assemble",
-           "w_matvec", "w_diag", "ls_trial_energy_parts",
+           "w_matvec", "w_diag", "w_quad", "ls_trial_energy_parts",
            "elem_gradient_from_F", "defgrad2d", "ls_trial_energy2d",
            "elem_gradient2d", "elem_hessian2d", "dense_assemble2d",
            "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d",
@@ -88,6 +89,7 @@ plain = types.SimpleNamespace(
     dtw_scatter=admm.dtw_scatter_ref,
     own_band_assemble=admm.own_band_assemble_ref,
     w_matvec=admm.w_matvec_ref,
+    w_quad=admm.w_quad_ref,
     ls_trial_energy_parts=admm.ls_trial_energy_parts_ref,
     elem_gradient_from_F=admm.elem_gradient_from_F_ref,
     defgrad2d=soa2d.defgrad2d_ref,
@@ -149,8 +151,8 @@ def _load():
             + [LL, I, I, LL, P],
             ("block_matvec", "dot_block_matvec_k"): [I, I] + [P] * 4
             + [LL, I, I, I, P],
-            ("block_matvec", "dot_block_solve"): [I, I, P, I, I, LL, P, P, P,
-                                                  I, P],
+            ("block_matvec", "dot_block_solve"): [I, I, P, I, I, I, LL, P, P,
+                                                  P, I, P],
             ("h0", "dot_local_gather_one"): [I] + [P] * 4 + [LL, LL, P, P],
             ("h0", "dot_local_scatter_one"): [I] + [P] * 4
             + [LL, LL, LL, P, P],
@@ -176,6 +178,7 @@ def _load():
             ("admm", "dot_dtw_scatter"): ([I, P, P, P, LL, P, P, LL]
                                           + [P] * 7),
             ("admm", "dot_w_matvec"): [I] + [P] * 6 + [LL, I, P, P],
+            ("admm", "dot_w_quad"): [I] + [P] * 7 + [LL, I, I, P, P, P],
             ("band_asm", "dot_band_add_w"): ([I] + [P] * 5
                                              + [LL, P, P, LL, LL, P, P]),
             ("elem", "dot_ls_trial_energy_parts"): ([I, I] + [P] * 6
@@ -524,10 +527,12 @@ def block_matvec(A, v, c=None, trans=False, out=None):
 
 
 def block_solve(prog, leaves, r):
-    """K7's solve entry: z (P, nb n) = the solve of `prog` (a
-    band.SolveProgram: a block-tridiagonal scan, a cyclic-reduction solve
-    or the coarse pair) against r (P, nb n) in f32 or f64, on the factor
-    leaves the program was built for (bf16, f32 or f64), in one
+    """K7's solve entry: z = the solve of `prog` (a band.SolveProgram: a
+    block-tridiagonal scan, a cyclic-reduction solve or the coarse pair
+    against r (P, nb n); "pd": LBFGS-PD's 3-column solve with its permute /
+    scale passes against r (nV, 3)) in f32 or f64, on the leaves the
+    program was built for (factor leaves in bf16, f32 or f64; "pd" adds
+    the plan's inv and perm and the scale d in r's dtype), in one
     cooperative launch. Raises where the launch is refused: no fallback."""
     return _block_solve(prog, leaves, r, 0)
 
@@ -538,23 +543,26 @@ def _block_solve(prog, leaves, r, grid):
     grid above the co-resident limit must be refused)."""
     name = "block_solve"
     dt = _float(name, r)
-    _need(name, "r", r, r.device, dt, (prog.P, prog.nb * prog.n))
-    a_dt = leaves[0].dtype
+    _need(name, "r", r, r.device, dt, prog.shape)
+    fac = leaves[:2] if prog.kind == "pd" else leaves
+    a_dt = fac[0].dtype
     if (a_dt not in _A_DTYPES or prog.ptrs != tuple(t.data_ptr()
                                                     for t in leaves)
-            or any(t.dtype != a_dt or t.device != r.device for t in leaves)):
+            or any(t.dtype != a_dt or t.device != r.device for t in fac)):
         raise ValueError(f"{name}: leaves other than the program's, or of "
                          f"mixed dtype or device")
+    if prog.kind == "pd":
+        _need(name, "d", leaves[4], r.device, dt, (prog.nb * prog.n,))
     if not _route(name, r):
         return band.block_solve_ref(prog, leaves, r)
     lib = _load()
-    size = prog.P * prog.nb * prog.n
+    size = r.numel() if prog.kind == "pd" else prog.P * prog.nb * prog.n
     buf = torch.empty(size + prog.ws, dtype=dt, device=r.device)
-    z = buf[:size].view(prog.P, -1)
+    z = buf[:size].view(prog.shape)
     err = lib.block_solve(_A_DTYPES[a_dt], _DTYPES[dt], _ptr(prog.table),
-                          prog.stages.shape[0], prog.n, prog.max_items,
-                          _ptr(r), _ptr(z), _ptr(buf[size:]), grid,
-                          _stream(r))
+                          prog.stages.shape[0], prog.n, prog.k,
+                          prog.max_items, _ptr(r), _ptr(z),
+                          _ptr(buf[size:]), grid, _stream(r))
     _ok_coop(name, err)
     return z
 
@@ -1100,15 +1108,34 @@ def dtw_scatter(M9, g9, w, perm, segids, seg_off, x, mass=None, base=None,
     return out
 
 
-def _w_tables(name, ref, free3f, wp, w_vals):
-    dev, n_rows = ref.device, free3f.shape[0]
-    n_w = wp.row.shape[0]
-    _need(name, "w_vals", w_vals, dev, ref.dtype, (n_w,))
-    _need(name, "free3f", free3f, dev, ref.dtype, (n_rows,))
+_W_PLANS = {}     # (id, device, dtype) -> (WPlan, n_rows, n_w): checked once
+
+
+def _w_plan(name, wp, dev, dt):
+    """(n_rows, n_w) of an admm.WPlan, its static tables (row, col,
+    row_off, md3) checked once per plan, device and dtype: the K20 entries
+    take microseconds on the card, and these checks were most of a call."""
+    key = (id(wp), dev, dt)
+    hit = _W_PLANS.get(key)
+    if hit is not None and hit[0] is wp:
+        return hit[1], hit[2]
+    n_rows, n_w = wp.row_off.shape[0] - 1, wp.row.shape[0]
     _need(name, "row", wp.row, dev, torch.int64, (n_w,))
     _need(name, "col", wp.col, dev, torch.int64, (n_w,))
     _need(name, "row_off", wp.row_off, dev, torch.int64, (n_rows + 1,))
-    _need(name, "md3", wp.md3, dev, ref.dtype, (n_rows,))
+    _need(name, "md3", wp.md3, dev, dt, (n_rows,))
+    if len(_W_PLANS) >= 64:
+        _W_PLANS.clear()
+    _W_PLANS[key] = (wp, n_rows, n_w)    # holds wp: its id stays its own
+    return n_rows, n_w
+
+
+def _w_tables(name, ref, free3f, wp, w_vals):
+    """(n_rows, n_w): the plan's tables (once) and the per-call w_vals and
+    free3f on ref's device and dtype."""
+    n_rows, n_w = _w_plan(name, wp, ref.device, ref.dtype)
+    _need(name, "w_vals", w_vals, ref.device, ref.dtype, (n_w,))
+    _need(name, "free3f", free3f, ref.device, ref.dtype, (n_rows,))
     return n_rows, n_w
 
 
@@ -1180,6 +1207,40 @@ def w_matvec(w_vals, free3f, a, wp, diag_only=False):
                        _stream(free3f))
     _ok(name, err)
     return out
+
+
+W_QUAD_ROWS = 64     # rows of one w_quad item (four lanes a row)
+
+
+def w_quad(w_vals, free3f, aug0, pa, wp, n_parts):
+    """K20's line-search entry: (3, P) a0c = aug0.W aug0 / 2, a1c = (pa.W
+    aug0 + aug0.W pa) / 2, a2c = pa.W pa / 2 per part of the masked compact
+    W (w_matvec's operator), in one cooperative launch that reads each W
+    entry once for both columns and sums each part in a fixed order (the
+    same bits from run to run). w_vals (nUW,); free3f, aug0, pa (P n3,)."""
+    name = "w_quad"
+    dt = _float(name, free3f)
+    n_rows, _ = _w_tables(name, free3f, free3f, wp, w_vals)
+    _need(name, "aug0", aug0, free3f.device, dt, (n_rows,))
+    _need(name, "pa", pa, free3f.device, dt, (n_rows,))
+    if n_parts < 1 or n_rows % n_parts:
+        raise ValueError(f"{name}: {n_rows} rows in {n_parts} parts")
+    if not _route(name, free3f):
+        return admm.w_quad_ref(w_vals, free3f, aug0, pa, wp, n_parts)
+    lib = _load()
+    n3 = n_rows // n_parts
+    chunks = -(-n3 // W_QUAD_ROWS)
+    # the (3, P) result, then the (P chunks, 4) item sums
+    buf = torch.empty(3 * n_parts + 4 * n_parts * chunks, dtype=dt,
+                      device=free3f.device)
+    out = buf.data_ptr()
+    err = lib.w_quad(_DTYPES[dt], w_vals.data_ptr(), free3f.data_ptr(),
+                     aug0.data_ptr(), pa.data_ptr(), wp.col.data_ptr(),
+                     wp.row_off.data_ptr(), wp.md3.data_ptr(), n3, n_parts,
+                     chunks, out + 3 * n_parts * buf.element_size(), out,
+                     _stream(free3f))
+    _ok_coop(name, err)
+    return buf[:3 * n_parts].view(3, n_parts)
 
 
 def ls_trial_energy_parts(F0, Fp, alpha, u, lam, w, mat, n_parts):

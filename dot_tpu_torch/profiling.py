@@ -89,6 +89,7 @@ KERNEL_NAMES = {
     "own_band_assemble": ("band_add_w_kernel", "band_add_md_kernel"),
     "w_matvec": ("w_matvec_kernel",),
     "w_diag": (),                           # w_matvec_kernel's diagonal flag
+    "w_quad": ("w_quad_kernel",),
     "ls_trial_energy_parts": ("ls_trial_energy_parts_kernel",),
     "elem_gradient_from_F": ("elem_gradient_from_F_kernel",),
     # K24's assembly is K26's one-pass kernel (no 2D scene here)

@@ -38,6 +38,7 @@ import torch
 
 from . import io as meshio
 from . import partition, scripts
+from .device import resolve_device
 from .config import Config
 from .mesh import Mesh
 from .steppers import (ADMMDDStepper, ADMMPDStepper, DOTStepper, GSDDStepper,
@@ -72,22 +73,6 @@ class Timer:
         lines = [f"{k} {v:.6f}" for k, v in self.acc.items()]
         lines.append(f"total {total:.6f}")
         return "\n".join(lines)
-
-
-def default_device():
-    """The port runs on the card unless the caller asks for the CPU."""
-    return "cuda"
-
-
-def resolve_device(device=None):
-    """torch.device for `device` (None: the card); raises when it names
-    CUDA and no CUDA device is present, instead of falling back."""
-    dev = torch.device(device or default_device())
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: dot_tpu_torch runs on an NVIDIA GPU by "
-            "default; pass device='cpu' (--device cpu) to run on the CPU")
-    return dev
 
 
 def pick_dtype(name=None, device="cpu"):

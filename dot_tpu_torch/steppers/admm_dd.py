@@ -23,7 +23,8 @@ On the card: the augmented local Hessian (own elements + local mass + W) is
 K3 at the local positions and K19 into the RCM block-tridiagonal band,
 factored exactly (the f32 or f64 block scan on K6, never cyclic reduction)
 and solved by K7 block products; the compact interface-weight operator W is
-K20; the local gradient is K2's from-F entry point on the carried local
+K20 (the line search's W terms in one launch of its w_quad entry); the
+local gradient is K2's from-F entry point on the carried local
 deformation gradients (updated linearly along each accepted step, never
 re-gathered); each line-search trial is K1's per-slab entry point: one step
 length and one energy sum per subdomain. Weights, consensus and initDual
@@ -381,14 +382,11 @@ class ADMMDDStepper:
             c0 = 0.5 * torch.sum(ml * d0 * d0, dim=(1, 2))
             c1 = torch.sum(ml * d0 * p, dim=(1, 2))
             c2 = 0.5 * torch.sum(ml * p * p, dim=(1, 2))
-            aug0 = self._aug_vec(xl_flat, z, u_loc)
-            pa = p.reshape(P, n3)
-            Wa0 = self.w_matvec(wpack[0], wpack[1], aug0)
-            Wpa = self.w_matvec(wpack[0], wpack[1], pa)
-            a0c = 0.5 * torch.sum(aug0 * Wa0, dim=1)
-            a1c = 0.5 * (torch.sum(pa * Wa0, dim=1)
-                         + torch.sum(aug0 * Wpa, dim=1))
-            a2c = 0.5 * torch.sum(pa * Wpa, dim=1)
+            # the W terms: K20's line-search entry, one launch
+            aug0 = self._aug_vec(xl_flat, z, u_loc).reshape(-1)
+            a0c, a1c, a2c = sys.k.w_quad(wpack[0], wpack[1], aug0,
+                                         p.reshape(-1).contiguous(), self.wp,
+                                         P)
 
             def trial_e(alpha):
                 e_el = self._slab_energies(f9, fp9, alpha) * dt_sq

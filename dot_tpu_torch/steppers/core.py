@@ -60,6 +60,7 @@ import numpy as np
 import torch
 
 from .. import partition
+from ..device import resolve_device
 from ..kernels import band, coarse, ops, pd, soa
 
 # Reference constants (dot_tpu/steppers/core.py:112-117)
@@ -262,10 +263,11 @@ class SystemBase:
 
 
 class System(SystemBase):
-    def __init__(self, mesh, cfg, plan, dtype=torch.float32, device="cpu",
+    def __init__(self, mesh, cfg, plan, dtype=torch.float32, device=None,
                  use_kernels=True, apply_dtype=None, factor_dtype=None,
                  use_coarse=None):
-        """`plan`: a SubdomainPlan (partition.build_plan or
+        """`device`: None for the card (raises without one: pass "cpu" to
+        run on the CPU). `plan`: a SubdomainPlan (partition.build_plan or
         build_node_plan), or None for the steppers that need no subdomain
         (LBFGS-PD): the elements are then padded to a multiple of 256 in
         natural order and no subdomain buffer is built. `factor_dtype`:
@@ -284,7 +286,7 @@ class System(SystemBase):
         if apply_dtype is None and self.factor_dtype in low:
             apply_dtype = torch.bfloat16
         self.apply_dtype = apply_dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.use_kernels = use_kernels
         self.k = ops if use_kernels else ops.plain
         self.mat = soa.SOA_MATERIALS[cfg.energy]
@@ -812,7 +814,7 @@ class System(SystemBase):
         diagonal factors (dot_tpu core.py:1219-1261). r is (P, n): one
         launch of K7's solve entry; or (P, n, k) for k right-hand sides at
         once: band.btd_solve_ref's sequence of K15 launches (each block is
-        read once for all k)."""
+        read once for all k; off the paths since pd_solve is one launch)."""
         if r.dim() == 3:
             return band.btd_solve_ref(fac.linv, fac.sub,
                                       r.to(self._solve_dtype),
@@ -1004,16 +1006,18 @@ class System(SystemBase):
 
     def pd_solve(self, L, d, rhs):
         """Dim-separated solves against the fixed PD factor (reference:
-        Optimizer::dimSeparatedSolve, Optimizer.cpp:883-1020): permute and
-        / d (K15's gather), the block-tridiagonal solve with the three
-        coordinates as right-hand sides (K15), / d and un-permute (K15's
-        scatter)."""
+        Optimizer::dimSeparatedSolve, Optimizer.cpp:883-1020). On the band:
+        one launch of K7's solve entry ("pd": the permute and / d, the
+        block-tridiagonal solve with the three coordinates as right-hand
+        sides, / d and the un-permute; bit for bit K15's gather, 4 nb - 2
+        products and scatter), in the solve dtype (the field dtype on every
+        stepper that calls it)."""
         if isinstance(L, BTDFactor):
             bp = self.pd_band_plan
-            rp = self.k.pd_gather(rhs.contiguous(), bp.inv, d[0])
-            z = self._btd_solve(L, rp[None])[0]
-            return self.k.pd_scatter(z.to(self.dtype).contiguous(), bp.perm,
-                                     d[0])
+            sdt = self._solve_dtype
+            z = self._block_solve("pd", [L.linv, L.sub, bp.inv, bp.perm,
+                                         d[0].to(sdt)], rhs)
+            return z.to(self.dtype)
         r = (rhs / d[:, None]).to(self._solve_dtype)
         y = torch.linalg.solve_triangular(L, r, upper=False)
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)

@@ -256,6 +256,42 @@ def test_local_energy_and_gradient_match_dot_tpu(banded):
                                   tsys.vol_w, tsys.mat, odd)
 
 
+@pytest.mark.parametrize("free", ["fixed0", "all_free"])
+def test_w_quad_matches_dot_tpu(banded, free):
+    """K20's line-search entry (w_quad_ref, and ops.w_quad on CPU tensors)
+    against dot_tpu's a0c, a1c, a2c (admm_dd.py:524-529: two W products and
+    four sums) at the same W, masks and vectors, f64 rtol 1e-12; the stepper
+    no longer runs the pair of w_matvec calls."""
+    from dot_tpu_torch.kernels import admm as kadmm
+    _, _, sd, _, jst, tst = banded
+    P, n3 = tst.system.n_parts, tst.system.n3
+    rng = np.random.default_rng(9)
+    fixed = sd.fixed0 if free == "fixed0" else np.zeros_like(sd.fixed0)
+    _, jwv, _, _ = jst.update_weights(jnp.asarray(_moved(sd, 7)),
+                                      jnp.asarray(fixed))
+    jfree3f = jst._free3(jnp.asarray(fixed)).reshape(-1)
+    aug0 = rng.normal(size=(P, n3))
+    pa = 0.1 * rng.normal(size=(P, n3))
+    Wa0 = jst.w_matvec(jwv, jfree3f, jnp.asarray(aug0))
+    Wpa = jst.w_matvec(jwv, jfree3f, jnp.asarray(pa))
+    want = np.stack([
+        np.asarray(0.5 * jnp.sum(aug0 * Wa0, axis=1)),
+        np.asarray(0.5 * (jnp.sum(pa * Wa0, axis=1)
+                          + jnp.sum(aug0 * Wpa, axis=1))),
+        np.asarray(0.5 * jnp.sum(pa * Wpa, axis=1))])
+    wv = torch.as_tensor(np.array(jwv))
+    free3f = tst._free3(torch.as_tensor(fixed)).reshape(-1)
+    args = (wv, free3f, torch.as_tensor(aug0.reshape(-1)),
+            torch.as_tensor(pa.reshape(-1)), tst.wp, P)
+    got = kadmm.w_quad_ref(*args)
+    assert got.shape == (3, P) and np.abs(want).min() > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12)
+    assert torch.equal(ops.w_quad(*args), got)
+    odd = next(k for k in range(2, 64) if (P * n3) % k)
+    with pytest.raises(ValueError, match="parts"):
+        ops.w_quad(*args[:5], odd)
+
+
 def test_local_factor_is_the_exact_scan(banded):
     """The banded local factor is the exact block scan (a BTDFactor in the
     solve dtype), never cyclic reduction, and solve_local takes it."""

@@ -194,3 +194,43 @@ def test_h0_apply_matches_dot_tpu(name):
     jp = np.asarray(jp, np.float64)
     rel = float(np.abs(tp.numpy() - jp).max() / np.abs(jp).max())
     assert rel <= 1e-10
+
+
+def test_three_column_program_matches_dot_tpu():
+    """The "pd" kind with an identity permutation and d = 1 is the
+    3-column block scan: on the P = 1 scan factor of "btd1" its CPU mirror
+    matches dot_tpu's _btd_solve with 3 right-hand sides (f64, 1e-10, as
+    h0_apply), and its product stages are the one-column program's with
+    every vector offset and stride 3x (blocks (n, 3) row-major)."""
+    mesh, cfg, sd, plan, x = _scene("btd1")
+    tsys, tL, _, _ = _port("btd1", torch.float64)
+    jsys = JSystem(mesh, cfg, plan, dtype=jnp.float64)
+    _, jL, _, _ = jsys.rebuild_h0(jnp.asarray(x), jnp.asarray(sd.fixed0))
+    assert isinstance(tL, BTDFactor) and tL.linv.shape[1] == 1
+    nv_p = tL.linv.shape[0] * tL.linv.shape[-1]
+    r = np.random.default_rng(11).normal(size=(1, nv_p, 3))
+    jz = np.asarray(jax.jit(lambda s, L, q: s._btd_solve(L, q))(
+        jsys, jL, jnp.asarray(r)))[0]
+    ident = torch.arange(nv_p)
+    leaves = [tL.linv, tL.sub, ident, ident,
+              torch.ones(nv_p, dtype=torch.float64)]
+    prog = band.solve_program("pd", leaves)
+    got = band.run_solve_program_ref(prog, leaves, torch.as_tensor(r[0]))
+    rel = float(np.abs(got.numpy() - jz).max() / np.abs(jz).max())
+    assert rel <= 1e-10
+    one = band.solve_program("btd", list(tL))
+    prod = prog.stages[np.isin(prog.stages[:, band.F_OP],
+                               (band.OP_A, band.OP_AT))]
+    assert prod.shape == one.stages.shape
+    vec = [band.F_V_OFF, band.F_V_SJ, band.F_V_SP, band.F_C_OFF,
+           band.F_C_SJ, band.F_C_SP, band.F_O_OFF, band.F_O_SJ, band.F_O_SP]
+    same = [f for f in range(band.N_FIELDS) if f not in vec
+            and f not in (band.F_V, band.F_C, band.F_O, band.F_SYNC)]
+    np.testing.assert_array_equal(prod[:, same], one.stages[:, same])
+    # the one-column program reads r and writes z; the pd program keeps
+    # its blocks in the workspace, so only the workspace's places scale
+    ws = one.stages[:, [band.F_V, band.F_C, band.F_O]] == band.BUF_WS
+    for i, f in enumerate((band.F_V, band.F_C, band.F_O)):
+        for g in (f + 2, f + 3):
+            m = ws[:, i]
+            np.testing.assert_array_equal(prod[m, g], 3 * one.stages[m, g])

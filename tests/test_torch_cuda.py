@@ -2,8 +2,9 @@
 the per-element passes, K5-K8 on the H0 rebuild and apply of a
 cyclic-reduction plan, K9 on random histories, K10-K11 on a coarse plan,
 K5's compact entry point and K12 on a forced chunked rebuild, K13-K16 on
-the other steppers' plans, K17-K20 and the per-slab / from-F entry points
-on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
+the other steppers' plans (K15 as one launch of K7's solve entry a
+pd_solve), K17-K20 (K20's line-search entry w_quad) and the per-slab /
+from-F entry points on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
 ADMM-DD entries of K21, K22, K26) against its plain PyTorch
 version on CUDA tensors, K6 at its paths' shapes in one launch a call,
@@ -558,10 +559,13 @@ def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
         n0 = dict(ops.launches)
         s, (stats, sys_e) = st.step(st.init_state())
         if use:
+            # one launch of K7's solve entry a pd_solve (one an iteration):
+            # no K15 product, gather or scatter launch on the path
             assert ops.launches["pd_assemble"] == n0["pd_assemble"] + 1
-            assert ops.launches["block_matvec_k"] > n0["block_matvec_k"]
-            assert ops.launches["pd_gather"] \
-                == n0["pd_gather"] + stats.inner_iters
+            assert ops.launches["block_solve"] \
+                == n0["block_solve"] + stats.inner_iters
+            for k in ("block_matvec_k", "pd_gather", "pd_scatter"):
+                assert ops.launches[k] == n0[k], k
         outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
     assert outs[0][1] == outs[1][1]
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)
@@ -583,6 +587,96 @@ def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
         outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
     assert outs[0][1] == outs[1][1]
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)
+
+
+def _pd_solve_cases(dev, dtype):
+    """(leaves, nV) of K7's "pd" solve: the banded PD factor of the
+    stepper scene (bs_unit 16) and random P = 1 factors at bar17's block
+    width (n 512, nb 5) and at an odd width (n 37, nb 4), each with a
+    random permutation (padding rows) and scale."""
+    from dot_tpu_torch.kernels import pd
+    rng = np.random.default_rng(12)
+    mesh, cfg, sd = _stepper_scene()
+    sysm = System(mesh, cfg, None, dtype=dtype, device=dev)
+    sysm._pd_plan = pd.pd_plan(partition.build_pd_band_plan(
+        sysm._conn_scatter_np, mesh.n_vert, bs_unit=16), dev)
+    bp = sysm.pd_band_plan
+    L, d = sysm.build_pd_factor(torch.as_tensor(sd.fixed0, device=dev))
+    cases = [([L.linv, L.sub, bp.inv, bp.perm, d[0]], mesh.n_vert)]
+    for nb, n, nv in ((5, 512, 2500), (4, 37, 140)):
+        def t(a, dt=dtype):
+            return torch.as_tensor(a, dtype=dt, device=dev)
+        linv = t(np.tril(rng.normal(size=(nb, 1, n, n))) / n ** 0.5
+                 + np.eye(n))
+        sub = t(rng.normal(size=(nb - 1, 1, n, n)) / n)
+        perm = rng.permutation(nb * n)[:nv]
+        inv = np.full(nb * n, -1)
+        inv[perm] = np.arange(nv)
+        cases.append(([linv, sub, t(inv, torch.int64), t(perm, torch.int64),
+                       t(rng.uniform(0.5, 2.0, size=nb * n))], nv))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pd_solve_is_one_launch_bit_for_bit_the_k15_sequence(cuda, dtype):
+    """K7's solve entry with the "pd" kind (System.pd_solve): one launch and
+    one device kernel a call, bit for bit the sequence it replaced (K15's
+    pd_gather, 4 nb - 2 block_matvec_k launches, pd_scatter) at the path's
+    factor and at n 512 and 37, and the plain version within K15's
+    tolerance (f64 1e-12, f32 1e-5 norm-wise)."""
+    from dot_tpu_torch.kernels import band
+    from dot_tpu_torch.profiling import captured_work
+    rng = np.random.default_rng(13)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for leaves, nv in _pd_solve_cases(cuda, dtype):
+        r = torch.as_tensor(rng.normal(size=(nv, 3)), dtype=dtype,
+                            device=cuda)
+        prog = band.solve_program("pd", leaves)
+        n0 = dict(ops.launches)
+        z = ops.block_solve(prog, leaves, r)
+        assert ops.launches["block_solve"] == n0["block_solve"] + 1
+        for k in ("block_matvec_k", "pd_gather", "pd_scatter"):
+            assert ops.launches[k] == n0[k], k
+        seq = band.block_solve_ref(prog, leaves, r, ops.block_matvec_k,
+                                   ops.pd_gather, ops.pd_scatter)
+        assert torch.isfinite(z).all() and torch.equal(z, seq)
+        assert _rel(z, band.block_solve_ref(prog, leaves, r)) <= tol
+        k = captured_work(lambda: ops.block_solve(prog, leaves, r))
+        assert sum(k.values()) == 1 and "solve_kernel" in next(iter(k)), k
+        assert torch.equal(ops.block_solve(prog, leaves, r), z)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_w_quad_matches_plain_and_repeats_bit_for_bit(cuda, dtype):
+    """K20's line-search entry against w_quad_ref (f64 1e-12, f32 1e-5 on
+    the largest coefficient), the same bits in two runs, one device kernel
+    a call, and with fixed rows and an all-free mask."""
+    from dot_tpu_torch.kernels import admm as kadmm
+    from dot_tpu_torch.profiling import captured_work
+    from dot_tpu_torch.steppers import ADMMDDStepper
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    rng = np.random.default_rng(14)
+    mesh, cfg, sd, plan, ap = _admm_dd_scene()
+    sysm = System(mesh, cfg, plan, dtype=dtype, device=cuda)
+    dd = ADMMDDStepper(sysm, sd, ap)
+    P = sysm.n_parts
+    x = torch.as_tensor(sd.x0 + 0.02 * rng.normal(size=sd.x0.shape),
+                        dtype=dtype, device=cuda)
+    for fixed in (sd.fixed0, np.zeros_like(sd.fixed0)):
+        fx = torch.as_tensor(fixed, device=cuda)
+        _, wv, _, _ = dd.update_weights(x, fx)
+        free3f = dd._free3(fx).reshape(-1).contiguous()
+        aug0, pa = torch.as_tensor(rng.normal(size=(2, free3f.shape[0])),
+                                   dtype=dtype, device=cuda)
+        args = (wv, free3f, aug0, pa, dd.wp, P)
+        n0 = ops.launches["w_quad"]
+        got = ops.w_quad(*args)
+        assert ops.launches["w_quad"] == n0 + 1 and got.shape == (3, P)
+        want = kadmm.w_quad_ref(*args)
+        assert _rel_max(got, want) <= tol
+        assert torch.equal(ops.w_quad(*args), got)
+        k = captured_work(lambda: ops.w_quad(*args))
+        assert sum(k.values()) == 1 and "w_quad_kernel" in next(iter(k)), k
 
 
 # ----------------------------------------------------------------------
@@ -729,6 +823,10 @@ def test_admm_pd_step_on_card_matches_cpu(cuda):
                 == n0["admm_local_step"] + sum(its)
             assert ops.launches["dtw_scatter"] \
                 == n0["dtw_scatter"] + sum(its) + 2
+            # pd_solve: one launch of K7's solve entry an iteration
+            assert ops.launches["block_solve"] \
+                == n0["block_solve"] + sum(its)
+            assert ops.launches["block_matvec_k"] == n0["block_matvec_k"]
         out.append((s.x.cpu().numpy(), its, e))
     assert out[0][1] == out[1][1]
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8, atol=1e-11)
@@ -753,6 +851,10 @@ def test_admm_dd_step_on_card_matches_cpu(cuda):
             for k in ("own_band_assemble", "w_matvec",
                       "ls_trial_energy_parts", "elem_gradient_from_F"):
                 assert ops.launches[k] > n0[k], k
+            # K20: the gradient's and the consensus' w_matvec and one
+            # w_quad an iteration (plus initDual's gradient and CG)
+            assert ops.launches["w_quad"] == n0["w_quad"] \
+                + stats.inner_iters
         out.append((s.x.cpu().numpy(), stats.inner_iters, e))
     assert out[0][1] == out[1][1]
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-7, atol=1e-10)

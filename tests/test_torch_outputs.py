@@ -155,6 +155,35 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(tmp_path, monkeypatch):
               "--output-root", out])
 
 
+@pytest.mark.parametrize("dim", [3, 2])
+def test_bare_system_needs_a_card(monkeypatch, dim):
+    """System and System2D, the counterparts of dot_tpu's, run on the card
+    by default: without a CUDA device a bare construction raises the
+    "no CUDA device" error and does not fall back to the CPU; device="cpu"
+    builds on the CPU."""
+    from dot_tpu_torch import dim2
+    from dot_tpu_torch.steppers import System
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if dim == 3:
+        mesh = bar_mesh(4, 2, 2)
+        cfg = Config(energy="FCR", dt=0.025, rho=1000.0, ym=1e5, pr=0.4,
+                     script="twist", handle_ratio=0.1)
+        mesh.set_lame(cfg.ym, cfg.pr)
+
+        def build(**kw):
+            return System(mesh, cfg, None, **kw)
+    else:
+        cfg = Config(energy="FCR", dt=0.025, rho=1000.0, ym=1e5, pr=0.4,
+                     script="stretch", shape="square", resolution=50)
+        mesh = dim2.Mesh2D.from_config(cfg)
+
+        def build(**kw):
+            return dim2.System2D(mesh, cfg, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build()
+    assert build(device="cpu").device.type == "cpu"
+
+
 LS_FAILED = "\tline search with Armijo's rule failed!!!"
 
 

@@ -22,7 +22,7 @@ from dot_tpu.mesh_gen import bar_mesh
 from dot_tpu.steppers import System as JSystem
 from dot_tpu.steppers.core import BTDFactor as JBTD
 from dot_tpu_torch import convert
-from dot_tpu_torch.kernels import pd
+from dot_tpu_torch.kernels import band, ops, pd
 from dot_tpu_torch.steppers.core import BTDFactor
 
 _CACHE = {}
@@ -180,3 +180,92 @@ def test_three_column_solve_equals_three_one_column_solves():
         zj = tsys._btd_solve(L, r[..., j].contiguous())
         np.testing.assert_allclose(z3[..., j].numpy(), zj.numpy(),
                                    rtol=1e-12, atol=1e-14)
+
+
+def _pd_factor(dtype):
+    """(port System in `dtype` on the banded scene's 16-wide plan, its PD
+    factor L, d) at a changed Dirichlet set."""
+    jsys, tsys, sd = _scene("banded")
+    if dtype != torch.float64:
+        mesh, cfg = tsys.mesh, tsys.cfg
+        tsys = convert.system_from_plan(mesh, cfg, None, dtype=dtype)
+        tsys._pd_plan = pd.pd_plan(jsys.pd_band_plan, "cpu")
+    L, d = tsys.build_pd_factor(_t(_fixed(sd, True)))
+    assert isinstance(L, BTDFactor) and L.linv.dtype == dtype
+    return tsys, L, d
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_pd_program_is_the_k15_sequence(dtype):
+    """K7's solve entry with the "pd" kind (pd_solve in one launch on the
+    card): its CPU mirror walking the stage table equals pd_gather ->
+    btd_solve_ref with block_matvec_k_ref (the 4 nb - 2 K15 products) ->
+    pd_scatter bit for bit, and so do ops.block_solve (the plain version on
+    the CPU) and System.pd_solve; the stages are the gather, the products
+    one for one on (n, 3) blocks, the scatter."""
+    tsys, L, d = _pd_factor(dtype)
+    bp = tsys.pd_band_plan
+    rhs = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(tsys.n_vert, 3)), dtype=dtype)
+    leaves = [L.linv, L.sub, bp.inv, bp.perm, d[0]]
+    prog = band.solve_program("pd", leaves)
+    calls = []
+
+    def mv(A, *a, **k):
+        calls.append(A.shape)
+        return pd.block_matvec_k_ref(A, *a, **k)
+    rp = pd.pd_gather_ref(rhs, bp.inv, d[0])
+    z = band.btd_solve_ref(L.linv, L.sub, rp[None], mv)[0]
+    want = pd.pd_scatter_ref(z, bp.perm, d[0])
+    nb, n = bp.nb, bp.bs
+    assert len(calls) == 4 * nb - 2 and torch.isfinite(want).all()
+    assert (prog.kind, prog.k, prog.shape, prog.P, prog.nb, prog.n) == (
+        "pd", 3, (tsys.n_vert, 3), 1, nb, n)
+    assert torch.equal(band.run_solve_program_ref(prog, leaves, rhs), want)
+    assert torch.equal(band.block_solve_ref(prog, leaves, rhs), want)
+    assert torch.equal(ops.block_solve(prog, leaves, rhs), want)
+    tsys._solve_progs.clear()
+    assert torch.equal(tsys.pd_solve(L, d, rhs), want)
+    assert [k[0] for k in tsys._solve_progs] == ["pd"]
+    st = prog.stages
+    op = st[:, band.F_OP]
+    assert op[0] == band.OP_GATHER and op[-1] == band.OP_SCATTER
+    assert int(np.isin(op, (band.OP_A, band.OP_AT)).sum()) == 4 * nb - 2
+    assert st[0, band.F_SYNC] == 0 and st[1:, band.F_SYNC].all()
+    # the inverse factor's stages read its lower triangle only
+    assert sorted(set(st[st[:, band.F_LOWER] == 1, band.F_A])) == [0]
+    assert torch.equal(L.linv, torch.tril(L.linv))
+    # items: a row a warp on op = A (8 rows an item), 32 columns on A^T
+    assert prog.max_items == -(-n // band.rows_per_item(3))
+    nbytes, flops = band.solve_cost(prog, leaves, rhs)
+    tri = n * (n + 1) // 2
+    assert flops == 2 * 3 * ((2 * nb) * tri + (2 * nb - 2) * n * n) \
+        + 3 * (bp.nv_p + tsys.n_vert)
+    sz = L.linv.element_size()
+    assert nbytes == 2 * rhs.numel() * rhs.element_size() + sz * (
+        nb * tri + (nb - 1) * n * n) + 8 * (bp.nv_p + tsys.n_vert) \
+        + bp.nv_p * d.element_size()
+
+
+def test_pd_program_refuses_other_tables():
+    """The "pd" kind takes a P = 1 factor and the plan's int64 tables; a
+    call with other leaves or another right-hand side shape raises."""
+    tsys, L, d = _pd_factor(torch.float64)
+    bp = tsys.pd_band_plan
+    leaves = [L.linv, L.sub, bp.inv, bp.perm, d[0]]
+    with pytest.raises(ValueError, match="inv"):
+        band.solve_program("pd", [L.linv, L.sub, bp.inv[:-1], bp.perm, d[0]])
+    with pytest.raises(ValueError, match="perm"):
+        band.solve_program("pd", [L.linv, L.sub, bp.inv,
+                                  bp.perm.to(torch.int32), d[0]])
+    with pytest.raises(ValueError, match="P = 1"):
+        band.solve_program("pd", [L.linv.expand(-1, 2, -1, -1), L.sub,
+                                  bp.inv, bp.perm, d[0]])
+    prog = band.solve_program("pd", leaves)
+    rhs = torch.zeros((tsys.n_vert, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="leaves"):
+        ops.block_solve(prog, [L.linv, L.sub, bp.inv, bp.perm.clone(), d[0]],
+                        rhs)
+    with pytest.raises(ValueError, match="shape"):
+        ops.block_solve(prog, leaves, rhs[:-1].contiguous())

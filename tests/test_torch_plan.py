@@ -88,7 +88,8 @@ mesh.find_border_verts(cfg.handle_ratio)
 sd = scripts.init_script(mesh, "twist")
 mesh.fixed_mask = sd.fixed0.copy()
 plan = partition.build_plan(mesh, 2, pad_elem_to=16, pad_n3_to=48)
-st = DOTStepper(System(mesh, cfg, plan, dtype=torch.float64), sd)
+st = DOTStepper(System(mesh, cfg, plan, dtype=torch.float64, device="cpu"),
+                sd)
 s, (stats, e) = st.step(st.init_state())
 assert np.isfinite(e) and stats.inner_iters > 0
 bad = sorted(m for m in sys.modules

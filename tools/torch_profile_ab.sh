@@ -31,7 +31,7 @@ run() {  # scene tag tree frames
   (cd "$3" && python3 -m dot_tpu_torch.profiling "${sarg[@]}" \
       --frames "$4" --out "$traces/$1_$2") > "$out/$1_$2.log" 2>&1
   echo "== $1 $2 (rc $?)"
-  grep -E "unwrapped|idle share|launches per frame|iterations|^  (lbfgs|elem_gradient|chol_inv|block_|h0_apply|rebuild_h0|gradient|line_search|local_|solve_local|pd_solve|admm_local_step|dtw_scatter|w_matvec)" \
+  grep -E "unwrapped|idle share|launches per frame|iterations|^  (lbfgs|elem_gradient|chol_inv|block_|h0_apply|rebuild_h0|gradient|line_search|local_|solve_local|pd_solve|admm_local_step|dtw_scatter|w_matvec|w_quad)" \
       "$out/$1_$2.log"
 }
 
