@@ -1097,11 +1097,31 @@ def phase_h0_kernels(torch, record):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def wrap_timed(obj, name, acc, module=None, label=None):
+    """Replace obj.name (or module.name) by a synchronised, timed call
+    accumulating seconds into acc[label or name]; returns the original.
+    The kernel-table splits below wrap System methods and torch.linalg
+    calls with it (the syncs perturb the total a little)."""
+    import torch
+    owner = module if module is not None else obj
+    fn = getattr(owner, name)
+    label = label or name
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn(*a, **k)
+        torch.cuda.synchronize()
+        acc[label] += time.perf_counter() - t0
+        return r
+    setattr(owner, name, timed)
+    return fn
+
+
 def _h0_split(sim, frames, names=("rebuild_h0", "h0_apply")):
     """ms/frame of each System method in `names` over `frames` more frames,
     each call wrapped in synchronised host timers."""
     import collections
-    from dot_tpu_torch.profiling import wrap_timed
     acc = collections.Counter()
     for name in names:
         wrap_timed(sim.system, name, acc)
@@ -2500,7 +2520,6 @@ def _dim2_split(sim, frames):
     line-search trials (K21) and the gradient (K22)."""
     import collections
     import torch
-    from dot_tpu_torch.profiling import wrap_timed
     acc = collections.Counter()
     sysm = sim.system
     names = ("factorize", "solve", "elastic_energy", "gradient")
@@ -2999,7 +3018,6 @@ def _dd2d_split(sim, frames):
     solves), K25, the line-search trials (K21) and the gradient (K22)."""
     import collections
     import torch
-    from dot_tpu_torch.profiling import wrap_timed
     acc = collections.Counter()
     sysm = sim.system
     names = ("rebuild_h0", "element_hessians", "assemble_subdomains",
@@ -3491,7 +3509,6 @@ def _admm2d_split(sim, tag):
     library triangular solve and Cholesky, the global K22 and K21."""
     import collections
     import torch
-    from dot_tpu_torch.profiling import wrap_timed
     acc = collections.Counter()
     sysm, st = sim.system, sim.stepper
     if tag == "ADMM":

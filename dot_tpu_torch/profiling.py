@@ -17,21 +17,13 @@ with `warmStart 5`, `Newton`, `LBFGSH`, `LBFGSJH 6`, `ADMM` (ADMM-PD) and
 profile them with `--frames 1 --no-trace`, which skips the chrome trace).
 It runs one warm-up frame, then
 1. times `--frames` frames as they run, then `--frames` more with the
-   H0 rebuild (and inside it the element Hessians, the coarse factor, the
-   assembly and the factorization, or on the chunked path the compact,
-   the K12 scatter and the scan), the H0 apply (and inside it the coarse
-   apply), the line search, the quadratic form and the gradient, and the
-   other steppers' spans (`pd_factor` = build_pd_factor, `pd_solve`,
-   `gsdd_sweep` = GSDDStepper.sweep, `newton_factor` =
-   NewtonStepper.factor, `hessian_diag`; ADMM-PD's `local_step`, ADMM-DD's
-   `local_factor`, `local_gradient`, `init_dual`, `update_weights` and
-   `solve_local`) wrapped in synchronised host timers (the syncs perturb the total a little;
-   the split is what this reads);
+   program's spans on (dot_tpu_torch.tracing: no synchronisation) and
+   prints their tree: per span, host ms a frame in it and in none of its
+   children, calls a frame, and the time blocked in host reads;
 2. profiles `--frames` more frames with torch.profiler and prints the
    device time by kernel name, the device time and launches per frame of
    each hand-written kernel (K1-K20, with the wrappers' launch counts),
-   the device busy time per frame and the idle share (1 - busy /
-   unwrapped frame time), and writes the chrome trace under --out.
+   and writes the chrome trace under --out.
 Needs a CUDA device.
 """
 
@@ -49,11 +41,11 @@ import time
 import torch
 
 from . import io as meshio
+from . import tracing
 from .config import Config
 from .mesh_gen import bar_mesh
 from .kernels import ops
 from .sim import Simulator
-from .steppers import gsdd, newton, quasi_newton
 
 # device-kernel name fragments of each wrapper's kernel (the second passes
 # of K1 and K4, which sum block partials, are left out)
@@ -95,27 +87,6 @@ KERNEL_NAMES = {
     # K24's assembly is K26's one-pass kernel (no 2D scene here)
     "dense_assemble2d": ("dotdd::assemble_kernel",),
 }
-# spans inside rebuild_h0 and h0_apply (timed, not subtracted from the
-# host rest): the unchunked path assembles and factorizes, the chunked one
-# builds the compact, scatters it (K12) and scans
-REBUILD_SPANS = ("element_hessians", "_coarse_factor", "assemble_subdomains",
-                 "factorize", "_band_compact", "_equil_scatter",
-                 "_btd_scan_equilibrated")
-APPLY_SPANS = ("_coarse_apply",)
-# spans of the other steppers: System methods, and (name, method) of the
-# stepper object
-SYSTEM_SPANS = {"pd_factor": "build_pd_factor", "pd_solve": "pd_solve",
-                "hessian_diag": "hessian_diag",
-                "subdomain_solve": "subdomain_solve"}
-STEPPER_SPANS = {"gsdd_sweep": "sweep", "newton_factor": "factor",
-                 "local_step": "_local_step",
-                 "local_factor": "_local_h_factor",
-                 "local_gradient": "_local_gradient",
-                 "init_dual": "_init_dual",
-                 "update_weights": "update_weights"}
-# ADMM-DD's local solves run outside any other span (h0_apply holds the
-# quasi-Newton steppers')
-ADMM_DD_SYSTEM_SPANS = {"solve_local": "solve_local"}
 _B17 = (56, 16, 16)
 # scene -> (cells, timeStepper line, warmStart)
 SCENES = {"bar17": (_B17, "DOT 6", 2),
@@ -138,24 +109,6 @@ stiffness 100000 0.4
 script twist
 shape input {mesh}
 """
-
-
-def wrap_timed(obj, name, acc, module=None, label=None):
-    """Replace obj.name by a synchronised, timed call accumulating into
-    acc[label or name]."""
-    owner = module if module is not None else obj
-    fn = getattr(owner, name)
-    label = label or name
-
-    def timed(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn(*a, **k)
-        torch.cuda.synchronize()
-        acc[label] += time.perf_counter() - t0
-        return r
-    setattr(owner, name, timed)
-    return fn
 
 
 def device_kernels(fn, tries=3):
@@ -255,8 +208,47 @@ def captured_work(fn):
     return work
 
 
+def span_tree(recs, frames):
+    """Lines of the span tree of `recs` (tracing.records()): per path of
+    span names, host ms a frame in the span and in none of its children,
+    calls a frame, and the ms a frame blocked in host reads (host_read's
+    wait). Children follow their parent, costliest first."""
+    by_id = {r["id"]: r for r in recs}
+    paths = {}
+
+    def path(r):
+        p = paths.get(r["id"])
+        if p is None:
+            up = by_id.get(r["parent"])
+            p = paths[r["id"]] = (path(up) if up else ()) + (r["name"],)
+        return p
+    total, own = collections.Counter(), collections.Counter()
+    calls, wait = collections.Counter(), collections.Counter()
+    for r in recs:
+        p, d = path(r), r["end_ns"] - r["start_ns"]
+        total[p] += d
+        own[p] += d
+        calls[p] += 1
+        wait[p] += r["wait_ns"]
+        if len(p) > 1:
+            own[p[:-1]] -= d
+    f = 1e6 * frames
+    lines = []
+
+    def walk(parent):
+        kids = [p for p in total if p[:-1] == parent]
+        for p in sorted(kids, key=lambda p: -total[p]):
+            w = f", wait {wait[p] / f:.3f}" if wait[p] else ""
+            lines.append(f"  {'  ' * (len(p) - 1)}{p[-1]:{26 - 2 * len(p)}s}"
+                         f" {total[p] / f:9.3f} ms {own[p] / f:9.3f} self "
+                         f"{calls[p] / frames:8.2f} calls{w}")
+            walk(p)
+    walk(())
+    return lines
+
+
 def profile_frames(sim, frames, out, trace=True):
-    """Print the timed split and the device profile of `frames` frames
+    """Print the span split and the device profile of `frames` frames
     (three passes) of a warmed-up CUDA Simulator; write the trace to
     out/frame_trace.json unless `trace` is False."""
     n0 = len(sim.frames)
@@ -264,65 +256,22 @@ def profile_frames(sim, frames, out, trace=True):
     spf = sum(r["seconds"] for r in sim.frames[n0:]) / frames
     print(f"unwrapped: {spf * 1e3:.2f} ms/frame over {frames} frames")
 
-    acc = collections.Counter()
-    sysm = sim.system
-    names = ("rebuild_h0", "h0_apply", "gradient", "quadratic_form") \
-        + REBUILD_SPANS + APPLY_SPANS
-    for name in names:
-        wrap_timed(sysm, name, acc)
-    sys_spans = dict(SYSTEM_SPANS)
-    if hasattr(sim.stepper, "_local_h_factor"):
-        sys_spans.update(ADMM_DD_SYSTEM_SPANS)
-    for label, name in sys_spans.items():
-        wrap_timed(sysm, name, acc, label=label)
-    spans = {label: name for label, name in STEPPER_SPANS.items()
-             if hasattr(sim.stepper, name)}
-    for label, name in spans.items():
-        wrap_timed(sim.stepper, name, acc, label=label)
-    # every module that took line_search by name
-    mods = (quasi_newton, gsdd, newton)
-    line_search = wrap_timed(None, "line_search", acc, module=quasi_newton)
-    for m in mods[1:]:
-        m.line_search = quasi_newton.line_search
     n0 = len(sim.frames)
+    tracing.reset()
+    tracing.enable()
     t0 = time.perf_counter()
     try:
         sim.run(frames)
     finally:
-        for name in names + tuple(sys_spans.values()):
-            delattr(sysm, name)
-        for name in spans.values():
-            delattr(sim.stepper, name)
-        for m in mods:
-            m.line_search = line_search
+        tracing.disable()
     wall = time.perf_counter() - t0
     iters = sum(r["iters"] for r in sim.frames[n0:])
-    print(f"timed split over {frames} frames ({iters} iterations), "
-          f"wall {wall / frames * 1e3:.2f} ms/frame:")
-    # spans that run inside another span: timed, not subtracted again
-    inner = {"rebuild_h0": REBUILD_SPANS, "h0_apply": APPLY_SPANS,
-             "gsdd_sweep": ("subdomain_solve", "line_search", "gradient"),
-             "newton_factor": ("element_hessians", "assemble_subdomains",
-                               "factorize"),
-             "local_factor": ("factorize",)}
-    nested = REBUILD_SPANS + APPLY_SPANS + ("subdomain_solve",)
-    if "gsdd_sweep" in spans:       # the sweep holds its line searches
-        nested += ("line_search", "gradient")
-    if "newton_factor" in spans:    # Newton's factor holds these
-        nested += ("element_hessians", "assemble_subdomains", "factorize")
-    if "local_factor" in spans:     # ADMM-DD: the local factor holds this
-        nested += ("factorize",)
-    for k, v in acc.most_common():
-        if k in nested:
-            continue
-        print(f"  {k:20s} {v / frames * 1e3:9.2f} ms/frame "
-              f"({100 * v / wall:5.1f}%)")
-        for j in inner.get(k, ()):
-            if j in acc:
-                print(f"    {j:22s} {acc[j] / frames * 1e3:9.2f} ms/frame")
-    outer = sum(v for k, v in acc.items() if k not in nested)
-    print(f"  {'rest (host)':20s} {(wall - outer) / frames * 1e3:9.2f} "
-          f"ms/frame")
+    print(f"span split over {frames} frames ({iters} iterations), wall "
+          f"{wall / frames * 1e3:.2f} ms/frame (host time: total, self, "
+          f"calls a frame):")
+    for line in span_tree(tracing.records(), frames):
+        print(line)
+    tracing.reset()
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -338,11 +287,8 @@ def profile_frames(sim, frames, out, trace=True):
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_pf = sum(e.self_device_time_total for e in kernels) / 1e6 / frames
-    # the profiler's own host cost inflates the profiled wall, so the idle
-    # share is taken against the unwrapped frame time
     print(f"profile over {frames} frames (profiled wall {wall:.3f} s): "
-          f"device kernel time {dev_pf * 1e3:.2f} ms/frame, idle share "
-          f"{1 - dev_pf / spf:.3f} of the unwrapped {spf * 1e3:.2f} ms/frame")
+          f"device kernel time {dev_pf * 1e3:.2f} ms/frame")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
         print(f"  {e.self_device_time_total / 1e3 / frames:9.3f} "
               f"ms/frame {e.count / frames:8.1f} launches/frame  "

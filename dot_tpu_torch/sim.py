@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import io as meshio
-from . import partition, scripts
+from . import partition, scripts, tracing
 from .device import resolve_device
 from .config import Config
 from .mesh import Mesh
@@ -243,21 +243,22 @@ class Simulator:
                                                       self.frame_amt - self.frame)
         t_begin = time.perf_counter()
         for _ in range(n):
-            if self.frame % self.save_every == 0:
-                self.timer.start("save")
-                self.save_status()
+            with tracing.span("frame"):
+                if self.frame % self.save_every == 0:
+                    self.timer.start("save")
+                    self.save_status()
+                    self.timer.stop()
+                self.timer.start("step")
+                self._sync()
+                t0 = time.perf_counter()
+                rel = self._rel_tol(self.frame)
+                tol = self.system.target_g_res(rel)
+                self.state, (stats, sys_e) = self.stepper.step(self.state, rel)
+                self._sync()
+                sec = time.perf_counter() - t0
                 self.timer.stop()
-            self.timer.start("step")
-            self._sync()
-            t0 = time.perf_counter()
-            rel = self._rel_tol(self.frame)
-            tol = self.system.target_g_res(rel)
-            self.state, (stats, sys_e) = self.stepper.step(self.state, rel)
-            self._sync()
-            sec = time.perf_counter() - t0
-            self.timer.stop()
-            self._record(self.frame, stats, sys_e, tol, sec)
-            self.frame += 1
+                self._record(self.frame, stats, sys_e, tol, sec)
+                self.frame += 1
         wall = time.perf_counter() - t_begin
         if not self.mute:
             print(f"ran {n} frames on {self.device} in {wall:.3f}s "

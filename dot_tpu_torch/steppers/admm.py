@@ -28,6 +28,7 @@ import dataclasses
 
 import torch
 
+from .. import tracing
 from ..kernels.admm import bulk_modulus
 from ..scripts import make_step_fn
 from .quasi_newton import _vdot, finish_step, push_row
@@ -67,6 +68,7 @@ class ADMMPDStepper:
         """The prefactored global matrix M + D^T W D."""
         return self.system.build_pd_factor(fixed, self.w_e)
 
+    @tracing.span("local_step")
     def _local_step(self, f9, u9):
         """(z, du), each (9, nEp), from Dx and the dual u (K17)."""
         sys = self.system
@@ -84,6 +86,7 @@ class ADMMPDStepper:
         F(x) with the + mass x epilogue."""
         return self._scatter(self.system.defgrad(x), x, mass=self.system.mass)
 
+    @tracing.span("step")
     def step(self, state, rel_tol=1.0e-5):
         """One full time step. Updates `state` in place and returns
         (state, (StepStats, sysE))."""

@@ -46,6 +46,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import admm as kadmm
 from ..scripts import make_step_fn
 from .quasi_newton import _vdot, finish_step, push_row
@@ -125,6 +126,7 @@ class ADMMDDStepper:
     # ------------------------------------------------------------------
     # weights + consensus (reference: initWeights_fast + consensus solver)
     # ------------------------------------------------------------------
+    @tracing.span("update_weights")
     def update_weights(self, x, fixed):
         """(elem_h, w_vals, Lc, d): the element Hessians at x, the compact
         interface weights W and the factorized, Jacobi-equilibrated
@@ -235,6 +237,7 @@ class ADMMDDStepper:
         Wa = self.w_matvec(wpack[0], wpack[1], aug)
         return e_el + e_in + 0.5 * torch.sum(aug * Wa, dim=1)
 
+    @tracing.span("local_gradient")
     def _local_gradient(self, xl_flat, xhat_flat, z, u_loc, wpack, fixed, f9):
         """(P, Nmax, 3) gradient of the augmented local energies; the
         element part from the carried local deformation gradients f9."""
@@ -256,6 +259,7 @@ class ADMMDDStepper:
                           torch.zeros((1, 3), dtype=sys.dtype,
                                       device=sys.device)])
 
+    @tracing.span("local_factor")
     def _local_h_factor(self, xl_flat, wpack, fixed):
         """(L, d): the exact factor of the augmented local Hessian = own
         elements' elasticity at the local positions + local mass + W,
@@ -276,6 +280,7 @@ class ADMMDDStepper:
         return sys.factorize(self.w_add_dense(Hd, wpack[0], wpack[1]))
 
     # ------------------------------------------------------------------
+    @tracing.span("init_dual")
     def _init_dual(self, g, g_loc, wpack, fixed):
         """u = W^{-1} (g_global - g_local) on the interface dofs: CG on the
         compact operator W + I off the dual dofs (the reference
@@ -311,6 +316,7 @@ class ADMMDDStepper:
             it += 1
         return xk.reshape(P, nmax, 3) * dual3.reshape(P, nmax, 3)
 
+    @tracing.span("step")
     def step(self, state, rel_tol=1.0e-5):
         """One full time step. Updates `state` in place and returns
         (state, (StepStats, sysE))."""
@@ -370,7 +376,8 @@ class ADMMDDStepper:
             gl = self._local_gradient(xl_flat, xhat_flat, z, u_loc, wpack,
                                       fixed, f9)
             r = -gl.reshape(P, n3) / d
-            zz = sys.solve_local(L, r)      # dense or block-tridiagonal
+            with tracing.span("solve_local"):
+                zz = sys.solve_local(L, r)      # dense or block-tridiagonal
             p = (zz.to(sys.dtype) / d).reshape(P, nmax, 3) * free3l
 
             # linearized local line search: F(xl + a p) = F(xl) + a F(p);

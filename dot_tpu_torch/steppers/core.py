@@ -54,12 +54,13 @@ factorizes in f32.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .. import partition
+from .. import partition, tracing
 from ..device import resolve_device
 from ..kernels import band, coarse, ops, pd, soa
 
@@ -187,10 +188,16 @@ class SystemBase:
         return Hn.to(self.factor_dtype)
 
     def host(self, *vals):
-        """One device -> host read of 0-d tensors (counted in n_syncs)."""
+        """One device -> host read of 0-d tensors (counted in n_syncs; a
+        `host_read` span whose wait_ns is the time blocked in the read)."""
         self.n_syncs += 1
-        return torch.stack([v.reshape(()).to(torch.float64)
-                            for v in vals]).tolist()
+        with tracing.span("host_read") as rec:
+            t = torch.stack([v.reshape(()).to(torch.float64) for v in vals])
+            t0 = time.perf_counter_ns()
+            out = t.tolist()
+            if rec is not None:
+                rec["wait_ns"] = time.perf_counter_ns() - t0
+        return out
 
     def scalar(self, v):
         return torch.tensor(v, dtype=self.dtype, device=self.device)
@@ -476,6 +483,7 @@ class System(SystemBase):
                                       self.vol_w, self.mat, want_sigma=True)
         return s
 
+    @tracing.span("gradient")
     def gradient(self, x, x_tilta, fixed):
         """(nV, 3), zero at fixed vertices (Optimizer.cpp:1220-1256)."""
         acc = self.k.elem_gradient(x, self.conn, self.conn_s, self.g9,
@@ -484,6 +492,7 @@ class System(SystemBase):
         g = g + self.mass[:, None] * (x - x_tilta)
         return torch.where(fixed[:, None], 0.0, g)
 
+    @tracing.span("element_hessians")
     def element_hessians(self, x):
         """(144, nEp) SPD-projected element Hessians at x, dt^2-scaled,
         block-major component order (soa.block_major_order)."""
@@ -515,6 +524,7 @@ class System(SystemBase):
         return torch.logical_and(self.local_valid,
                                  torch.logical_not(fixed[self.l2g]))
 
+    @tracing.span("assemble")
     def assemble_subdomains(self, elem_h, fixed):
         """Subdomain Hessians with interface completion, lumped mass on
         free dofs, identity rows for fixed/padding (reference:
@@ -588,6 +598,7 @@ class System(SystemBase):
     # ------------------------------------------------------------------
     # factorization
     # ------------------------------------------------------------------
+    @tracing.span("h0_factor")
     def factorize(self, Hd, fast=False):
         """Jacobi-equilibrated Cholesky. Returns (L, d); L is a BTDFactor
         or CRFactor for banded input.
@@ -794,6 +805,7 @@ class System(SystemBase):
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)
         return z[..., 0]
 
+    @tracing.span("block_solve")
     def _block_solve(self, kind, leaves, r):
         """One solve against factor leaves (band.solve_program's kinds) as
         K7's solve entry: one launch. The program is built once per factor
@@ -821,6 +833,7 @@ class System(SystemBase):
                                       self.k.block_matvec_k)
         return self._block_solve("btd", list(fac), r)
 
+    @tracing.span("h0_apply")
     def h0_apply(self, L, d, rhs, kc=None, fixed=None):
         """Per-subdomain backsolve + duplicate averaging (reference:
         DOTTimeStepper::solve_oneStep, DOTTimeStepper.cpp:406-450): K8's
@@ -836,6 +849,7 @@ class System(SystemBase):
             return fine
         return self._coarse_apply(kc, rhs, fixed, fine)
 
+    @tracing.span("rebuild_h0")
     def rebuild_h0(self, x, fixed):
         """Element Hessians at x, the coarse factor (or None), and the fine
         factor: the chunked rebuild when `_chunk` is set, else assemble +
@@ -866,6 +880,7 @@ class System(SystemBase):
         dc = torch.sqrt(torch.maximum(diag, 1e-12 * torch.max(diag)))
         return (K / dc[:, None] / dc[None, :]).to(self._solve_dtype), dc
 
+    @tracing.span("coarse_factor")
     def _coarse_factor(self, elem_h, fixed):
         """The coarse matrix (`_coarse_matrix`) factored with a 1e-4 shift
         by K6 (a failed factor is redone with a 0.05 shift: dot_tpu's NaN
@@ -917,15 +932,17 @@ class System(SystemBase):
         the bf16-SYRK scan, then an exact scan on the same band, then a
         1e-4 shift (one host read each). Returns (BTDFactor, d)."""
         P, bs, nb = self.n_parts, self.band_bs, self.band_nb
-        flat, d = self._equil_scatter(self._band_compact(elem_h, fixed))
+        with tracing.span("assemble"):
+            flat, d = self._equil_scatter(self._band_compact(elem_h, fixed))
         diag_sz = P * nb * bs * bs
         dg = flat[:diag_sz].view(nb, P, bs, bs)
         sb = flat[diag_sz:].view(nb - 1, P, bs, bs)
-        fac = self._btd_scan_equilibrated(dg, sb, 0.0, True)
-        if self.host(_any_nan(fac))[0]:
-            fac = self._btd_scan_equilibrated(dg, sb, 0.0, False)
+        with tracing.span("h0_factor"):
+            fac = self._btd_scan_equilibrated(dg, sb, 0.0, True)
             if self.host(_any_nan(fac))[0]:
-                fac = self._btd_scan_equilibrated(dg, sb, 1.0e-4, False)
+                fac = self._btd_scan_equilibrated(dg, sb, 0.0, False)
+                if self.host(_any_nan(fac))[0]:
+                    fac = self._btd_scan_equilibrated(dg, sb, 1.0e-4, False)
         return fac, d
 
     # ------------------------------------------------------------------
@@ -940,6 +957,7 @@ class System(SystemBase):
         d = -g / self.hessian_diag(self.element_hessians(x))
         return x + torch.where(fixed[:, None], 0.0, d)
 
+    @tracing.span("hessian_diag")
     def hessian_diag(self, elem_h):
         """(nV, 3) diagonal of mass + dt^2-weighted elastic Hessian (the
         computePrecondMtr diagonal read by warmStart 5): K13 over each
@@ -969,6 +987,7 @@ class System(SystemBase):
         return self.vol_w * (2.0 * self.u_e + self.lam_e) \
             * self.scalar(self.dt_sq)
 
+    @tracing.span("pd_factor")
     def build_pd_factor(self, fixed, w=None):
         """(L, d) of M + dt^2 D^T W D with unit rows at fixed vertices: K14
         into the RCM band, factored exactly as one P = 1 block-tridiagonal
@@ -1004,6 +1023,7 @@ class System(SystemBase):
             self._to_factor_dtype(B * dinv[:, None] * dinv[None, :])[None])[0]
         return L, d
 
+    @tracing.span("pd_solve")
     def pd_solve(self, L, d, rhs):
         """Dim-separated solves against the fixed PD factor (reference:
         Optimizer::dimSeparatedSolve, Optimizer.cpp:883-1020). On the band:
@@ -1027,6 +1047,7 @@ class System(SystemBase):
     # one subdomain's solve (the GSDD sweep; dot_tpu core.py:1282-1294,
     # gsdd.py:34-55)
     # ------------------------------------------------------------------
+    @tracing.span("subdomain_solve")
     def subdomain_solve(self, L, d, q, i):
         """Solve subdomain i's factor against the global vector q (nV, 3)
         and scatter the local solution into a zero (nV, 3) direction: K16's

@@ -16,6 +16,7 @@ lax.fori_loop over the subdomains is a host loop here.
 
 from __future__ import annotations
 
+from .. import tracing
 from .core import INNER_ITER_CAP, REL_EDEC_STOP
 from .quasi_newton import (RebuildH0Stepper, _vdot, finish_step, line_search,
                            push_row)
@@ -24,6 +25,7 @@ from .quasi_newton import (RebuildH0Stepper, _vdot, finish_step, line_search,
 class GSDDStepper(RebuildH0Stepper):
     name = "GSDD"
 
+    @tracing.span("gsdd_sweep")
     def sweep(self, state, x, e, e_h, g, F, fixed):
         """One pass over the subdomains. Returns (x, E, E on the host, g,
         F, halvings of the taken steps, whether every line search
@@ -45,6 +47,7 @@ class GSDDStepper(RebuildH0Stepper):
             x, e, e_h = x_new, e_new, e_new_h
         return x, e, e_h, g, F, n_ls, all_failed
 
+    @tracing.span("step")
     def step(self, state, rel_tol=1.0e-5):
         """One full time step: one inner iteration is one sweep. Updates
         `state` in place and returns (state, (StepStats, sysE))."""

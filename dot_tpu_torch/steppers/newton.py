@@ -12,6 +12,7 @@ loop with the dense whole-mesh factor of a System2D (`direction`).
 
 from __future__ import annotations
 
+from .. import tracing
 from .core import INNER_ITER_CAP, REL_EDEC_STOP
 from .quasi_newton import _vdot, finish_step, line_search, push_row
 from ..scripts import make_step_fn
@@ -35,6 +36,7 @@ class NewtonStepper:
     def init_state(self):
         return self.system.init_state(self.script_data)
 
+    @tracing.span("step")
     def step(self, state, rel_tol=1.0e-5):
         """One full time step. Updates `state` in place and returns
         (state, (StepStats, sysE))."""
@@ -86,6 +88,7 @@ class NewtonStepper:
         L, d = self.factor(x, fixed)
         return self.system.h0_apply(L, d, -g)
 
+    @tracing.span("newton_factor")
     def factor(self, x, fixed):
         """(L, d): the exact factor of the Hessian at x."""
         sys = self.system
