@@ -7,8 +7,8 @@ Phases (each prints its lines; any failure exits non-zero before the
 result line):
   probe    device name, `nvidia-smi` name and power limit, nvcc and triton
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
-           chol_inv.cu, K7 and K15 block_matvec.cu, K8 and K16 h0.cu,
-           K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
+           chol_inv.cu, K31 schur.cu, K7 and K15 block_matvec.cu, K8 and
+           K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
            K15's permute passes pd.cu, K17 / K18 / K20 admm.cu, K21-K24
            elem2d.cu, K25-K28 dd2d.cu, K29 / K30 admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
@@ -34,7 +34,12 @@ result line):
            of Newton's exact scan on bar17's P = 1 plan, widths 37 and
            770: one launch a call; indefinite 770^2 blocks flagged and NaN
            in both modes at batch 1 and 3), K9's two entries at bar17's
-           shape (m 5, n 49,419), the factor's level blocks (K7 on bf16 and
+           shape (m 5, n 49,419), K31 at the bar135 scan step (133 x 768)
+           and a P = 1 scan's (1 x 768: "@p1"; against the f32 product,
+           1e-6 norm-wise on the lower triangle, two calls bit for bit,
+           one launch a call; timed with the casts + f32 GEMM + subtraction
+           it replaced and torch.bmm(out_dtype=float32) where the card's
+           torch has it), the factor's level blocks (K7 on bf16 and
            f32 storage in f32 runs; one subdomain's strided blocks read in
            place), K7's solve entry on the factor and on one subdomain's
            slice of it (one cooperative launch a solve: bit for bit the K7
@@ -118,9 +123,9 @@ result line):
            space and the chunked bf16 rebuild engage). Through
            sim.Simulator: 1 warm-up + 3 timed frames (P, coarse, chunked
            BTDFactor with bf16 leaves and kc_chol checked; every frame
-           finite and stopped by tol or rel_dec; K9-K12 and K5's compact
-           entry point launched), 2 more frames with the rebuild (elem H /
-           coarse factor / compact / K12 / scan) and the apply (fine /
+           finite and stopped by tol or rel_dec; K9-K12, K5's compact
+           entry point and K31 launched), 2 more frames with the rebuild
+           (elem H / coarse factor / compact / K12 / scan) and the apply (fine /
            coarse) timed; K9-K12 and K5's compact entry point against their
            plain versions on the real plan, owner map, element Hessians and
            L-BFGS history (K9's two entries), and K6 and K7 at this
@@ -287,6 +292,8 @@ SOURCES = {
                       "dot_tpu/steppers/core.py:750"),
     "chol_inv": ("cuda", "dot_tpu_torch/kernels/csrc/chol_inv.cu",
                  "dot_tpu/steppers/core.py:904"),
+    "schur_update": ("cuda", "dot_tpu_torch/kernels/csrc/schur.cu",
+                     "dot_tpu/steppers/core.py:1544"),
     "block_matvec": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
                      "dot_tpu/steppers/core.py:1061"),
     "block_solve": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
@@ -397,6 +404,7 @@ PARTIAL_LIBRARY = ("elem_gradient", "h0_average", "hessian_diag",
 # the card's peaks (H100 SXM data sheet)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
 # operations per element of K1-K3, counted from kernels/csrc/elem.cuh
 # (the 3x3 SVD's Jacobi sweeps dominate); an estimate: these kernels are
 # bound by their bytes by a wide margin either way
@@ -418,7 +426,7 @@ MAIN_KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
                 "lbfgs_second")
 SCALE_KERNELS = tuple(k for k in MAIN_KERNELS if k != "band_assemble") + (
     "coarse_assemble", "coarse_restrict", "coarse_prolong", "band_compact",
-    "band_equil_scatter")
+    "band_equil_scatter", "schur_update")
 # the steppers phase: (scene's timeStepper line, warmStart, frames, sysE rtol
 # against DOT, the kernels the run must launch beyond the shared per-element
 # passes). sysE against DOT: 1e-3 as tests/test_lbfgs_variants.py, 5e-3 for
@@ -1429,9 +1437,62 @@ def phase_k6_k9_kernels(torch, record):
         say(f"kernels: {name} shapes: K6 {[(t, B, n) for t, B, n, _ in shapes]}"
             f" (bar17's P = 1 band_bs {bs1}); K9 S, T {tuple(S.shape)}")
         torch.cuda.empty_cache()
+    _k31_checks(torch, record, bad)
     if bad:
         raise Fail("kernel disagrees with its plain version: "
                    + "; ".join(bad))
+
+
+def _k31_checks(torch, record, bad):
+    """K31 (schur_update) at the bar135 scan step (133 blocks of 768:
+    "schur_update") and a P = 1 scan's (1 x 768: "@p1"), f32 sums of bf16
+    products: the lower triangle against the f32 product (1e-6 norm-wise),
+    two calls bit for bit, one launch a call; timed with the route it
+    replaced (D upcast, Ls rounded to bf16 and upcast twice, an f32 GEMM, a
+    subtraction), the library call where the card's torch has one
+    (torch.bmm(..., out_dtype=torch.float32) and the subtraction) and the
+    bound of the lower triangle (bf16 tensor-core rate)."""
+    from dot_tpu_torch.kernels import band, ops
+    b16, f32 = torch.bfloat16, torch.float32
+    for kname, B, n in (("schur_update", 133, 768), ("schur_update@p1", 1,
+                                                      768)):
+        g = torch.Generator(device="cuda").manual_seed(20261018 + B)
+        Ls = 0.5 / n ** 0.5 * torch.randn((B, n, n), generator=g,
+                                          device="cuda")
+        N = 0.01 * torch.randn((B, n, n), generator=g, device="cuda")
+        D = (3.0 * torch.eye(n, device="cuda") + N + N.mT).to(b16)
+        del N
+        A = Ls.to(b16)
+        ops.reset_launches()
+        k1 = torch.tril(ops.schur_update(D, A))
+        k2 = torch.tril(ops.schur_update(D, A))
+        torch.cuda.synchronize()
+        if ops.launches["schur_update"] != 2:
+            bad.append(f"{kname}: {ops.launches['schur_update']} launches "
+                       "for two calls")
+        ref = torch.tril(band.schur_update_ref(D, A))
+        same = 0.0 if torch.equal(k1, k2) else 1.0
+        checks = [("lower", _rel_norm(k1, ref), 1e-6,
+                   float((k1 - ref).abs().max())),
+                  ("two calls (bit for bit)", same, 0.0, same)]
+        try:
+            torch.bmm(A, A.mT, out_dtype=f32)
+            lib = lambda: D.to(f32) - torch.bmm(A, A.mT, out_dtype=f32)
+        except (TypeError, RuntimeError):
+            lib = None
+        low = B * n * (n + 1) // 2
+        out = torch.empty((B, n, n), device="cuda")
+        _report(torch, "float32", kname, checks,
+                (lambda: ops.schur_update(D, A, out),
+                 lambda: D.to(f32) - Ls.to(b16).to(f32)
+                 @ Ls.mT.to(b16).to(f32), lib),
+                (A.numel() * 2 + low * 2 + low * 4, 2.0 * low * n,
+                 BF16_FLOP_S), bad, record)
+        record[kname].update(launches_per_call=1, batch=B, width=n,
+                             library=("torch.bmm(out_dtype=float32) - D"
+                                      if lib is not None else None))
+        del Ls, D, A, k1, k2, ref, out
+        torch.cuda.empty_cache()
 
 
 def phase_pd_kernels(torch, record):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the H0 kernels K5-K8 and K12, and the
+"""Plain PyTorch versions of the H0 kernels K5-K8, K12 and K31, and the
 host-side tables their CUDA versions walk.
 
 K5 band_assemble   block-tridiagonal H0 assembly (dot_tpu/steppers/core.py
@@ -24,6 +24,9 @@ K12 band_equil_    the chunked rebuild's band (core.py 1465-1499
     scatter        _rebuild_banded_chunked): the Jacobi scale d from the
                    compact diagonal blocks, the equilibrated lower blocks
                    rounded to the band's dtype and scattered, pads 1
+K31 schur_update   the block scan's Schur-complement update D - Ls Ls^T on
+                   bf16 Ls with f32 sums (core.py 1544-1548: the scan's
+                   SYRK and the subtraction from the next diagonal block)
 
 These are what the port ran before the kernels existed. The CPU tests use
 them, and System(use_kernels=False) takes them on any device for
@@ -142,6 +145,18 @@ def chol_inv_ref(A, symmetrize):
     L = torch.where(bad[:, None, None], nan, L)
     Li = torch.where(bad[:, None, None], nan, Li)
     return L, Li, bad
+
+
+def schur_update_ref(D, A, out=None):
+    """K31 plain: float(D) - float(A) float(A)^T over a batch (B, n, n); D
+    in bf16 or f32, A in bf16 (products of bf16 values, exact in f32, summed
+    in f32), the result in f32. Into `out` where given. The kernel writes
+    the tiles that hold the lower triangle only; this writes every entry."""
+    a = A.to(torch.float32)
+    r = D.to(torch.float32) - a @ a.mT
+    if out is None:
+        return r
+    return out.copy_(r)
 
 
 def k6_tile(dtype, batch):

@@ -27,14 +27,15 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # elementwise ops do (K1-K3, K5, K8, K13, K14, K16-K20 then agree bit for bit
 # in most outputs; the 2D kernels K21-K24 and K29 up to the device library's
 # atan2, sin and cos; K25-K28 and K30 on the 2D decomposed and ADMM paths);
-# K6, K7, K9 and K15 are sums of products whose order differs from the
-# plain versions' anyway, so they keep the contraction. K6 and K9 are
+# K6, K7, K9, K15 and K31 are sums of products whose order differs from
+# the plain versions' anyway, so they keep the contraction. K6 and K9 are
 # launched cooperatively (cooperative_groups' grid barrier, which needs no
 # -rdc since CUDA 11).
 LIBRARIES = {
     "elem": (("elem.cu", "elem.cuh"), ("-fmad=false",)),
     "band_asm": (("band_asm.cu",), ("-fmad=false",)),
     "chol_inv": (("chol_inv.cu",), ()),
+    "schur": (("schur.cu",), ()),
     "lbfgs": (("lbfgs.cu",), ()),
     "block_matvec": (("block_matvec.cu",), ()),
     "h0": (("h0.cu",), ("-fmad=false",)),

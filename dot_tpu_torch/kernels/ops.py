@@ -1,8 +1,8 @@
-"""Wrappers of the thirty hand-written kernels of the steppers' paths.
+"""Wrappers of the thirty-one hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
-  kernels/band.py for K5-K8 and K12, kernels/lbfgs.py for K9,
+  kernels/band.py for K5-K8, K12 and K31, kernels/lbfgs.py for K9,
   kernels/coarse.py for K10-K11, kernels/pd.py for K13-K16,
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
@@ -15,7 +15,7 @@ Each wrapper checks device, dtype, shape and contiguity, then
   csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
   K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
   passes: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad
-  too): csrc/admm.cu, K19: band_asm.cu,
+  too): csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
   K25-K28: csrc/dd2d.cu, K29-K30: csrc/admm2d.cu (K21 / K22 / K26's 2D
   ADMM-DD entries in elem2d.cu and dd2d.cu), K9: csrc/lbfgs.cu, all
@@ -56,7 +56,8 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "h0_gather2d", "h0_average2d", "local_gather_one2d",
            "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d",
            "admm_local_step2d", "dtw_scatter2d", "ls_trial_energy2d_parts",
-           "elem_gradient2d_from_F", "w_assemble2d", "local_h_assemble2d")
+           "elem_gradient2d_from_F", "w_assemble2d", "local_h_assemble2d",
+           "schur_update")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -116,7 +117,8 @@ plain = types.SimpleNamespace(
     ls_trial_energy2d_parts=admm2d.ls_trial_energy2d_parts_ref,
     elem_gradient2d_from_F=admm2d.elem_gradient2d_from_F_ref,
     w_assemble2d=admm2d.w_assemble2d_ref,
-    local_h_assemble2d=admm2d.local_h_assemble2d_ref)
+    local_h_assemble2d=admm2d.local_h_assemble2d_ref,
+    schur_update=band.schur_update_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -145,6 +147,7 @@ def _load():
             ("band_asm", "dot_band_assemble"): ([I, P, LL] + [P] * 7
                                                 + [LL, P, LL, LL, P, P]),
             ("chol_inv", "dot_chol_inv"): [I, I, P, I, LL, I, P, P, P, P],
+            ("schur", "dot_schur_update"): [I, P, LL, P, I, LL, I, P, P],
             ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
             ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
             ("block_matvec", "dot_block_matvec"): [I, I] + [P] * 4
@@ -439,12 +442,15 @@ _ERRORS = {-2: "the device has no cooperative launch",
            -3: "no block of the kernel fits on an SM",
            -4: "device ordinal beyond the kernel's cache",
            -5: "history length outside 1..8",
-           -6: "tile width not built for the dtype"}
+           -6: "tile width not built for the dtype",
+           -7: "libcuda offers no cuTensorMapEncodeTiled",
+           -8: "cuTensorMapEncodeTiled refused the tensor map"}
 
 
 def _ok_coop(name, err):
-    """_ok for the cooperatively launched kernels (K6, K9): their own
-    negative codes name what the card lacks."""
+    """_ok for the kernels with codes of their own (the cooperatively
+    launched K6, K7's solves, K9 and w_quad; K31): the negative codes name
+    what the card lacks."""
     if err in _ERRORS:
         raise RuntimeError(f"{name}: kernel not launched ({_ERRORS[err]})")
     _ok(name, err)
@@ -470,6 +476,42 @@ def chol_inv(A, symmetrize):
                        _stream(A))
     _ok_coop(name, err)
     return L, Li, info != 0
+
+
+def schur_update(D, A, out=None):
+    """K31: float(D) - float(A) float(A)^T over a batch (B, n, n) in f32,
+    in one launch: the block scan's Schur-complement update with A = the
+    bf16 Ls (bf16 products summed in f32 on the tensor cores). D in bf16 or
+    f32, its blocks any fixed distance apart (a view of a scan-major band),
+    read in place; `out` (B, n, n) f32 receives the tiles that hold the
+    lower triangle (diagonal tiles in full) and keeps what it held in the
+    strictly-upper ones. A width that is no multiple of 8 is padded into a
+    copy of A (TMA reads 16-byte aligned rows)."""
+    name = "schur_update"
+    B, n = A.shape[0], A.shape[-1]
+    _need(name, "A", A, A.device, torch.bfloat16, (B, n, n))
+    if D.device != A.device or D.dtype not in (torch.bfloat16,
+                                               torch.float32):
+        raise TypeError(f"{name}: D is {D.dtype} on {D.device}")
+    stride = _block_stride(name, D, B, n)
+    if out is not None:
+        _need(name, "out", out, A.device, torch.float32, (B, n, n))
+        if _overlap(out, D) or _overlap(out, A):
+            raise ValueError(f"{name}: out overlaps D or A")
+    if not _route(name, A):
+        return band.schur_update_ref(D, A, out)
+    lib = _load()
+    if out is None:
+        out = torch.empty((B, n, n), dtype=torch.float32, device=A.device)
+    lda = -(-n // 8) * 8
+    if lda != n or A.data_ptr() % 16:
+        Ap = A.new_empty((B, n, lda))
+        Ap[..., :n] = A
+        A = Ap
+    err = lib.schur_update(_A_DTYPES[D.dtype], _ptr(D), stride, _ptr(A),
+                           lda, B, n, _ptr(out), _stream(A))
+    _ok_coop(name, err)
+    return out
 
 
 def _overlap(a, b):

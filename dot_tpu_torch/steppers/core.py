@@ -121,7 +121,11 @@ def _any_nan(fac):
 def _mm(a, b, bf16):
     """a @ b; with `bf16`, inputs rounded to bf16 and the products summed
     and kept in f32 (dot_general with preferred_element_type=f32: the
-    products of bf16 values are exact in f32)."""
+    products of bf16 values are exact in f32), as four casts and an f32
+    GEMM. The callers: cyclic reduction's level products (`_cr_build`) and
+    the dense fast path's trailing updates, with `bf16` on their fast tier
+    and off on the exact ones. The block scan's bf16 SYRK is K31
+    (`_btd_scan_equilibrated`), not this."""
     if bf16:
         b16 = torch.bfloat16
         return a.to(b16).to(torch.float32) @ b.to(b16).to(torch.float32)
@@ -714,14 +718,20 @@ class System(SystemBase):
         (possibly stored bf16, upcast per block to the solve dtype, `shift`
         I added to each upcast diagonal block):
           L_k L_k^T = D_k - S_{k-1} S_{k-1}^T,  S_k = A_{k+1,k} L_k^{-T},
-        with L_k and Li_k = L_k^{-1} from K6 (lower triangle read),
-        S_k = A_{k+1,k} Li_k^T as a matmul instead of a triangular solve,
-        and the SYRK bf16-input with an f32 result under `bf16_syrk`.
-        Leaves are stored in `out_dt` (default: apply_dtype, else the solve
-        dtype)."""
+        with L_k and Li_k = L_k^{-1} from K6 (lower triangle read) and
+        S_k = A_{k+1,k} Li_k^T as an f32 matmul instead of a triangular
+        solve. The SYRK and the subtraction: under `bf16_syrk` (the fast
+        tier, f32 only) one launch of K31 on S_k rounded to bf16 (the leaf
+        itself where leaves are bf16), bf16 products summed in f32 on the
+        tensor cores, the lower tiles of D_{k+1} written (a `schur_update`
+        span); without it (the exact tiers, f64) D_{k+1} - S_k S_k^T in the
+        solve dtype. Leaves are stored in `out_dt` (default: apply_dtype,
+        else the solve dtype)."""
         fdt = self._solve_dtype
         out_dt = out_dt or self.apply_dtype or fdt
         nb, bs = dg.shape[0], dg.shape[-1]
+        if bf16_syrk and fdt != torch.float32:
+            raise ValueError("the bf16 SYRK scan runs in f32")
         sh = (shift * torch.eye(bs, dtype=fdt, device=self.device)
               if shift else None)
 
@@ -737,8 +747,16 @@ class System(SystemBase):
             if k == nb - 1:
                 break
             Ls = sb[k].to(fdt) @ Li.mT
-            lss.append(Ls.to(out_dt))
-            Dk = diag_block(k + 1) - _mm(Ls, Ls.mT, bf16_syrk).to(fdt)
+            if not bf16_syrk:
+                lss.append(Ls.to(out_dt))
+                Dk = diag_block(k + 1) - Ls @ Ls.mT
+                continue
+            Lsb = Ls.to(torch.bfloat16)
+            lss.append(Lsb if out_dt == torch.bfloat16 else Ls.to(out_dt))
+            with tracing.span("schur_update"):
+                Dk = self.k.schur_update(dg[k + 1], Lsb)
+            if sh is not None:
+                Dk = Dk + sh
         sub = (torch.stack(lss) if lss else
                torch.zeros((0,) + tuple(dg.shape[1:]), dtype=out_dt,
                            device=self.device))

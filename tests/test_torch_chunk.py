@@ -12,7 +12,9 @@ builds its scan-assembly tables, which hold its lower-only selection).
 Tolerances: f32 1e-6 on the equilibrated compact and d (the same sums in
 another order); 1e-2 between the two packages' chunked solves (bf16 band
 and bf16 factor leaves, rounding flips at different entries); f64 1e-10
-on the scan alone; f32 sysE over three frames 2e-4."""
+on the scan alone; f32 sysE over three frames 2e-4. K31's plain version and the
+scan's bf16-SYRK route on it: bit for bit the route they replaced (four
+casts, an f32 GEMM, the upcast of D and a subtraction)."""
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from dot_tpu.mesh_gen import bar_mesh
 from dot_tpu.steppers import DOTStepper as JDOT
 from dot_tpu.steppers import System as JSystem
 from dot_tpu_torch import convert
-from dot_tpu_torch.kernels import band
+from dot_tpu_torch.kernels import band, ops
 from dot_tpu_torch.steppers import DOTStepper
 from dot_tpu_torch.steppers.core import BTDFactor, CoarseFactor, factor_leaves
 
@@ -224,3 +226,68 @@ def test_chunked_coarse_frames_f32_match_dot_tpu():
     assert isinstance(ts.chol, BTDFactor)
     assert ts.chol.linv.dtype == torch.bfloat16
     np.testing.assert_allclose(te, je, rtol=2e-4)
+
+
+def _old_schur(D, Ls):
+    """The scan's update before K31: D_{k+1} upcast, minus _mm(Ls, Ls^T,
+    True) (both operands rounded to bf16 and upcast, an f32 GEMM)."""
+    b16, f32 = torch.bfloat16, torch.float32
+    return D.to(f32) - Ls.to(b16).to(f32) @ Ls.mT.to(b16).to(f32)
+
+
+@pytest.mark.parametrize("n", [48, 77])
+@pytest.mark.parametrize("d_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_schur_update_ref_is_the_old_update_bit_for_bit(d_dtype, n):
+    """band.schur_update_ref (K31's plain version, ops.schur_update's CPU
+    route) against the route it replaced: the lower triangle bit for bit
+    (the kernel writes the lower tiles; the plain version every entry)."""
+    rng = np.random.default_rng(n)
+    B = 3
+    Ls = torch.as_tensor(rng.normal(size=(B, n, n)) / np.sqrt(n),
+                         dtype=torch.float32)
+    D = torch.as_tensor(rng.normal(size=(B, n, n)) + 2 * n * np.eye(n),
+                        dtype=d_dtype)
+    want = _old_schur(D, Ls)
+    got = band.schur_update_ref(D, Ls.to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    assert torch.equal(torch.tril(got), torch.tril(want))
+    out = torch.full((B, n, n), float("nan"))
+    assert ops.schur_update(D, Ls.to(torch.bfloat16), out) is out
+    assert torch.equal(torch.tril(out), torch.tril(want))
+
+
+def _old_scan(dg, sb, out_dt):
+    """_btd_scan_equilibrated's bf16-SYRK route before K31."""
+    lis, lss = [], []
+    Dk = dg[0].to(torch.float32)
+    for k in range(dg.shape[0]):
+        _, Li, _ = band.chol_inv_ref(Dk.contiguous(), False)
+        lis.append(Li.to(out_dt))
+        if k == dg.shape[0] - 1:
+            break
+        Ls = sb[k].to(torch.float32) @ Li.mT
+        lss.append(Ls.to(out_dt))
+        Dk = _old_schur(dg[k + 1], Ls)
+    return torch.stack(lis), torch.stack(lss)
+
+
+@pytest.mark.parametrize("band_dt,out_dt", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.bfloat16)], ids=["bf16-bf16", "bf16-f32",
+                                           "f32-bf16"])
+def test_bf16_scan_is_the_old_route_bit_for_bit(band_dt, out_dt):
+    """The chunked band (bf16, as the low-memory path stores it, or f32 as
+    _factorize_btd's scan without it) through the bf16-SYRK scan on K31's
+    route: every leaf bit for bit the old route's, leaves in bf16 or f32."""
+    _, t = _forced(torch.float32)
+    x, fixed = _x()
+    eh = t.element_hessians(torch.as_tensor(x, dtype=torch.float32))
+    flat, _ = t._equil_scatter(t._band_compact(eh, torch.as_tensor(fixed)))
+    P, bs, nb = t.n_parts, t.band_bs, t.band_nb
+    dg = flat[:P * nb * bs * bs].view(nb, P, bs, bs).to(band_dt)
+    sb = flat[P * nb * bs * bs:].view(nb - 1, P, bs, bs).to(band_dt)
+    fac = t._btd_scan_equilibrated(dg, sb, 0.0, True, out_dt)
+    linv, sub = _old_scan(dg, sb, out_dt)
+    assert fac.linv.dtype == fac.sub.dtype == out_dt
+    assert torch.equal(fac.linv, linv) and torch.equal(fac.sub, sub)

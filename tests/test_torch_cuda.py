@@ -3,7 +3,8 @@ the per-element passes, K5-K8 on the H0 rebuild and apply of a
 cyclic-reduction plan, K9 on random histories, K10-K11 on a coarse plan,
 K5's compact entry point and K12 on a forced chunked rebuild, K13-K16 on
 the other steppers' plans (K15 as one launch of K7's solve entry a
-pd_solve), K17-K20 (K20's line-search entry w_quad) and the per-slab /
+pd_solve), K31 at the scan's shapes and on a chunked band, K17-K20
+(K20's line-search entry w_quad) and the per-slab /
 from-F entry points on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
 ADMM-DD entries of K21, K22, K26) against its plain PyTorch
@@ -951,6 +952,105 @@ def test_chol_inv_above_the_panel_limit(cuda, dtype):
     L, Li, bad = ops.chol_inv(A - 2.0 * torch.eye(n, dtype=dtype,
                                                   device=cuda), True)
     assert bad.all() and torch.isnan(L).all() and torch.isnan(Li).all()
+
+
+# K31: the block scan's Schur-complement update. The bar135 scan step, a
+# P = 1 scan, bar17's 6 subdomains, and widths at and off the 64-wide
+# tiles' edges (48 and 200 no multiple of 64)
+SCHUR_SHAPES = [(133, 768), (1, 768), (6, 768), (3, 48), (3, 96), (2, 200),
+                (2, 384)]
+
+
+def _schur_inputs(batch, n, dev, d_dtype=torch.bfloat16, seed=31):
+    """(D, A): D = 3 I + a small symmetric noise, A = 0.5 G / sqrt(n) in
+    bf16, so that D - A A^T is SPD with entries of order 1."""
+    g = torch.Generator(device=dev).manual_seed(seed + n)
+    G = torch.randn((batch, n, n), generator=g, device=dev)
+    A = (0.5 / n ** 0.5 * G).to(torch.bfloat16)
+    N = 0.01 * torch.randn((batch, n, n), generator=g, device=dev)
+    D = (3.0 * torch.eye(n, device=dev) + N + N.mT).to(d_dtype)
+    return D, A
+
+
+@pytest.mark.parametrize("shape", SCHUR_SHAPES,
+                         ids=[f"{b}x{n}" for b, n in SCHUR_SHAPES])
+def test_schur_update_matches_plain_and_repeats(cuda, shape):
+    """K31 against its plain version (the f32 product on the SIMT units):
+    the lower triangle within 1e-6 norm-wise (only the order of the sums
+    differs), bit for bit from run to run, one launch a call; a poisoned
+    strictly-upper triangle in `out` stays unread by K6 (L and L^{-1}
+    unchanged bit for bit)."""
+    from dot_tpu_torch.kernels import band
+    batch, n = shape
+    for d_dtype in (torch.bfloat16, torch.float32):
+        D, A = _schur_inputs(batch, n, cuda, d_dtype)
+        ops.reset_launches()
+        out0 = torch.zeros((batch, n, n), device=cuda)
+        ops.schur_update(D, A, out0)
+        out1 = torch.full((batch, n, n), float("nan"), device=cuda)
+        ops.schur_update(D, A, out1)
+        torch.cuda.synchronize()
+        assert ops.launches["schur_update"] == 2
+        ref = band.schur_update_ref(D, A)
+        low0, low1 = torch.tril(out0), torch.tril(out1)
+        assert _rel(low0, torch.tril(ref)) <= 1e-6
+        assert torch.equal(low0, low1)
+        L0, Li0, bad0 = ops.chol_inv(out0, False)
+        L1, Li1, bad1 = ops.chol_inv(out1, False)
+        assert not bad0.any() and not bad1.any()
+        assert torch.equal(L0, L1) and torch.equal(Li0, Li1)
+        del D, A, out0, out1, ref, L0, Li0, L1, Li1
+    torch.cuda.empty_cache()
+
+
+def test_schur_update_reads_d_in_place(cuda):
+    """D as a strided view of a scan-major band (the diagonal blocks of one
+    scan step) and a width that is no multiple of 8 (A padded into a copy):
+    the same as the plain version's lower triangle within 1e-6."""
+    from dot_tpu_torch.kernels import band
+    n = 77
+    D, A = _schur_inputs(4, n, cuda)
+    band4 = torch.stack([D, D + 1.0], 1)    # (4, 2, n, n), scan-major
+    Dv = band4[:, 1]
+    assert not Dv.is_contiguous()
+    out = ops.schur_update(Dv, A)
+    ref = band.schur_update_ref(Dv, A)
+    assert _rel(torch.tril(out), torch.tril(ref)) <= 1e-6
+
+
+def test_chunked_scan_with_schur_update_matches_the_old_route(cuda):
+    """The chunked bf16 band of the coarse plan (bar 20x4x4, 4 parts) through
+    the bf16-SYRK scan (K31, one launch a step) against the route it
+    replaced (four casts, an f32 GEMM, the upcast and a subtraction) on the
+    card: leaves at preconditioner grade (1e-2 max-abs relative, as
+    tests/test_torch_cr.py)."""
+    from dot_tpu_torch.steppers.core import _mm
+    sd, sysm = _coarse_system(cuda, torch.float32, chunk=True)
+    x = torch.as_tensor(sd.x0, dtype=torch.float32, device=cuda)
+    fixed = torch.as_tensor(sd.fixed0, device=cuda)
+    eh = sysm.element_hessians(x)
+    flat, _ = sysm._equil_scatter(sysm._band_compact(eh, fixed))
+    P, bs, nb = sysm.n_parts, sysm.band_bs, sysm.band_nb
+    dg = flat[:P * nb * bs * bs].view(nb, P, bs, bs)
+    sb = flat[P * nb * bs * bs:].view(nb - 1, P, bs, bs)
+    ops.reset_launches()
+    fac = sysm._btd_scan_equilibrated(dg, sb, 0.0, True)
+    torch.cuda.synchronize()
+    assert ops.launches["schur_update"] == nb - 1
+    lis, lss = [], []
+    Dk = dg[0].float()
+    for k in range(nb):
+        _, Li, _ = ops.chol_inv(Dk.contiguous(), False)
+        lis.append(Li.to(torch.bfloat16))
+        if k == nb - 1:
+            break
+        Ls = sb[k].float() @ Li.mT
+        lss.append(Ls.to(torch.bfloat16))
+        Dk = dg[k + 1].float() - _mm(Ls, Ls.mT, True)
+    for got, want in ((fac.linv, torch.stack(lis)),
+                      (fac.sub, torch.stack(lss))):
+        assert got.dtype == torch.bfloat16
+        assert _rel_max(got.float(), want.float()) <= 1e-2
 
 
 def test_newton_step_on_card_matches_cpu(cuda):

@@ -2,7 +2,9 @@
 bar_mesh(8, 3, 3): off it records nothing; on it leaves every frame bit
 for bit as it was; its spans nest by frame; the counts a frame match the
 program's own (host_read = StepStats.syncs, two_loop = iterations,
-rebuild_h0 once a DOT frame); every stepper opens its own spans; and
+rebuild_h0 once a DOT frame); every stepper opens its own spans; K31's
+`schur_update` span is entered once a scan step of the chunked rebuild
+and never by a cyclic-reduction rebuild or LBFGS-PD's factor; and
 profiling.span_tree splits host time by span path."""
 
 import dataclasses
@@ -12,10 +14,12 @@ import pytest
 import torch
 
 from dot_tpu_torch import io as meshio
-from dot_tpu_torch import profiling, tracing
+from dot_tpu_torch import partition, profiling, scripts, tracing
 from dot_tpu_torch.config import Config
 from dot_tpu_torch.mesh_gen import bar_mesh
 from dot_tpu_torch.sim import Simulator
+from dot_tpu_torch.steppers import System
+from dot_tpu_torch.steppers.core import BTDFactor, CRFactor
 
 FRAMES = 2
 
@@ -151,6 +155,52 @@ def test_every_stepper_opens_its_spans(tmp_path, stepper):
     assert want <= names, want - names
     assert _per_frame(recs, "step") == {0: 1}
     assert _per_frame(recs, "host_read") == {0: sim.frames[n0]["syncs"]}
+
+
+# case -> (bar cells, script, parts): the chunked rebuild forced on a
+# 5-part bar (nb 4); a deep 2-part band that takes cyclic reduction (nb
+# 11, as tests/test_torch_cr.py's); LBFGS-PD's factor on the first
+SCHUR_CASES = {"chunked": ((24, 4, 4), "twist", 5),
+               "cr": ((40, 3, 3), "stretch", 2),
+               "pd_factor": ((24, 4, 4), "twist", 5)}
+
+
+@pytest.mark.parametrize("case", sorted(SCHUR_CASES))
+def test_schur_update_spans_a_rebuild(case):
+    """f32: the chunked rebuild's bf16-SYRK scan enters `schur_update` nb - 1
+    times (once a step, K31's launch); a cyclic-reduction rebuild and
+    build_pd_factor (an exact scan) never do."""
+    cells, script, parts = SCHUR_CASES[case]
+    mesh = bar_mesh(*cells)
+    cfg = Config(energy="FCR", dt=0.025, rho=1000.0, ym=1e5, pr=0.4,
+                 script=script, handle_ratio=0.1)
+    mesh.set_lame(cfg.ym, cfg.pr)
+    mesh.find_border_verts(cfg.handle_ratio)
+    sd = scripts.init_script(mesh, script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    plan = partition.build_plan(mesh, parts, pad_elem_to=16, pad_n3_to=48,
+                                band_bs_unit=48, band_min_nb=3)
+    sysm = System(mesh, cfg, plan, dtype=torch.float32, device="cpu")
+    sysm._chunk = True if case == "chunked" else None
+    x = torch.as_tensor(sd.x0, dtype=torch.float32)
+    fixed = torch.as_tensor(sd.fixed0)
+    tracing.enable()
+    if case == "pd_factor":
+        fac, _ = sysm.build_pd_factor(fixed)
+    else:
+        _, fac, _, _ = sysm.rebuild_h0(x, fixed)
+    tracing.disable()
+    recs = tracing.records()
+    n = sum(r["name"] == "schur_update" for r in recs)
+    parents = {r["id"]: r["name"] for r in recs}
+    if case == "chunked":
+        assert isinstance(fac, BTDFactor)
+        assert n == sysm.band_nb - 1 >= 2
+        assert {parents[r["parent"]] for r in recs
+                if r["name"] == "schur_update"} == {"h0_factor"}
+    else:
+        assert isinstance(fac, CRFactor if case == "cr" else BTDFactor)
+        assert n == 0
 
 
 def test_spans_nest_and_disable_closes_the_open_ones():
