@@ -3199,7 +3199,7 @@ def phase_dim2dd(torch, launches_out):
                 total[k] += v
             sysm = sim.system
             timed = fr[1:]
-            n2p = sysm.n2p if sysm.plan is not None else sysm.n_vert
+            n2p = sysm.n3 if sysm.plan is not None else sysm.n_vert
             what = "sweeps" if tag == "GSDD4" else "iters"
             say(f"dim2dd: {tag} {name}: {type(sim.stepper).__name__}, P "
                 f"{sysm.n_parts}, n2p {n2p}, factor "

@@ -14,11 +14,14 @@ contract.
   the decomposed H0 of DOT / GSDD / LBFGS-H / HI / JH (`element_hessians`,
   `quadratic_form`, `assemble_subdomains`, `factorize_fast`, `h0_apply`,
   `subdomain_solve`, `rebuild_h0`) plus LBFGS-PD's scalar factor
-  (`build_pd_factor`, `pd_solve`) and `hessian_diag`. The per-element
-  passes, the assemblies and the vertex gathers are the kernels K21-K28 of
-  kernels/ops.py (plain versions: kernels/soa2d.py, kernels/dd2d.py); the
-  dense Cholesky factorizations and the triangular solves are library
-  calls, as they are in dot_tpu.
+  (`build_pd_factor`, `pd_solve`) and `hessian_diag`. It states its H0
+  layout in System's terms (`n_parts` dense blocks of `n3` = the plan's
+  n2 dofs, `banded` and `use_coarse` off) and its H0 methods open
+  System's spans (tracing.py; `factorize_fast`'s 1e-4 refactorization
+  `h0_refactor`). The per-element passes, the assemblies and the vertex
+  gathers are the kernels K21-K28 of kernels/ops.py (plain versions:
+  kernels/soa2d.py, kernels/dd2d.py); the dense Cholesky factorizations
+  and the triangular solves are library calls, as they are in dot_tpu.
 - `Newton2DStepper` is steppers/newton.py's host loop with that factor:
   one dense factorization per inner iteration (dim2.py:835-966). DOT,
   GSDD and the LBFGS steppers are the 3D ones (steppers/), unchanged.
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from . import io as meshio
-from . import mesh_gen, scripts
+from . import mesh_gen, scripts, tracing
 from .config import Config
 from .kernels import admm2d, dd2d, ops, soa2d
 from .partition import partition_amt_from_config
@@ -226,12 +229,14 @@ class System2D(SystemBase):
         self._sqnorm_H_rest = self._compute_sqnorm_h_rest()
 
         # the decomposition plan's tables (dot_tpu/dim2.py:409-421); K26's
-        # slot runs and K27's vertex-sorted gather derived once here
+        # slot runs and K27's vertex-sorted gather derived once here. The
+        # H0 layout (SystemBase): P dense blocks of the padded subdomain
+        # width, no band, no coarse space
         self.plan = plan
         self.n_parts = plan.n_parts if plan is not None else 0
+        self.n3 = plan.n2 if plan is not None else 0
         self._pd_tab = None
         if plan is not None:
-            self.n2p = plan.n2
             self.l2g = t(plan.local_to_global, torch.int64)
             self.local_valid = t(plan.local_valid, torch.bool)
             self.dup = t(plan.dup.astype(np.float64))
@@ -282,6 +287,7 @@ class System2D(SystemBase):
     def _free(self, fixed):
         return torch.logical_not(fixed).to(self.dtype)
 
+    @tracing.span("gradient")
     def gradient(self, x, x_tilta, fixed):
         """(nV, 3) with z = 0, zero at fixed vertices (K22)."""
         return self.k.elem_gradient2d(
@@ -289,6 +295,7 @@ class System2D(SystemBase):
             self.u_e, self.lam_e, self.vol_w, self.mat, self.dt_sq,
             self.scatter_plan)
 
+    @tracing.span("element_hessians")
     def element_hessians(self, x):
         """(36, nE) SPD-projected 6x6 element Hessians at x, dt^2-scaled,
         row-major over the (corner, xy) dofs (K23; dot_tpu keeps them
@@ -370,14 +377,16 @@ class System2D(SystemBase):
         return self.k.quadratic_form2d(p.contiguous(), self.conn, self.g4,
                                        elem_h, self.mass)
 
+    @tracing.span("hessian_diag")
     def hessian_diag(self, elem_h):
         """(nV, 3) diagonal of mass + dt^2 H, z column 1 (K28's second
         entry; dot_tpu/dim2.py:567-580). No 2D path calls it: warmStart 5
         is refused at dim 2."""
         return self.k.hessian_diag2d(elem_h, self.mass, self.scatter_plan)
 
+    @tracing.span("assemble")
     def assemble_subdomains(self, elem_h, fixed):
-        """(Hd (P, n2p, n2p), d (P, n2p)): the subdomain Hessians with
+        """(Hd (P, n3, n3), d (P, n3)): the subdomain Hessians with
         interface completion, lumped mass on free dofs, unit rows at fixed
         and padding dofs (K26; reference: fillInDecomposedHessians), and
         their sqrt-diagonals."""
@@ -395,6 +404,7 @@ class System2D(SystemBase):
         L.add_(nan.reshape(info.shape + (1, 1)))
         return L, torch.isnan(L.diagonal(dim1=-2, dim2=-1)).any()
 
+    @tracing.span("h0_factor")
     def factorize_fast(self, Hd, d):
         """(L, d): the Jacobi-equilibrated, symmetrized matrices (K26's
         second entry; Hd is scaled in place on the card), rounded through
@@ -405,18 +415,21 @@ class System2D(SystemBase):
             self.k.subdomain_scale2d(Hd, d, self.asm_tab))
         L, bad = self._cholesky_nan(Hn)
         if self.host(bad)[0]:
-            Hn.diagonal(dim1=1, dim2=2).add_(1.0e-4)
-            L, _ = self._cholesky_nan(Hn)
+            with tracing.span("h0_refactor"):
+                Hn.diagonal(dim1=1, dim2=2).add_(1.0e-4)
+                L, _ = self._cholesky_nan(Hn)
         return L, d
 
+    @tracing.span("solve_local")
     def solve_local(self, L, r):
         """The factored subdomain systems against equilibrated right-hand
-        sides r (P, n2p): two batched library triangular solves."""
+        sides r (P, n3): two batched library triangular solves."""
         rr = r.to(self._solve_dtype)[..., None]
         y = torch.linalg.solve_triangular(L, rr, upper=False)
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)
         return z[..., 0].to(self.dtype)
 
+    @tracing.span("h0_apply")
     def h0_apply(self, L, d, rhs, kc=None, fixed=None):
         """Per-subdomain backsolve + duplicate averaging (K27's gather, the
         solves, K27's averaging; DOTTimeStepper.cpp:406-450 at DIM = 2).
@@ -437,6 +450,7 @@ class System2D(SystemBase):
         return self.k.local_scatter_one2d(z, d, self.l2g, self.local_valid,
                                           i, self.n_vert)
 
+    @tracing.span("rebuild_h0")
     def rebuild_h0(self, x, fixed):
         """(elem_h, L, d, None): element Hessians at x, assembled and
         factorized (dot_tpu/dim2.py:660-669)."""
@@ -462,6 +476,7 @@ class System2D(SystemBase):
         L, _ = self._cholesky_nan(Sn[0].to(self._solve_dtype))
         return L, d
 
+    @tracing.span("pd_solve")
     def pd_solve(self, L, d, rhs):
         """The two in-plane columns of rhs (nV, 3) against the PD factor;
         z = 0 (dot_tpu/dim2.py:731-739)."""

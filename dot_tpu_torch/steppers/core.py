@@ -176,7 +176,24 @@ class SystemBase:
     dtype. A subclass sets dtype, factor_dtype, device, dt, dt_sq, n_vert,
     n_syncs, mesh, mat, mass, vol_w (the per-element rest measure), u_e,
     lam_e, gravity, grav_dt_sq, _sqnorm_H_rest and _sqnorm_l, and offers
-    elastic_energy."""
+    elastic_energy.
+
+    The H0 layout every system states, in the 3D System's terms (what
+    the benchmark and the profiler read): `n_parts` subdomains, each a
+    padded block of `n3` dofs (0 and 0 without a plan), `banded` blocks
+    of `band_nb` blocks of `band_bs` (read only where banded), the
+    two-level coarse space (`use_coarse`) and the storage dtype of the
+    applied factor (`apply_dtype`, None: the field dtype). A subclass sets
+    n_parts and n3; the rest default to one dense block a part, no coarse
+    space, the field dtype."""
+
+    n_parts: int
+    n3: int
+    band_nb: int
+    band_bs: int
+    banded = False
+    use_coarse = False
+    apply_dtype = None
 
     @property
     def _solve_dtype(self):

@@ -125,7 +125,7 @@ def assembled(pair, state):
 def test_assemble_subdomains(pair, assembled):
     _, ts, _ = pair
     Hj, Hd, d = assembled
-    assert Hd.shape == (ts.n_parts, ts.n2p, ts.n2p) == Hj.shape
+    assert Hd.shape == (ts.n_parts, ts.n3, ts.n3) == Hj.shape
     _close(Hd.numpy(), Hj, EXACT)
     # a slot and its mirror sum the same values in the same order
     assert torch.equal(Hd, Hd.mT)
