@@ -10,7 +10,8 @@ result line):
            chol_inv.cu, K31 schur.cu, K7 and K15 block_matvec.cu, K8 and
            K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
            K15's permute passes pd.cu, K17 / K18 / K20 admm.cu, K21-K24
-           elem2d.cu, K25-K28 dd2d.cu, K29 / K30 admm2d.cu; K19 and the
+           elem2d.cu, K25-K28 dd2d.cu, K32 trsolve.cu, K29 / K30
+           admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
            and elem.cu, those of K21 / K22 in elem2d.cu, K26's W and
            local-Hessian entries in dd2d.cu; K9 lbfgs.cu) with nvcc for
@@ -76,7 +77,11 @@ result line):
            P 4, n2p 5,248; K28 on the 10,171^2 PD matrix) on a deformed
            configuration, and factorize_fast's global 1e-4 tier on an
            indefinite subdomain (every subdomain refactored, one host
-           read); K29 (with its loop counts, which set its bound) and K30
+           read); K32 on that plan's factor (f32: its error against an f64
+           solve of the factor within twice the library pair's; f64 1e-12
+           against the pair; bit for bit run to run and in a P = 1 slice;
+           one device kernel a call; back-to-back times); K29 (with its
+           loop counts, which set its bound) and K30
            with both epilogues on the full-size scene's triangles, and the
            per-slab / from-F entries of K21 / K22 and K26's W / consensus
            and local-Hessian entries on its 4-part ADMM-DD tables; K26's
@@ -248,7 +253,8 @@ DIM2DD_RUNS = {
 }
 DD2D_KERNELS = ("quadratic_form2d", "subdomain_assemble2d",
                 "subdomain_scale2d", "h0_gather2d", "h0_average2d",
-                "local_gather_one2d", "local_scatter_one2d", "pd_assemble2d")
+                "local_gather_one2d", "local_scatter_one2d", "pd_assemble2d",
+                "tri_solve")
 # the 2D ADMM family (dim2admm): the full-size spikes scene under each ADMM
 # stepper: (scene's timeStepper line, timed frames after one warm-up)
 DIM2ADMM_RUNS = {"ADMM": ("ADMM", 2), "ADMMDD4": ("ADMMDD 4", 1)}
@@ -376,6 +382,8 @@ SOURCES = {
                       "dot_tpu/dim2.py:704"),
     "hessian_diag2d": ("cuda", "dot_tpu_torch/kernels/csrc/dd2d.cu",
                        "dot_tpu/dim2.py:567"),
+    "tri_solve": ("cuda", "dot_tpu_torch/kernels/csrc/trsolve.cu",
+                  "dot_tpu/dim2.py:623"),
     "admm_local_step2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
                           "dot_tpu/steppers/admm.py:142"),
     "dtw_scatter2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
@@ -2824,10 +2832,11 @@ def _one_pass_check(torch, kname, fn, tag, bad, launches_per_call):
 
 
 def phase_dd2d_kernels(torch, record):
-    """K25-K28 against their plain versions at the dim2dd path's full-size
-    shapes (spikes at resolution 20,000 on the 4-part element plan; K28 on
-    the (nV)^2 PD matrix), f64 and f32, and factorize_fast's global 1e-4
-    tier on an indefinite subdomain."""
+    """K25-K28 and K32 against their plain versions at the dim2dd path's
+    full-size shapes (spikes at resolution 20,000 on the 4-part element
+    plan; K28 on the (nV)^2 PD matrix; K32 on the plan's factor), f64 and
+    f32, and factorize_fast's global 1e-4 tier on an indefinite
+    subdomain."""
     from dot_tpu_torch import dim2, plan2d, scripts
     from dot_tpu_torch.config import Config
     from dot_tpu_torch.kernels import dd2d, ops, soa2d
@@ -2959,7 +2968,7 @@ def phase_dd2d_kernels(torch, record):
         torch.cuda.empty_cache()
 
         # ---- K27: the H0 apply's gather / averaging, one subdomain's
-        # gather / scatter, around the library solves of a real factor
+        # gather / scatter, around K32's solves of a real factor
         L, d = sysm.factorize_fast(Hk, dk)
         del Hk
         l2g, valid = sysm.l2g, sysm.local_valid
@@ -3012,7 +3021,41 @@ def phase_dd2d_kernels(torch, record):
                                  + 8 * (nv + 2), 2 * PN + 2 * nv)
         costs["local_gather_one2d"] = (6 * N * sz + 9 * N, 4 * N)
         costs["local_scatter_one2d"] = ((4 * N + 3 * nv) * sz + 9 * N, 2 * N)
-        del L
+
+        # ---- K32: the apply's forward and backward substitution on the
+        # factor (f32: its error against an f64 solve of the same factor,
+        # over the library pair's; f64: against the pair), bit for bit
+        # from run to run and in subdomain i's slice L[i:i + 1]; its bound
+        # as dense_solve_roofline counts it (the lower triangles read once)
+        lib = dd2d.tri_solve_ref(L, rr)
+        if dtype == torch.float32:
+            z64 = dd2d.tri_solve_ref(L.double(), rr.double())
+            e_k, e_lib = _rel_norm(z.double(), z64), _rel_norm(lib.double(),
+                                                               z64)
+            k32_err = ("error vs an f64 solve of the factor, over the "
+                       f"library pair's ({e_k:.3e} / {e_lib:.3e})",
+                       e_k / e_lib, 2.0, float((z - lib).abs().max()))
+            del z64
+        else:
+            k32_err = ("vs plain (the library pair)", _rel_norm(z, lib),
+                       tol["sum"], float((z - lib).abs().max()))
+        same = torch.equal(z, sysm.solve_local(L, rr))
+        same_i = torch.equal(sysm.solve_local(L[i:i + 1], rr[i:i + 1])[0],
+                             z[i])
+        res["tri_solve"] = [
+            k32_err, ("run to run (bit for bit)", 0.0 if same else 1.0, 0.0,
+                  None),
+            (f"slice L[{i}:{i + 1}] vs its row of the batch (bit for bit)",
+             0.0 if same_i else 1.0, 0.0, None)]
+        times["tri_solve"] = (lambda: sysm.solve_local(L, rr),
+                              lambda: dd2d.tri_solve_ref(L, rr),
+                              lambda: dd2d.tri_solve_ref(L, rr))
+        entries = P * n2p * (n2p + 1) / 2
+        costs["tri_solve"] = (entries * sz + 2 * P * n2p * sz, 4 * entries)
+        per_call["tri_solve"] = _work_check(
+            name, "tri_solve", lambda: sysm.solve_local(L, rr), 1,
+            ("tri_solve",), bad)
+        del lib
 
         # ---- K28: the (nV)^2 PD matrix and the Hessian diagonal
         w = sysm.scalar(sysm.dt_sq) * sysm.vol_w * (2.0 * sysm.u_e
@@ -3058,7 +3101,8 @@ def phase_dd2d_kernels(torch, record):
                     bad, record, plain_reps=5)
             if name == "float32" and kname in per_call:
                 record[kname]["launches_per_call"] = per_call[kname]
-            if kname in ("subdomain_assemble2d", "pd_assemble2d"):
+            if kname in ("subdomain_assemble2d", "pd_assemble2d",
+                         "tri_solve"):
                 _back_to_back(torch, name, kname, times[kname], record)
         say(f"kernels: {name} 2D decomposed shapes: spikes resolution "
             f"{SPIKES_FULL}, plan {t_plan:.2f} s: P {P}, n2p {n2p} "
@@ -3075,7 +3119,7 @@ def phase_dd2d_kernels(torch, record):
 def _dd2d_split(sim, frames):
     """ms/frame of the parts of a DOT 2D frame over `frames` more frames,
     each call wrapped in synchronised host timers: the H0 rebuild (K23,
-    K26 and the library Cholesky), the H0 apply (K27 and the library
+    K26 and the library Cholesky), the H0 apply (K27 and K32's
     solves), K25, the line-search trials (K21) and the gradient (K22)."""
     import collections
     import torch
@@ -3101,7 +3145,8 @@ def _dd2d_launch_problems(tag, sysm, launches, fr):
     """The launches each run of the dim2dd path must show: K25 once a DOT
     iteration; K26 once a rebuild (the initial state + once a frame); K27's
     gather and averaging once an H0 apply (one an iteration), GSDD's
-    one-subdomain pair P times a sweep; K28 once a run (LBFGS-PD)."""
+    one-subdomain pair P times a sweep, K32 once with each; K28 once a run
+    (LBFGS-PD)."""
     iters = sum(r["iters"] for r in fr)
     rebuilds = len(fr) + 1
     k = launches
@@ -3112,9 +3157,11 @@ def _dd2d_launch_problems(tag, sysm, launches, fr):
         want.update(subdomain_assemble2d=rebuilds, subdomain_scale2d=rebuilds)
         if tag == "GSDD4":
             want.update(local_gather_one2d=sysm.n_parts * iters,
-                        local_scatter_one2d=sysm.n_parts * iters)
+                        local_scatter_one2d=sysm.n_parts * iters,
+                        tri_solve=sysm.n_parts * iters)
         else:
-            want.update(h0_gather2d=iters, h0_average2d=iters)
+            want.update(h0_gather2d=iters, h0_average2d=iters,
+                        tri_solve=iters)
         if tag == "DOT4":
             want.update(quadratic_form2d=iters)
     got = {name: k[name] for name in DD2D_KERNELS}

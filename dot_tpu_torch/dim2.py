@@ -20,8 +20,9 @@ contract.
   System's spans (tracing.py; `factorize_fast`'s 1e-4 refactorization
   `h0_refactor`). The per-element passes, the assemblies and the vertex
   gathers are the kernels K21-K28 of kernels/ops.py (plain versions:
-  kernels/soa2d.py, kernels/dd2d.py); the dense Cholesky factorizations
-  and the triangular solves are library calls, as they are in dot_tpu.
+  kernels/soa2d.py, kernels/dd2d.py); the decomposed H0's solve pairs
+  are K32 (`solve_local`); the dense Cholesky factorizations and the other
+  triangular solves are library calls, as they all are in dot_tpu.
 - `Newton2DStepper` is steppers/newton.py's host loop with that factor:
   one dense factorization per inner iteration (dim2.py:835-966). DOT,
   GSDD and the LBFGS steppers are the 3D ones (steppers/), unchanged.
@@ -182,8 +183,9 @@ class System2D(SystemBase):
     def __init__(self, mesh: Mesh2D, cfg, dtype=torch.float64, device=None,
                  use_kernels=True, plan=None, factor_dtype=None):
         """`device`: None for the card (raises without one: pass "cpu" to
-        run on the CPU). `use_kernels=False` runs the plain PyTorch versions of K21-K28
-        on any device (a comparison run; the main path keeps the default).
+        run on the CPU). `use_kernels=False` runs the plain PyTorch
+        versions of K21-K28 and K32 on any device (a comparison run; the
+        main path keeps the default).
         `plan`: a plan2d.Plan2D (an element plan for DOT / GSDD, one part
         for LBFGS-H / HI, a node plan for LBFGS-JH) or None (Newton,
         LBFGS-PD). `factor_dtype=torch.bfloat16`: the subdomain matrices
@@ -423,11 +425,10 @@ class System2D(SystemBase):
     @tracing.span("solve_local")
     def solve_local(self, L, r):
         """The factored subdomain systems against equilibrated right-hand
-        sides r (P, n3): two batched library triangular solves."""
-        rr = r.to(self._solve_dtype)[..., None]
-        y = torch.linalg.solve_triangular(L, rr, upper=False)
-        z = torch.linalg.solve_triangular(L.mT, y, upper=True)
-        return z[..., 0].to(self.dtype)
+        sides r (P, n3): forward and backward substitution in one launch
+        of K32 (plain version: two batched library triangular solves)."""
+        z = self.k.tri_solve(L, r.to(self._solve_dtype))
+        return z.to(self.dtype)
 
     @tracing.span("h0_apply")
     def h0_apply(self, L, d, rhs, kc=None, fixed=None):

@@ -1,5 +1,6 @@
-"""The 2D decomposed path's kernels (K25-K28) in plain PyTorch, and the
-host-side tables their CUDA versions (csrc/dd2d.cu) read.
+"""The 2D decomposed path's kernels (K25-K28, K32) in plain PyTorch, and
+the host-side tables their CUDA versions (csrc/dd2d.cu, csrc/trsolve.cu)
+read.
 
 Each `*_ref` function computes what dot_tpu/dim2.py's System2D computes
 (the line references are on each function), in the same operation order,
@@ -381,3 +382,11 @@ def local_scatter_one2d_ref(z, d, l2g, valid, part, n_vert):
     p2[idx] = p_l
     return torch.cat([p2[:n_vert], torch.zeros((n_vert, 1), dtype=z.dtype,
                                                device=z.device)], dim=1)
+
+
+def tri_solve_ref(L, r):
+    """K32's plain version: z = L^{-T} L^{-1} r (P, n) for P lower factors
+    L (P, n, n), by the two batched library triangular solves
+    (dot_tpu/dim2.py:623-629)."""
+    y = torch.linalg.solve_triangular(L, r[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]

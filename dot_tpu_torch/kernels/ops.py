@@ -1,4 +1,4 @@
-"""Wrappers of the thirty-one hand-written kernels of the steppers' paths.
+"""Wrappers of the thirty-two hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
@@ -7,8 +7,8 @@ Each wrapper checks device, dtype, shape and contiguity, then
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
   check entries of their device functions, kernels/dd2d.py for the 2D
-  decomposed path's K25-K28, kernels/admm2d.py for K29-K30 and the 2D
-  ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
+  decomposed path's K25-K28 and K32, kernels/admm2d.py for K29-K30 and
+  the 2D ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (its single products and
   its whole solves, pd_solve's included) and K15's products:
@@ -17,9 +17,10 @@ Each wrapper checks device, dtype, shape and contiguity, then
   passes: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad
   too): csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
-  K25-K28: csrc/dd2d.cu, K29-K30: csrc/admm2d.cu (K21 / K22 / K26's 2D
-  ADMM-DD entries in elem2d.cu and dd2d.cu), K9: csrc/lbfgs.cu, all
-  through ctypes (K6, K7's solves, K9 and w_quad launch cooperatively); K4:
+  K25-K28: csrc/dd2d.cu, K32: csrc/trsolve.cu, K29-K30: csrc/admm2d.cu
+  (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and dd2d.cu), K9:
+  csrc/lbfgs.cu, all through ctypes (K6, K7's solves, K9, w_quad and K32
+  launch cooperatively); K4:
   triton_qf.py),
   checks the launch's cudaGetLastError and adds one to its count in
   `launches`;
@@ -57,7 +58,7 @@ KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
            "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d",
            "admm_local_step2d", "dtw_scatter2d", "ls_trial_energy2d_parts",
            "elem_gradient2d_from_F", "w_assemble2d", "local_h_assemble2d",
-           "schur_update")
+           "schur_update", "tri_solve")
 launches = dict.fromkeys(KERNELS, 0)
 
 plain = types.SimpleNamespace(
@@ -118,7 +119,8 @@ plain = types.SimpleNamespace(
     elem_gradient2d_from_F=admm2d.elem_gradient2d_from_F_ref,
     w_assemble2d=admm2d.w_assemble2d_ref,
     local_h_assemble2d=admm2d.local_h_assemble2d_ref,
-    schur_update=band.schur_update_ref)
+    schur_update=band.schur_update_ref,
+    tri_solve=dd2d.tri_solve_ref)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -148,6 +150,8 @@ def _load():
                                                 + [LL, P, LL, LL, P, P]),
             ("chol_inv", "dot_chol_inv"): [I, I, P, I, LL, I, P, P, P, P],
             ("schur", "dot_schur_update"): [I, P, LL, P, I, LL, I, P, P],
+            ("trsolve", "dot_tri_solve"): [I, P, P, P, I, I, I,
+                                           ctypes.c_uint, P, P],
             ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
             ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
             ("block_matvec", "dot_block_matvec"): [I, I] + [P] * 4
@@ -449,7 +453,8 @@ _ERRORS = {-2: "the device has no cooperative launch",
 
 def _ok_coop(name, err):
     """_ok for the kernels with codes of their own (the cooperatively
-    launched K6, K7's solves, K9 and w_quad; K31): the negative codes name
+    launched K6, K7's solves, K9, w_quad and K32; K31): the negative codes
+    name
     what the card lacks."""
     if err in _ERRORS:
         raise RuntimeError(f"{name}: kernel not launched ({_ERRORS[err]})")
@@ -1823,6 +1828,52 @@ def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
 # K29, K30 and the added entry points of K21 / K22 / K26: the two 2D ADMM
 # steppers
 # ----------------------------------------------------------------------
+# K32's tagged words (the solved vectors, 32 bits of a value beside the
+# call's epoch in each 64-bit word), per device: [int64 tensor, the last
+# call's epoch]. The words are zeroed once; each call publishes under a
+# new epoch, so no call resets, memsets or reads them. Calls on one device
+# share them: they run in the order of one stream (a CUDA graph holding a
+# call would replay its epoch: none may be replayed).
+_tri_words = {}
+
+
+def _tri_epoch(dev, n_words):
+    st = _tri_words.get(dev)
+    if st is None or st[0].numel() < n_words or st[1] == 0xffffffff:
+        st = _tri_words[dev] = [torch.zeros(n_words, dtype=torch.int64,
+                                            device=dev), 0]
+    st[1] += 1
+    return st[0], st[1]
+
+
+def tri_solve(L, r):
+    """K32: z = L^{-T} L^{-1} r, (P, n), for P lower Cholesky factors L
+    (P, n, n) and right-hand sides r (P, n), in one launch (forward, then
+    backward substitution over 64 x 64 tiles). L is read as it is stored:
+    row major, or column major (L.mT contiguous: the batched library
+    Cholesky's layout, and its slices L[i:i + 1]); other strides raise."""
+    name = "tri_solve"
+    dt = _float(name, L)
+    if L.dim() != 3 or L.shape[1] != L.shape[2]:
+        raise ValueError(f"{name}: L has shape {tuple(L.shape)}, not "
+                         "(P, n, n)")
+    P, n = L.shape[0], L.shape[2]
+    _need(name, "r", r, L.device, dt, (P, n))
+    upper = not L.is_contiguous()
+    S = L.mT if upper else L
+    if not S.is_contiguous():
+        raise ValueError(f"{name}: L is neither row nor column major")
+    if not _route(name, L):
+        return dd2d.tri_solve_ref(L, r)
+    lib = _load()
+    z = torch.empty_like(r)
+    words, epoch = _tri_epoch(L.device, 2 * P * n * (r.element_size() // 4))
+    err = lib.tri_solve(_DTYPES[dt], _ptr(S), _ptr(r), _ptr(z), P, n,
+                        int(upper), epoch, _ptr(words), _stream(L))
+    _ok_coop(name, err)
+    return z
+
+
 def admm_local_step2d(Dx, u4, w, vol_dtsq, mu, lam, mat, want_counts=False):
     """K29: (z, du), each (4, N): ADMM-PD's per-triangle local step on
     Dx + u4 at dim 2 (see kernels/admm2d.py). Dx, u4: (4, N); w, vol_dtsq,

@@ -7,9 +7,9 @@ pd_solve), K31 at the scan's shapes and on a chunked band, K17-K20
 (K20's line-search entry w_quad) and the per-slab /
 from-F entry points on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
-ADMM-DD entries of K21, K22, K26) against its plain PyTorch
-version on CUDA tensors, K6 at its paths' shapes in one launch a call,
-and time steps on the card against the same steps on the CPU or on the
+ADMM-DD entries of K21, K22, K26, K32 on random factors and on the
+spikes scene's) against its plain PyTorch version on CUDA tensors, K6
+at its paths' shapes in one launch a call, and time steps on the card against the same steps on the CPU or on the
 plain versions (DOT on dense, cyclic-reduction and coarse + chunked plans,
 Newton, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton, DOT 4, ADMM-PD
 and ADMM-DD 4).
@@ -1483,6 +1483,78 @@ def test_dot2d_step_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out[1][2], [3.294256031942e+03,
                                            3.294256605060e+03,
                                            3.300416677680e+03], rtol=2e-4)
+
+
+# ----------------------------------------------------------------------
+# K32: the 2D dense H0 apply's forward and backward substitution
+# ----------------------------------------------------------------------
+# (P, n, layout): the spikes plan's width, column major as the library
+# Cholesky leaves it; widths off the 64-row tiles in both layouts; a P = 1
+# slice L[i:i + 1] of a column-major stack
+K32_CASES = {"p4_5248_col": (4, 5248, "column"),
+             "p3_1000_row": (3, 1000, "row"),
+             "p2_333_col": (2, 333, "column"),
+             "p1_slice_700": (3, 700, "slice")}
+
+
+@pytest.mark.parametrize("case", list(K32_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tri_solve_matches_the_plain_pair(cuda, dtype, case):
+    """K32 against its plain version (two batched library triangular
+    solves) on random SPD factors: f64 1e-12, f32 1e-5 norm-wise; bit for
+    bit from run to run; one launch a call."""
+    from dot_tpu_torch.kernels import dd2d
+    P, n, layout = K32_CASES[case]
+    rng = np.random.default_rng(32)
+    a = torch.as_tensor(rng.normal(size=(P, n, n)), device=cuda)
+    Lc = torch.linalg.cholesky(a @ a.mT / n + torch.eye(
+        n, dtype=torch.float64, device=cuda)).to(dtype)
+    L = {"row": lambda: Lc.contiguous(),
+         "column": lambda: Lc.mT.contiguous().mT,
+         "slice": lambda: Lc.mT.contiguous().mT[1:2]}[layout]()
+    r = torch.as_tensor(rng.normal(size=(L.shape[0], n)), dtype=dtype,
+                        device=cuda)
+    ops.reset_launches()
+    z = ops.tri_solve(L, r)
+    assert torch.equal(z, ops.tri_solve(L, r))
+    assert ops.launches["tri_solve"] == 2
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(z, dd2d.tri_solve_ref(L, r)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tri_solve_on_the_spikes_factor(cuda, dtype):
+    """K32 in System2D.solve_local on the spikes scene's factor (resolution
+    20,000 on the 4-part element plan: P 4, n 5,248; System2D.rebuild_h0 at
+    the start): f32 within twice the library pair's error against an f64
+    solve of the same factor, f64 within 1e-12 of the pair; each
+    subdomain's P = 1 slice (subdomain_solve's L[i:i + 1]) bit for bit its
+    row of the batch; bit for bit from run to run; one solve_local runs
+    K32's kernel alone (torch.profiler: no trsv, no device-to-device
+    copy)."""
+    from dot_tpu_torch.kernels import dd2d
+    from dot_tpu_torch.profiling import device_kernels
+    st = _dd_system_2d(cuda, dtype, resolution=20000)
+    sysm = st.system
+    x = torch.as_tensor(st.script_data.x0, dtype=dtype, device=cuda)
+    fixed = torch.as_tensor(st.script_data.fixed0, device=cuda)
+    _, L, d, _ = sysm.rebuild_h0(x, fixed)
+    assert tuple(L.shape) == (4, 5248, 5248)
+    g = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(sysm.n_vert, 3)), dtype=dtype, device=cuda)
+    r = ops.h0_gather2d(g, sysm.l2g, sysm.local_valid, d)
+    z = sysm.solve_local(L, r)
+    assert torch.equal(z, sysm.solve_local(L, r))
+    lib = dd2d.tri_solve_ref(L, r)
+    if dtype == torch.float32:
+        z64 = dd2d.tri_solve_ref(L.double(), r.double())
+        assert _rel(z.double(), z64) <= 2 * _rel(lib.double(), z64)
+    else:
+        assert _rel(z, lib) <= 1e-12
+    for i in range(4):
+        assert torch.equal(sysm.solve_local(L[i:i + 1], r[i:i + 1])[0], z[i])
+    k = device_kernels(lambda: sysm.solve_local(L, r))
+    assert sum(k.values()) == 1 and all("tri_solve" in name for name in k), k
 
 
 # ----------------------------------------------------------------------

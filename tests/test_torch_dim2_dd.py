@@ -329,3 +329,32 @@ def test_plain_route_and_refusals(pair, state):
                                ts.local_valid, torch.ones(4, 2 * ts.l2g.shape[1],
                                                           dtype=torch.float64),
                                4)
+
+
+def test_solve_local_route_and_refusals(pair, factored):
+    """K32 on the CPU: System2D.solve_local (and subdomain_solve's P = 1
+    slice L[i:i + 1]) takes the plain pair of library triangular solves,
+    bit for bit, and counts no launch; the wrapper reads the factor row or
+    column major and refuses other strides, shapes, dtypes and devices."""
+    _, ts, _ = pair
+    _, _, Lt, _ = factored
+    rng = np.random.default_rng(7)
+    r = torch.as_tensor(rng.normal(size=(Lt.shape[0], Lt.shape[-1])))
+    ops.reset_launches()
+    assert not Lt.is_contiguous() and Lt.mT.is_contiguous()
+    assert torch.equal(ts.solve_local(Lt, r), dd2d.tri_solve_ref(Lt, r))
+    assert torch.equal(ts.solve_local(Lt[1:2], r[1:2]),
+                       dd2d.tri_solve_ref(Lt[1:2], r[1:2]))
+    Lr = Lt.contiguous()
+    assert torch.equal(ops.tri_solve(Lr, r), dd2d.tri_solve_ref(Lr, r))
+    assert ops.launches["tri_solve"] == 0
+    with pytest.raises(ValueError, match="neither row nor column major"):
+        ops.tri_solve(Lr[:, ::2, ::2], r[:, ::2].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        ops.tri_solve(Lr, r[:, 1:].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        ops.tri_solve(Lr[:, :, 1:], r)
+    with pytest.raises(TypeError):
+        ops.tri_solve(Lr, r.float())
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        ops.tri_solve(Lr.to("meta"), r.to("meta"))
