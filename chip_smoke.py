@@ -7,9 +7,9 @@ Phases (each prints its lines; any failure exits non-zero before the
 result line):
   probe    device name, `nvidia-smi` name and power limit, nvcc and triton
   build    the CUDA sources of csrc/ (K1-K3 elem.cu, K5 band_asm.cu, K6
-           chol_inv.cu, K31 schur.cu, K7 and K15 block_matvec.cu, K8 and
-           K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13 hdiag.cu, K14 and
-           K15's permute passes pd.cu, K17 / K18 / K20 admm.cu, K21-K24
+           chol_inv.cu, K31 schur.cu, K7 (K15's solve too) block_matvec.cu,
+           K8 and K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13
+           hdiag.cu, K14 pd.cu, K17 / K18 / K20 admm.cu, K21-K24
            elem2d.cu, K25-K28 dd2d.cu, K32 trsolve.cu, K29 / K30
            admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
@@ -40,20 +40,17 @@ result line):
            1e-6 norm-wise on the lower triangle, two calls bit for bit,
            one launch a call; timed with the casts + f32 GEMM + subtraction
            it replaced and torch.bmm(out_dtype=float32) where the card's
-           torch has it), the factor's level blocks (K7 on bf16 and
-           f32 storage in f32 runs; one subdomain's strided blocks read in
-           place), K7's solve entry on the factor and on one subdomain's
-           slice of it (one cooperative launch a solve: bit for bit the K7
-           launch sequence it replaces, one device kernel in a CUDA graph
-           capture and in torch.profiler's trace, single and back-to-back
-           times against the sequence), the vertex gather and averaging; K13 on the same element
-           Hessians, K16 on the same plan; K14 and K15 on the bar17 PD band
-           (bs 512, nb 33): the assembled band, the solve's block products
-           with 3 right-hand sides (each column equal to K7's) and its
-           permute / scale passes (yardsticks, off the paths), and
-           pd_solve as one launch of K7's solve entry ("pd": bit for bit
-           that 132-launch sequence, one device kernel a call, single and
-           back-to-back times); K17 (with the Newton iterations and
+           torch has it), K7's solve entry on the factor and on one
+           subdomain's strided slice of it (one cooperative launch a solve:
+           the plain version's result within K7's tolerance, two calls bit
+           for bit, one device kernel in a CUDA graph capture and in
+           torch.profiler's trace, single and back-to-back times), the
+           vertex gather and averaging; K13 on the same element Hessians,
+           K16 on the same plan; K14 and K15 on the bar17 PD band (bs 512,
+           nb 33): the assembled band and pd_solve as one launch of K7's
+           solve entry ("pd": against the plain gather, 3-column products
+           and scatter, one device kernel a call, single and back-to-back
+           times); K17 (with the Newton iterations and
            energy evaluations each element took, which must equal the plain
            version's and which set its bound), its SPD projection alone,
            and K18 with both epilogues at the ADMM-PD shapes on random,
@@ -100,7 +97,7 @@ result line):
   steppers bar17 twist, f32, relTol 1e-5, through sim.Simulator, 3 frames
            each (Newton 2): DOT 6 (the yardstick), LBFGS (LBFGS-PD: exact
            f32 P = 1 BTDFactor of the PD band; K14; pd_solve one launch of
-           K7's solve entry an iteration, no K15 product), GSDD 6 (K16 and K7
+           K7's solve entry an iteration), GSDD 6 (K16 and K7
            on one subdomain's blocks: 2 launches of K16 per subdomain per
            sweep), DOT 6 with warmStart 5 (K13 once a frame), Newton (one
            exact P = 1 banded factorization per inner iteration), LBFGSH,
@@ -134,12 +131,12 @@ result line):
            coarse) timed; K9-K12 and K5's compact entry point against their
            plain versions on the real plan, owner map, element Hessians and
            L-BFGS history (K9's two entries), and K6 and K7 at this
-           path's own shapes (the
-           (6P)^2 coarse block, the scan's lower-only (133, 768, 768)
-           stage, the two mat-vecs on Lc^{-1}), K7's solve entry on the
-           run's scan factor and on the coarse pair (library: two
-           torch.mv), f64 and f32, timed with library and bound; the first 2 frames again with the plain
-           versions (sysE rtol 1e-3)
+           path's own shapes (the (6P)^2 coarse block, the scan's
+           lower-only (133, 768, 768) stage), K7's solve entry on the
+           run's scan factor and on the coarse pair Lc^{-T} Lc^{-1}
+           (library: two torch.mv), f64 and f32, timed with library and
+           bound; the first 2 frames again with the plain versions (sysE
+           rtol 1e-3)
   dim2     the 2D path through dim2.Sim2D on scene files written here:
            the spikes stretch golden (resolution 200, Newton, f64, kernels
            on: sysE against the recorded trace at rtol 2e-4, z = 0, the
@@ -300,8 +297,6 @@ SOURCES = {
                  "dot_tpu/steppers/core.py:904"),
     "schur_update": ("cuda", "dot_tpu_torch/kernels/csrc/schur.cu",
                      "dot_tpu/steppers/core.py:1544"),
-    "block_matvec": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
-                     "dot_tpu/steppers/core.py:1061"),
     "block_solve": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
                     "dot_tpu/steppers/core.py:1061"),
     "h0_gather": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
@@ -326,12 +321,6 @@ SOURCES = {
                      "dot_tpu/steppers/core.py:1587"),
     "pd_assemble": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
                     "dot_tpu/steppers/core.py:1656"),
-    "block_matvec_k": ("cuda", "dot_tpu_torch/kernels/csrc/block_matvec.cu",
-                       "dot_tpu/steppers/core.py:1224"),
-    "pd_gather": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
-                  "dot_tpu/steppers/core.py:1704"),
-    "pd_scatter": ("cuda", "dot_tpu_torch/kernels/csrc/pd.cu",
-                   "dot_tpu/steppers/core.py:1704"),
     "local_gather_one": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
                          "dot_tpu/steppers/core.py:1282"),
     "local_scatter_one": ("cuda", "dot_tpu_torch/kernels/csrc/h0.cu",
@@ -473,13 +462,8 @@ ADMM_RUNS = {
 ADMM_KERNELS = ("admm_local_step", "dtw_scatter", "own_band_assemble",
                 "w_matvec", "w_diag", "w_quad", "ls_trial_energy_parts",
                 "elem_gradient_from_F")
-# K15's single products and permute passes (block_matvec_k, pd_gather,
-# pd_scatter) are off every path since pd_solve is one launch of K7's
-# solve entry: their yardstick checks stay in the kernels phase, and the
-# steppers and admm phases require them to stay at 0 launches
 STEPPER_KERNELS = ("hessian_diag", "pd_assemble", "local_gather_one",
                    "local_scatter_one")
-K15_OFF_PATH = ("block_matvec_k", "pd_gather", "pd_scatter")
 # K9-K16 vs plain: f64 1e-12, f32 1e-5 max-rel and 1e-4 norm-wise (sums
 # in another order); K12's bf16 band: at most 1 bf16 ulp apart
 TOL_SCALE = {"float64": dict(elem=1e-12, sum=1e-12),
@@ -679,37 +663,24 @@ def _report(torch, tag, kname, checks, fns, cost, bad, record,
 def _solve_check(torch, tag, kname, kind, leaves, r, tol, bad, record,
                  library=None):
     """K7's solve entry on one factor (band.solve_program's `kind` on
-    `leaves`, right-hand sides r): bit for bit the launch sequence it
-    replaces (K7's single products; for "pd" K15's gather, 3-column
-    products and scatter), the plain version (band.block_solve_ref) within
-    `tol` norm-wise, one device kernel a call (_work_check); timed single
-    and back to back against the plain version, the sequence and `library`
-    (one PyTorch call computing the same function, or None). The f32
-    record gets the sequence's times, the back-to-back times, the stages
-    and the device kernels a call."""
+    `leaves`, right-hand sides r): the plain version (band.block_solve_ref)
+    within `tol` norm-wise, two calls bit for bit, one device kernel a call
+    (_work_check); timed single and back to back against the plain version
+    and `library` (one PyTorch call computing the same function, or None).
+    The f32 record gets the back-to-back times, the stages and the device
+    kernels a call."""
     from dot_tpu_torch.kernels import band, ops
     prog = band.solve_program(kind, leaves)
     z = ops.block_solve(prog, leaves, r)
-    # the launch sequence the entry replaces: one launch a product
-    if kind == "pd":
-        def seq_fn():
-            return band.block_solve_ref(prog, leaves, r, ops.block_matvec_k,
-                                        ops.pd_gather, ops.pd_scatter)
-    else:
-        def seq_fn():
-            return band.block_solve_ref(prog, leaves, r, ops.block_matvec)
-    seq = seq_fn()
+    z2 = ops.block_solve(prog, leaves, r)
     ref = band.block_solve_ref(prog, leaves, r)
     n_dev = _work_check(tag, kname, lambda: ops.block_solve(prog, leaves, r),
                         1, ("solve_kernel",), bad)
     st = prog.stages
-    prod = st[np.isin(st[:, band.F_OP], (band.OP_A, band.OP_AT))]
-    n_seq = len(prod) + (2 if kind == "pd" else 0)
-    seq_name = "K15" if kind == "pd" else "K7"
     checks = [
-        (f"vs the {seq_name} sequence of {n_seq} launches (bit for bit)",
-         0.0 if torch.equal(z, seq) else max(_rel_max(z, seq), 1e-300),
-         0.0, float((z - seq).abs().max())),
+        ("two calls (bit for bit)",
+         0.0 if torch.equal(z, z2) else max(_rel_max(z, z2), 1e-300),
+         0.0, float((z - z2).abs().max())),
         ("vs plain", _rel_norm(z, ref), tol, float((z - ref).abs().max()))]
     say(f"kernels: {tag} {kname}: {kind}, P {prog.P}, nb {prog.nb}, n "
         f"{prog.n}, k {prog.k}, leaves "
@@ -719,21 +690,15 @@ def _solve_check(torch, tag, kname, kind, leaves, r, tol, bad, record,
            lambda: band.block_solve_ref(prog, leaves, r), library)
     _report(torch, tag, kname, checks, fns, band.solve_cost(prog, leaves, r),
             bad, record)
-    seq_ms = _median_ms(torch, seq_fn)
     b2b = _back_to_back_ms(torch, fns[0])
-    seq_b2b = _back_to_back_ms(torch, seq_fn)
     lib_b2b = None if library is None else _back_to_back_ms(torch, library)
-    say(f"kernels: {tag} {kname}: {seq_name} sequence {seq_ms:.4f} ms a "
-        f"solve; back to back {b2b:.4f} ms a solve, {seq_name} sequence "
-        f"{seq_b2b:.4f}"
-        + ("" if lib_b2b is None else f", library {lib_b2b:.4f}") + " ms")
+    say(f"kernels: {tag} {kname}: back to back {b2b:.4f} ms a solve"
+        + ("" if lib_b2b is None else f", library {lib_b2b:.4f} ms"))
     if tag == "float32":
         record[kname].update(
-            k7_sequence_ms=seq_ms, back_to_back_ms=b2b,
-            k7_sequence_back_to_back_ms=seq_b2b,
-            library_back_to_back_ms=lib_b2b, stages=len(st),
-            k7_launches_replaced=n_seq, launches_per_call=n_dev)
-    del z, seq, ref
+            back_to_back_ms=b2b, library_back_to_back_ms=lib_b2b,
+            stages=len(st), launches_per_call=n_dev)
+    del z, z2, ref
 
 
 def phase_kernels(torch, record):
@@ -963,52 +928,11 @@ def phase_h0_kernels(torch, record):
                                  A_odd.shape[0] * 2 * bs ** 3 / 3)
             del Lk, Xk, Lr, Xr, Li_, Xi_, indef
 
-            # K7 on the factor's first level (bf16 leaves in f32 runs)
             fac, d = sysm.factorize((diag, sub), fast=True)
-            Li0, G_lo = fac.levels[0][0], fac.levels[0][1]
-            n_odd = Li0.shape[0]
-            A7 = G_lo.reshape(-1, bs, bs)
-            v = torch.as_tensor(rng.normal(size=(n_odd * P, bs)),
-                                dtype=dtype, device="cuda")
-            c = torch.as_tensor(rng.normal(size=(n_odd * P, bs)),
-                                dtype=dtype, device="cuda")
-            checks = []
-            stores = [A7] + ([A7.to(torch.float32)] if dtype ==
-                             torch.float32 else [])
-            for A in stores:
-                for trans in (False, True):
-                    k_ = ops.block_matvec(A, v, c, trans)
-                    r_ = band.block_matvec_ref(A, v, c, trans)
-                    checks.append((f"{str(A.dtype).split('.')[-1]}"
-                                   f"{'^T' if trans else ''}",
-                                   _rel_norm(k_, r_), tol["exact"],
-                                   float((k_ - r_).abs().max())))
-            # one subdomain's blocks of the scan-major leaf, read in place
-            # (the GSDD sweep): equal to K7 on a contiguous copy of them
             part_i = P - 2
-            A_s = G_lo[:, part_i]
-            v_s, c_s = v[:n_odd].contiguous(), c[:n_odd].contiguous()
-            for trans in (False, True):
-                k_ = ops.block_matvec(A_s, v_s, c_s, trans)
-                r_ = ops.block_matvec(A_s.contiguous(), v_s, c_s, trans)
-                checks.append((f"strided{'^T' if trans else ''} "
-                               f"(batch stride {A_s.stride(0)})",
-                               _rel_max(k_, r_), 0.0,
-                               float((k_ - r_).abs().max())))
-            if A_s.is_contiguous() or A_s.data_ptr() != (
-                    G_lo.data_ptr() + part_i * bs * bs * G_lo.element_size()):
-                bad.append(f"block_matvec {name}: the subdomain slice is "
-                           "not a view of the leaf")
-            res["block_matvec"] = checks
-            A7_up = A7.to(dtype)
-            times["block_matvec"] = (
-                lambda: ops.block_matvec(A7, v, c, True),
-                lambda: band.block_matvec_ref(A7, v, c, True),
-                lambda: torch.bmm(A7_up.mT, v[..., None]))
-            costs["block_matvec"] = (A7.numel() * A7.element_size()
-                                     + 3 * v.numel() * sz, 2 * A7.numel())
-            # K7's solve entry on the same factor (the main path's solve)
-            # and on one subdomain's slice of it (the GSDD sweep's)
+            # K7's solve entry on the factor (the main path's solve; bf16
+            # leaves in f32 runs) and on one subdomain's strided slice of it
+            # (the GSDD sweep's), read in place
             leaves = factor_leaves(fac)
             rs = torch.as_tensor(rng.normal(size=(P, sysm.n3)), dtype=dtype,
                                  device="cuda")
@@ -1101,8 +1025,9 @@ def phase_h0_kernels(torch, record):
                         costs[kname], bad, record)
             say(f"kernels: {name} shapes: band {tuple(diag.shape)} + "
                 f"{tuple(sub.shape)}, K6 batches {tuple(A_odd.shape)} and "
-                f"{tuple(A_root.shape)}, K7 {tuple(A7.shape)} "
-                f"{A7.dtype}, K8 rhs {tuple(rhs.shape)} -> r "
+                f"{tuple(A_root.shape)}, K7 leaves "
+                f"{str(fac.levels[0][1].dtype).split('.')[-1]}, K8 rhs "
+                f"{tuple(rhs.shape)} -> r "
                 f"{tuple(gk.shape)}")
             del sysm, fac, eh, fk, diag, sub, dg, A_odd
             torch.cuda.empty_cache()
@@ -1204,11 +1129,10 @@ def phase_main(torch, launches_out):
             f"lbfgs_second {launches['lbfgs_second']} over {n_it} "
             f"iterations (one of each a two-loop); K6 "
             f"{launches['chol_inv']} over 11 rebuilds")
-        k7 = launches["block_solve"] + launches["block_matvec"]
-        say(f"main: K7 launches: block_solve {launches['block_solve']} (one "
-            f"a solve; {launches['lbfgs_first']} two-loops), block_matvec "
-            f"{launches['block_matvec']}: {k7 / 11:.2f} a frame (at most "
-            "10)")
+        k7 = launches["block_solve"]
+        say(f"main: K7 launches: block_solve {k7} (one a solve; "
+            f"{launches['lbfgs_first']} two-loops): {k7 / 11:.2f} a frame "
+            "(at most 10)")
         problems = []
         if k7 > 10 * 11 or launches["block_solve"] != launches["lbfgs_first"]:
             problems.append(f"K7 launched {k7} times in 11 frames, "
@@ -1554,63 +1478,8 @@ def phase_pd_kernels(torch, record):
                     or L.linv.dtype != dtype:
                 bad.append(f"pd factor {name}: {type(L).__name__}")
             nb, bs = L.linv.shape[0], L.linv.shape[2]
-            # K15 at the solve's shape: one block, 3 right-hand sides
-            A1 = L.linv[nb // 2]                                 # (1, bs, bs)
-            v3 = torch.as_tensor(rng.normal(size=(1, bs, 3)), dtype=dtype,
-                                 device="cuda")
-            c3 = torch.as_tensor(rng.normal(size=(1, bs, 3)), dtype=dtype,
-                                 device="cuda")
-            checks = []
-            Aall = L.linv.view(nb, bs, bs)
-            vall = torch.as_tensor(rng.normal(size=(nb, bs, 3)), dtype=dtype,
-                                   device="cuda")
-            for trans in (False, True):
-                k_ = ops.block_matvec_k(Aall, vall, vall, trans)
-                r_ = pd.block_matvec_k_ref(Aall, vall, vall, trans)
-                checks.append(("A^T" if trans else "A", _rel_norm(k_, r_),
-                               tol["sum"], float((k_ - r_).abs().max())))
-                k1 = ops.block_matvec_k(A1, v3, c3, trans)
-                worst = 0.0
-                for j in range(3):
-                    col = ops.block_matvec(A1, v3[..., j].contiguous(),
-                                           c3[..., j].contiguous(), trans)
-                    worst = max(worst, float((k1[..., j] - col).abs().max()))
-                checks.append((f"columns vs K7{'^T' if trans else ''}",
-                               worst, 0.0, None))
-            if dtype == torch.float32:
-                Ab = Aall.to(torch.bfloat16)
-                k_ = ops.block_matvec_k(Ab, vall, None, True)
-                r_ = pd.block_matvec_k_ref(Ab, vall, None, True)
-                checks.append(("bf16^T", _rel_norm(k_, r_), tol["sum"], None))
-            res["block_matvec_k"] = checks
-            times["block_matvec_k"] = (
-                lambda: ops.block_matvec_k(A1, v3, c3, True),
-                lambda: pd.block_matvec_k_ref(A1, v3, c3, True),
-                lambda: torch.bmm(A1.mT, v3))
-            costs["block_matvec_k"] = ((bs * bs + 9 * bs) * sz, 6 * bs * bs)
-
             rhs = torch.as_tensor(rng.normal(size=(nv, 3)), dtype=dtype,
                                   device="cuda")
-            zz = torch.as_tensor(rng.normal(size=(bp.nv_p, 3)), dtype=dtype,
-                                 device="cuda")
-            gk, gr = ops.pd_gather(rhs, bp.inv, d[0]), \
-                pd.pd_gather_ref(rhs, bp.inv, d[0])
-            sk, sr = ops.pd_scatter(zz, bp.perm, d[0]), \
-                pd.pd_scatter_ref(zz, bp.perm, d[0])
-            res["pd_gather"] = [("r", _rel_max(gk, gr), tol["elem"],
-                                 float((gk - gr).abs().max()))]
-            res["pd_scatter"] = [("p", _rel_max(sk, sr), tol["elem"],
-                                  float((sk - sr).abs().max()))]
-            times["pd_gather"] = (lambda: ops.pd_gather(rhs, bp.inv, d[0]),
-                                  lambda: pd.pd_gather_ref(rhs, bp.inv, d[0]),
-                                  None)
-            times["pd_scatter"] = (
-                lambda: ops.pd_scatter(zz, bp.perm, d[0]),
-                lambda: pd.pd_scatter_ref(zz, bp.perm, d[0]), None)
-            costs["pd_gather"] = ((3 * nv + 4 * bp.nv_p) * sz + 8 * bp.nv_p,
-                                  3 * bp.nv_p)
-            costs["pd_scatter"] = ((3 * nv + 4 * bp.nv_p) * sz + 8 * nv,
-                                   3 * nv)
 
             # the whole solve: kernels against the plain versions
             plain = System(mesh, cfg, None, dtype=dtype, device="cuda",
@@ -1625,8 +1494,8 @@ def phase_pd_kernels(torch, record):
             for kname, checks in res.items():
                 _report(torch, name, kname, checks, times[kname],
                         costs[kname], bad, record)
-            # K15 redesigned: pd_solve as one launch of K7's solve entry,
-            # bit for bit the gather + 4 nb - 2 products + scatter above
+            # K15: pd_solve as one launch of K7's solve entry (the gather,
+            # 4 nb - 2 3-column products, the scatter)
             _solve_check(torch, name, "block_solve@pd", "pd",
                          [L.linv, L.sub, bp.inv, bp.perm, d[0]], rhs,
                          tol["sum"], bad, record)
@@ -1634,7 +1503,7 @@ def phase_pd_kernels(torch, record):
                 f"{n_it} items into {bp.udest.numel()} slots of "
                 f"{bp.total}; factor {type(L).__name__} {L.linv.dtype}; "
                 f"pd_solve kernels vs plain rel {solve_err:.3e}")
-            del sysm, plain, L, fk, Aall, vals, acc
+            del sysm, plain, L, fk, vals, acc
             torch.cuda.empty_cache()
         if bad:
             raise Fail("kernel disagrees with its plain version: "
@@ -1688,7 +1557,7 @@ def phase_steppers(torch, launches_out, record):
             kind, leaf_dt, shape = _factor_kind(fac)
             if tag == "Newton":
                 # K7's solve entry on the P = 1 factor (f64: its leaves
-                # cast), against the K7 sequence and the plain version
+                # cast), against the plain version
                 lv = list(fac)
                 rr = torch.randn((1, sysm.n3), device="cuda")
                 for dt_ in (torch.float64, torch.float32):
@@ -1727,18 +1596,15 @@ def phase_steppers(torch, launches_out, record):
             iters = sum(r["iters"] for r in fr)
             if tag == "LBFGS":
                 # one pd_solve an iteration (the H0 apply): one launch of
-                # K7's solve entry, no K15 product, gather or scatter
+                # K7's solve entry
                 bp = sysm.pd_band_plan
-                k15 = {k: launches[k] for k in K15_OFF_PATH}
                 say(f"steppers: LBFGS: PD band bs {bp.bs}, nb {bp.nb}; "
                     f"K14 {launches['pd_assemble']} launch; pd_solve "
                     f"{launches['block_solve'] / max(iters, 1):.2f} solve "
-                    f"launches per iteration (want 1), K15 products / "
-                    f"permute passes {k15} (want 0)")
+                    f"launches per iteration (want 1)")
                 if (kind != "BTDFactor" or leaf_dt != ["float32"]
                         or shape[1] != 1 or launches["pd_assemble"] != 1
-                        or launches["block_solve"] != iters
-                        or any(k15.values())):
+                        or launches["block_solve"] != iters):
                     problems.append(f"LBFGS: factor {kind} {leaf_dt} "
                                     f"{shape}, launches {launches}")
             if tag == "GSDD6":
@@ -1797,10 +1663,6 @@ def phase_steppers(torch, launches_out, record):
             if total[k] <= 0:
                 problems.append(f"kernel {k} never launched on the steppers "
                                 "path")
-        for k in K15_OFF_PATH:
-            if total[k]:
-                problems.append(f"{k} launched {total[k]} times on the "
-                                "steppers path (pd_solve is one launch)")
         if problems:
             raise Fail("steppers path: " + "; ".join(problems))
     finally:
@@ -2176,18 +2038,15 @@ def phase_admm(torch, launches_out):
                     problems.append(f"{tag}: kernel {k} never launched")
             if tag == "ADMM":
                 kind, leaf_dt, shape = _factor_kind(sim.state.chol)
-                k15 = {k: launches[k] for k in K15_OFF_PATH}
                 say(f"admm: ADMM: global factor {kind} {leaf_dt} {shape}; "
                     f"K17 {launches['admm_local_step'] / max(iters, 1):.2f}, "
                     f"K18 {launches['dtw_scatter'] / max(iters, 1):.2f}, "
                     f"pd_solve {launches['block_solve'] / max(iters, 1):.2f} "
-                    f"solve launches per iteration (want 1); K15 products "
-                    f"/ permute passes {k15} (want 0)")
+                    f"solve launches per iteration (want 1)")
                 if (kind != "BTDFactor" or leaf_dt != ["float32"]
                         or launches["admm_local_step"] != iters
                         or launches["dtw_scatter"] != iters + len(fr)
-                        or launches["block_solve"] != iters
-                        or any(k15.values())):
+                        or launches["block_solve"] != iters):
                     problems.append(f"ADMM: factor {kind} {leaf_dt}, "
                                     f"launches {launches}")
             else:
@@ -2256,10 +2115,6 @@ def phase_admm(torch, launches_out):
         for k in ADMM_KERNELS:
             if total[k] <= 0:
                 problems.append(f"kernel {k} never launched on the admm path")
-        for k in K15_OFF_PATH:
-            if total[k]:
-                problems.append(f"{k} launched {total[k]} times on the admm "
-                                "path (pd_solve is one launch)")
         if problems:
             raise Fail("admm path: " + "; ".join(problems))
     finally:
@@ -3932,8 +3787,7 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
         # K6 and K7 at this path's shapes: the coarse factor (one (6P)^2
         # block of the run's Kn + 1e-4 I, symmetrized; 0.05 where the plain
         # version flags it, as the path's tier), the scan's first stage
-        # (lower triangle read), and the coarse solve's two mat-vecs on
-        # Lc^{-1} (op A, then A^T)
+        # (lower triangle read), and the coarse solve's pair on Lc^{-1}
         ch = TOL_H0[name]
         Kn, _ = sm._coarse_matrix(eh, fixed)
         n6 = Kn.shape[0]
@@ -3954,23 +3808,8 @@ def _check_scale_kernels(torch, sysm, x, fixed, hist, record):
                             A.shape[0] * 2 * A.shape[-1] ** 3 / 3)
         li = plain_inv["chol_inv@coarse"].contiguous()
         v6 = torch.randn((1, n6), dtype=dtype, device="cuda")
-        checks = []
-        for trans in (False, True):
-            k_ = ops.block_matvec(li, v6, None, trans)
-            r_ = band.block_matvec_ref(li, v6, None, trans)
-            checks.append(("A^T" if trans else "A", _rel_norm(k_, r_),
-                           ch["exact"], float((k_ - r_).abs().max())))
-        res["block_matvec@coarse"] = checks
         li0 = li[0]
-        times["block_matvec@coarse"] = (
-            lambda: ops.block_matvec(li, ops.block_matvec(li, v6), None,
-                                     True),
-            lambda: band.block_matvec_ref(
-                li, band.block_matvec_ref(li, v6), None, True),
-            lambda: torch.mv(li0.T, torch.mv(li0, v6[0])))
-        costs["block_matvec@coarse"] = (2 * (n6 * n6 + 2 * n6) * sz,
-                                        4 * n6 * n6)
-        # the pair as K7's solve entry: one launch, the yardstick two mv
+        # the pair as K7's solve entry: one launch, the library two mv
         _solve_check(torch, name, "block_solve@coarse", "pair", [li0], v6,
                      ch["chol"], bad, record,
                      library=lambda: torch.mv(li0.T, torch.mv(li0, v6[0])))
@@ -4070,7 +3909,7 @@ def phase_scale(torch, record, launches_out):
         if problems:
             raise Fail("scale path: " + "; ".join(problems))
         # K7's solve entry on the run's scan factor (bf16 leaves; f64: the
-        # leaves cast), against the K7 sequence and the plain version
+        # leaves cast), against the plain version
         rr = torch.randn((sysm.n_parts, sysm.n3), device="cuda")
         for dt_ in (torch.float64, torch.float32):
             nm = str(dt_).split(".")[-1]

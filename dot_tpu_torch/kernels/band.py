@@ -6,16 +6,16 @@ K5 band_assemble   block-tridiagonal H0 assembly (dot_tpu/steppers/core.py
                    _assemble_btd)
 K6 chol_inv        batched Cholesky L and L^{-1} of SPD blocks (the diagonal
                    blocks of core.py 853-1203)
-K7 block_matvec    out = c - op(A) v over a batch of blocks (core.py
-                   1061-1135 _cr_solve, 1219-1261 _btd_solve)
-K7 block_solve     a whole block-tridiagonal / cyclic-reduction solve, the
+K7 block_solve     a whole block-tridiagonal / cyclic-reduction solve
+                   (core.py 1061-1135 _cr_solve, 1219-1261 _btd_solve), the
                    coarse pair Lc^{-T} Lc^{-1} (core.py 1296-1317), or
                    LBFGS-PD's 3-column pd_solve with its permute / scale
-                   passes (core.py 1704-1719: K15's products), as K7's
-                   products in one launch: the launch sequences
-                   btd_solve_ref / cr_solve_ref / pair_solve_ref /
-                   pd_solve_ref, and the SolveProgram their kernel walks
-                   (solve_program; its CPU mirror run_solve_program_ref)
+                   passes (core.py 1704-1719: K15), as block products
+                   out = c - op(A) v (block_matvec_ref) in one launch: the
+                   product sequences btd_solve_ref / cr_solve_ref /
+                   pair_solve_ref / pd_solve_ref, and the SolveProgram the
+                   kernel walks (solve_program; its CPU mirror
+                   run_solve_program_ref)
 K8 h0_gather /     the vertex gather and duplicate-averaging segment sum of
    h0_average      h0_apply (core.py 1263-1280)
 K5 band_compact    K5's other entry point: the finished compact unique-block
@@ -235,9 +235,9 @@ def chol_inv_tiled_ref(A, symmetrize, tile):
 
 
 def block_matvec_ref(A, v, c=None, trans=False, out=None):
-    """K7 plain: op(A) v, or c - op(A) v, over a batch: A (B, n, n) in
-    bf16, f32 or f64 (taken to v's dtype), v and c (B, n). `out` (may be c)
-    receives the result."""
+    """K7's block product, plain: op(A) v, or c - op(A) v, over a batch:
+    A (B, n, n) in bf16, f32 or f64 (taken to v's dtype), v and c (B, n).
+    `out` (may be c) receives the result."""
     a = A.mT if trans else A
     r = torch.matmul(a.to(v.dtype), v[..., None])[..., 0]
     if c is not None:
@@ -249,10 +249,10 @@ def block_matvec_ref(A, v, c=None, trans=False, out=None):
 
 
 # ---------------------------------------------------------------------------
-# K7's solves: the launch sequences, and the same products as one program
+# K7's solves: the product sequences, and the same products as one program
 # ---------------------------------------------------------------------------
 def _mv(mv, A, v, c=None, trans=False, out=None):
-    """`mv` (block_matvec's signature over (B, n, n) blocks and (B, n) or
+    """`mv` (block_matvec_ref's signature over (B, n, n) blocks and (B, n) or
     (B, n, k) vectors) on blocks of any leading shape: A (..., n, n); v, c
     (..., n) or (..., n, k) with the same leading shape. A is viewed, never
     copied: one subdomain's slice [:, i:i+1] of a scan-major leaf keeps its
@@ -288,8 +288,7 @@ def btd_solve_ref(linv, sub, r, mv=block_matvec_ref):
     """The block-tridiagonal solve with the pre-inverted diagonal factors
     (linv (nb, P, n, n), sub (nb - 1, P, n, n)) against r (P, nb n), or
     (P, nb n, k) for k right-hand sides at once: 4 nb - 2 calls of `mv`
-    (block_matvec_ref; K7's launches with ops.block_matvec, K15's with
-    ops.block_matvec_k and k columns)."""
+    (block_matvec_ref; pd.block_matvec_k_ref with k columns)."""
     nb, P, n = linv.shape[0], linv.shape[1], linv.shape[-1]
     tail = tuple(r.shape[2:])
     rT = r.reshape((P, nb, n) + tail).transpose(0, 1).contiguous()
@@ -345,9 +344,7 @@ def pd_solve_ref(linv, sub, inv, perm, d, rhs, mv=pd.block_matvec_k_ref,
     (nb - 1, 1, n, n)) for rhs (nV, 3), the three coordinates as right-hand
     sides (dot_tpu core.py:1704-1719): `gather` (rows permuted by inv,
     zero-padded, / d), btd_solve_ref with 3 columns (4 nb - 2 calls of the
-    k-column `mv`), `scatter` (/ d, rows un-permuted by perm). With
-    ops.block_matvec_k, ops.pd_gather and ops.pd_scatter: the K15 launch
-    sequence that K7's solve entry replaced."""
+    k-column `mv`), `scatter` (/ d, rows un-permuted by perm)."""
     rp = gather(rhs, inv, d)
     z = btd_solve_ref(linv, sub, rp[None], mv)[0]
     return scatter(z.contiguous(), perm, d)
@@ -355,12 +352,11 @@ def pd_solve_ref(linv, sub, inv, perm, d, rhs, mv=pd.block_matvec_k_ref,
 
 def block_solve_ref(prog, leaves, r, mv=None, gather=pd.pd_gather_ref,
                     scatter=pd.pd_scatter_ref):
-    """K7's solve entry, plain: the launch sequence of `prog`'s kind (a
+    """K7's solve entry, plain: the product sequence of `prog`'s kind (a
     SolveProgram; leaves and r as solve_program and ops.block_solve take
     them), each block product a call of `mv` (default block_matvec_ref, or
-    pd.block_matvec_k_ref for the 3-column "pd" kind; ops.block_matvec /
-    ops.block_matvec_k: the launches the entry replaced); "pd" also calls
-    `gather` and `scatter` (ops.pd_gather / ops.pd_scatter)."""
+    pd.block_matvec_k_ref for the 3-column "pd" kind); "pd" also calls
+    `gather` and `scatter`."""
     if prog.kind == "pd":
         return pd_solve_ref(*leaves, r, mv or pd.block_matvec_k_ref, gather,
                             scatter)

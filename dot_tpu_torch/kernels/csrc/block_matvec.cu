@@ -1,43 +1,42 @@
-// K7 block_matvec: out = op(A) v, or out = c - op(A) v, over a batch of
-// square blocks, op in {A, A^T}. A is stored in bf16, f32 or f64 and taken
-// to the solve type T (f32 or f64) in registers; v, c and out are T and
-// the sums are taken in T.
+// K7's solve entry: a whole block solve in ONE cooperative launch. Its
+// products are out = op(A) v, or out = c - op(A) v, over a batch of square
+// blocks, op in {A, A^T}. A is stored in bf16, f32 or f64 and taken to the
+// solve type T (f32 or f64) in registers; v, c and out are T and the sums
+// are taken in T.
 //
 // Replaces the block mat-vecs of dot_tpu/steppers/core.py:1061-1135
 // (_cr_solve: Li r_odd, G_lo^T z, G_hi^T z, G_lo x, G_hi x, Li^T t),
-// 1219-1261 (_btd_solve: Linv_k (r_k - S_{k-1} y), Linv_k^T (y - S_k^T z))
-// and 1296-1317 (_coarse_apply: Lc^{-T} (Lc^{-1} r)).
+// 1219-1261 (_btd_solve: Linv_k (r_k - S_{k-1} y), Linv_k^T (y - S_k^T z)),
+// 1296-1317 (_coarse_apply: Lc^{-T} (Lc^{-1} r)) and, with K = 3
+// right-hand sides, 1704-1719 (pd_solve: the permutation, the k-column
+// einsums of _btd_solve, the inverse permutation).
 //
-// Two entries:
-//  - dot_block_matvec: one batch of products a launch (the single-product
-//    entry; its yardstick role: the solve below must equal a sequence of
-//    these bit for bit);
-//  - dot_block_solve: a whole solve in ONE cooperative launch. The host
-//    builds the solve once per factor as a table of stages
-//    (kernels/band.py SolveProgram): each stage is one batch of the
-//    products above (or a copy), with its A (address, batch strides) and
-//    the offsets and strides of v, c and out in the call's input r, output
-//    z and workspace. The kernel walks the stages in order, a grid barrier
-//    before each stage that reads what an earlier one wrote, and each
-//    stage's (block, 32-row or 32-column group) items grid-stride.
-//    The transposes, stacks and interleaves of the host loop it replaces
-//    are addressing in the table; per solve there is one host call and no
-//    host read. A refused cooperative launch (too few co-resident blocks,
-//    no cooperative launch on the device) is an error: there is no
-//    fallback to the launch sequence.
+// One entry, dot_block_solve. The host builds the solve once per factor as
+// a table of stages (kernels/band.py SolveProgram): each stage is one batch
+// of the products above (or a copy, a gather or a scatter), with its A
+// (address, batch strides) and the offsets and strides of v, c and out in
+// the call's input r, output z and workspace. The kernel walks the stages
+// in order, a grid barrier before each stage that reads what an earlier
+// one wrote, and each stage's (block, 32-row or 32-column group) items
+// grid-stride. The transposes, stacks and interleaves of the host loop it
+// replaces are addressing in the table; per solve there is one host call
+// and no host read. A refused cooperative launch (too few co-resident
+// blocks, no cooperative launch on the device) is an error: there is no
+// fallback. The plain version is kernels/band.py block_solve_ref, which
+// walks the same table with plain PyTorch products.
 //
 // Bound on the H100: memory. Each element of A is read once and used for
 // one multiply-add: at bar17 one H0 apply reads the bf16 factor twice,
 // ~0.48 GB, ~0.15 ms at 3.35 TB/s. The solve adds a grid barrier between
 // dependent stages (4 nb - 2 of them for a scan of nb blocks), ~3 us each
-// on an H100 SXM at 700 W (tools/torch_solve_bench.py), where the launch
-// sequence paid a host launch (20-34 us) and a gap on the device: on small
-// stages (bar17's root, P = 1 scans, the coarse pair) the one launch is
-// 2-4x faster. On bar135's stages of 133 blocks it streams ~1.07x slower
-// than the standalone launches (neither the grid size nor 5 blocks an SM
-// moved that). The inverse factors' stages read their lower triangle only
-// (the same bits on finite inputs: kLower); each item asks its A lines
-// into L2 before its loads.
+// on an H100 SXM at 700 W (tools/torch_solve_bench.py), where a launch a
+// stage paid a host launch (20-34 us) and a gap on the device: on small
+// stages (bar17's root, P = 1 scans, the coarse pair) the one launch was
+// 2-4x faster. On bar135's stages of 133 blocks it streamed ~1.07x slower
+// than a launch a stage (neither the grid size nor 5 blocks an SM moved
+// that). The inverse factors' stages read their lower triangle only (the
+// same bits on finite inputs: kLower); each item asks its A lines into L2
+// before its loads.
 //
 // Design: both directions read A coalesced along its rows, and every
 // product sums in the same order wherever it runs (rows_item, cols_item):
@@ -49,35 +48,23 @@
 //    a row; the 8 partial sums are added in shared memory in a fixed order.
 // Several strides of loads are issued before their products (the sums keep
 // their order): a stage of bf16 blocks is bound by the loads in flight.
-// So a solve program is bit for bit the launch sequence of its stages. In
-// the solve kernel v and c are read past L1 (ld.global.cg): they may have
-// been written by another block earlier in the launch.
-// `out` may be `c` (each entry is read and written by the same thread);
-// it must not overlap v. The blocks of A lie `a_stride` entries apart
-// (n * n when contiguous), so one subdomain's blocks of a scan-major
-// (m, P, n, n) factor leaf are read in place (the GSDD sweep).
+// So a solve's result does not depend on the grid or on which block takes
+// an item: two calls agree bit for bit. v and c are read past L1
+// (ld.global.cg): they may have been written by another block earlier in
+// the launch. `out` may be `c` (each entry is read and written by the same
+// thread); it must not overlap v. The blocks of A lie the stage's batch
+// strides apart, so one subdomain's blocks of a scan-major (m, P, n, n)
+// factor leaf are read in place (the GSDD sweep).
 //
-// K15 block_matvec_k (dot_block_matvec_k): the same products against K
-// right-hand sides at once, v, c and out (B, n, K) row-major. Replaces the
-// k-column einsums of _btd_solve (core.py:1224-1261) that pd_solve
-// (core.py:1704-1719) runs with the three coordinates as columns. One
-// launch reads each entry of A once and feeds K accumulators; per column
-// the products are summed in K7's order (same lane strides, same shuffle
-// tree, same shared-memory order), so column j equals K7 on column j.
-// Since the one-launch pd_solve it is the yardstick of the solve's
-// K-column stages, off every path.
-//
-// K15 redesigned: the solve entry with K = 3 columns (the program's kind
-// "pd"): pd_solve in ONE launch. Its stages are the gather (rows permuted
-// by inv, zero-padded, / d: pd.cu's pd_gather), the scan's 4 nb - 2
-// K-column products and the scatter (/ d, un-permuted: pd_scatter), so
-// the launch is bit for bit the 132-launch sequence at bar17 (nb 33):
-// rows_item_k / cols_item_k sum each column in matvec_k_kernel's /
-// matvec_kt_kernel's order (lane strides, shuffle tree, the 8 warps'
-// partials in order); the element-wise stages divide as pd.cu does. Bound:
+// K15, pd_solve in ONE launch (the program's kind "pd", K = 3 columns):
+// its stages are the gather (rows permuted by inv, zero-padded, / d), the
+// scan's 4 nb - 2 K-column products and the scatter (/ d, un-permuted).
+// rows_item_k / cols_item_k read each entry of A once and feed K
+// accumulators, each column summed in the K = 1 order of its direction
+// (lane strides, shuffle tree, the 8 warps' partials in order). Bound:
 // latency. At P = 1 and n = 512 a stage is one 1 MiB block (f32), so the
 // op = A stages take one row a warp (64 items, not 16: a row's sum does
-// not depend on where it runs); the op = A^T stages keep K7's 32-column
+// not depend on where it runs); the op = A^T stages keep the 32-column
 // items (their 8 partial sums fix the order), 16 at n = 512. The ~130 grid
 // barriers (~3 us each) are the design's floor.
 
@@ -108,13 +95,13 @@ __device__ __forceinline__ T up(double x) {
   return T(x);
 }
 
-// v's and c's entries: past L1 where another block may have written them
-// in this launch (the solve), plain loads otherwise
 // a 128 B line of A asked into L2 ahead of its loads (no register held)
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
+// v's and c's entries: past L1 (kCg, as the solve reads them: another
+// block may have written them earlier in the launch), plain loads otherwise
 template <bool kCg, typename T>
 __device__ __forceinline__ T ld(const T* p) {
   if constexpr (kCg) {
@@ -238,27 +225,6 @@ __device__ __forceinline__ void cols_item(const TA* __restrict__ a,
   }
 }
 
-template <typename TA, typename T>
-__global__ void __launch_bounds__(kThreads)
-matvec_kernel(const TA* __restrict__ A, const T* __restrict__ v,
-              const T* c, T* out, int n, int64_t a_stride) {
-  const int64_t b = blockIdx.y;
-  rows_item<false, TA, T>(A + b * a_stride, v + b * n,
-                          c != nullptr ? c + b * n : nullptr, out + b * n, n,
-                          blockIdx.x);
-}
-
-template <typename TA, typename T>
-__global__ void __launch_bounds__(kThreads)
-matvec_t_kernel(const TA* __restrict__ A, const T* __restrict__ v,
-                const T* c, T* out, int n, int64_t a_stride) {
-  __shared__ T part[kWarps][33];
-  const int64_t b = blockIdx.y;
-  cols_item<false, TA, T>(A + b * a_stride, v + b * n,
-                          c != nullptr ? c + b * n : nullptr, out + b * n, n,
-                          blockIdx.x, part);
-}
-
 // ---- the solve program ------------------------------------------------------
 // A stage: kFields int64 (kernels/band.py: the same field order). kA is
 // A's address; its block (j, p) starts kAOff + j kASj + p kASp entries
@@ -286,7 +252,7 @@ constexpr int kOpA = 0, kOpAT = 1, kOpCopy = 2, kOpGather = 3,
 // op = A with K right-hand sides on one block, in the solve: row
 // kWarps group + warp, one row a warp; lane l sums j = l, l + 32, ... in
 // that order for each column, a fixed xor-shuffle tree sums the lanes:
-// matvec_k_kernel's order, kStrides strides of loads in flight.
+// rows_item's order, kStrides strides of loads in flight.
 template <typename TA, typename T, int K>
 __device__ __forceinline__ void rows_item_k(const TA* __restrict__ a,
                                             const T* v, const T* c, T* out,
@@ -338,7 +304,7 @@ __device__ __forceinline__ void rows_item_k(const TA* __restrict__ a,
 
 // op = A^T with K right-hand sides on one block, in the solve: columns
 // [32 group, 32 group + 32), lane = column, warp w summing rows w, w + 8,
-// ... per column, the 8 partials added in order: matvec_kt_kernel's order.
+// ... per column, the 8 partials added in order: cols_item's order.
 // A block barrier before warp 0's sums (the solve alternates two `part`s).
 template <typename TA, typename T, int K>
 __device__ __forceinline__ void cols_item_k(const TA* __restrict__ a,
@@ -485,122 +451,6 @@ solve_kernel(const long long* __restrict__ prog, int n_stage, int n,
   }
 }
 
-template <typename TA, typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-matvec_k_kernel(const TA* __restrict__ A, const T* __restrict__ v,
-                const T* c, T* out, int n) {
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const TA* a = A + static_cast<int64_t>(b) * n * n;
-  const T* vb = v + static_cast<int64_t>(b) * n * K;
-  for (int q = 0; q < kRowsPerWarp; ++q) {
-    const int row = (blockIdx.x * kWarps + warp) * kRowsPerWarp + q;
-    if (row >= n) break;
-    const TA* ar = a + static_cast<int64_t>(row) * n;
-    T acc[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) acc[j] = T(0);
-    for (int i = lane; i < n; i += 32) {
-      const T x = up<T>(ar[i]);
-#pragma unroll
-      for (int j = 0; j < K; ++j) acc[j] += x * vb[i * K + j];
-    }
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], o);
-    }
-    if (lane == 0) {
-      const int64_t k = (static_cast<int64_t>(b) * n + row) * K;
-#pragma unroll
-      for (int j = 0; j < K; ++j)
-        out[k + j] = c != nullptr ? c[k + j] - acc[j] : acc[j];
-    }
-  }
-}
-
-template <typename TA, typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-matvec_kt_kernel(const TA* __restrict__ A, const T* __restrict__ v,
-                 const T* c, T* out, int n) {
-  __shared__ T part[K][kWarps][33];
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = blockIdx.x * 32 + lane;
-  const TA* a = A + static_cast<int64_t>(b) * n * n;
-  const T* vb = v + static_cast<int64_t>(b) * n * K;
-  T acc[K];
-#pragma unroll
-  for (int j = 0; j < K; ++j) acc[j] = T(0);
-  if (col < n) {
-    for (int i = warp; i < n; i += kWarps) {
-      const T x = up<T>(a[static_cast<int64_t>(i) * n + col]);
-#pragma unroll
-      for (int j = 0; j < K; ++j) acc[j] += x * vb[i * K + j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) part[j][warp][lane] = acc[j];
-  __syncthreads();
-  if (warp == 0 && col < n) {
-    const int64_t k = (static_cast<int64_t>(b) * n + col) * K;
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      T s = part[j][0][lane];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) s += part[j][w][lane];
-      out[k + j] = c != nullptr ? c[k + j] - s : s;
-    }
-  }
-}
-
-
-template <typename TA, typename T>
-int launch(const void* A, const void* v, const void* c, void* out,
-           long long batch, int n, int trans, long long a_stride,
-           cudaStream_t s) {
-  if (batch == 0 || n == 0) return 0;
-  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto a = static_cast<const TA*>(A);
-  auto vv = static_cast<const T*>(v);
-  auto cc = static_cast<const T*>(c);
-  auto o = static_cast<T*>(out);
-  if (trans) {
-    dim3 grid((n + 31) / 32, static_cast<unsigned>(batch));
-    matvec_t_kernel<TA, T><<<grid, kThreads, 0, s>>>(a, vv, cc, o, n,
-                                                     a_stride);
-  } else {
-    const int rows = kWarps * kRowsPerWarp;
-    dim3 grid((n + rows - 1) / rows, static_cast<unsigned>(batch));
-    matvec_kernel<TA, T><<<grid, kThreads, 0, s>>>(a, vv, cc, o, n,
-                                                   a_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TA, typename T>
-int launch_k(const void* A, const void* v, const void* c, void* out,
-             long long batch, int n, int k, int trans, cudaStream_t s) {
-  if (batch == 0 || n == 0) return 0;
-  if (batch > 65535 || k != 3) return static_cast<int>(cudaErrorInvalidValue);
-  auto a = static_cast<const TA*>(A);
-  auto vv = static_cast<const T*>(v);
-  auto cc = static_cast<const T*>(c);
-  auto o = static_cast<T*>(out);
-  if (trans) {
-    dim3 grid((n + 31) / 32, static_cast<unsigned>(batch));
-    matvec_kt_kernel<TA, T, 3><<<grid, kThreads, 0, s>>>(a, vv, cc, o, n);
-  } else {
-    const int rows = kWarps * kRowsPerWarp;
-    dim3 grid((n + rows - 1) / rows, static_cast<unsigned>(batch));
-    matvec_k_kernel<TA, T, 3><<<grid, kThreads, 0, s>>>(a, vv, cc, o, n);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-
-
 // the solve's grid: every co-resident block (occupancy at 256 threads,
 // times the SMs), at most one per item of the largest stage; `grid` > 0
 // takes that many blocks instead (a grid above the co-resident limit is
@@ -652,45 +502,11 @@ int launch_solve(const long long* prog, int n_stage, int n,
 
 }  // namespace dotk7
 
-// a_dtype: 0 f32, 1 f64, 2 bf16; dtype (v, c, out): 0 f32, 1 f64;
-// a_stride: entries between the blocks of A.
-extern "C" int dot_block_matvec(int a_dtype, int dtype, const void* A,
-                                const void* v, const void* c, void* out,
-                                long long batch, int n, int trans,
-                                long long a_stride, void* stream) {
-  using dotk7::launch;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (a_dtype == 0) return launch<float, float>(A, v, c, out, batch, n, trans, a_stride, s);
-    if (a_dtype == 1) return launch<double, float>(A, v, c, out, batch, n, trans, a_stride, s);
-    return launch<__nv_bfloat16, float>(A, v, c, out, batch, n, trans, a_stride, s);
-  }
-  if (a_dtype == 0) return launch<float, double>(A, v, c, out, batch, n, trans, a_stride, s);
-  if (a_dtype == 1) return launch<double, double>(A, v, c, out, batch, n, trans, a_stride, s);
-  return launch<__nv_bfloat16, double>(A, v, c, out, batch, n, trans, a_stride, s);
-}
-
-// K15: v, c, out (batch, n, k); k == 3.
-extern "C" int dot_block_matvec_k(int a_dtype, int dtype, const void* A,
-                                  const void* v, const void* c, void* out,
-                                  long long batch, int n, int k, int trans,
-                                  void* stream) {
-  using dotk7::launch_k;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (a_dtype == 0) return launch_k<float, float>(A, v, c, out, batch, n, k, trans, s);
-    if (a_dtype == 1) return launch_k<double, float>(A, v, c, out, batch, n, k, trans, s);
-    return launch_k<__nv_bfloat16, float>(A, v, c, out, batch, n, k, trans, s);
-  }
-  if (a_dtype == 0) return launch_k<float, double>(A, v, c, out, batch, n, k, trans, s);
-  if (a_dtype == 1) return launch_k<double, double>(A, v, c, out, batch, n, k, trans, s);
-  return launch_k<__nv_bfloat16, double>(A, v, c, out, batch, n, k, trans, s);
-}
-
 // A solve program in one cooperative launch: prog (n_stage, 22) int64 on
 // the device (kernels/band.py SolveProgram.table), every A of one dtype
-// (a_dtype as above), blocks of width n, k right-hand sides a product (1
-// or 3); r (read), z (written) and ws (scratch) in dtype; max_items: the
+// (a_dtype: 0 f32, 1 f64, 2 bf16), blocks of width n, k right-hand sides a
+// product (1 or 3); r (read), z (written) and ws (scratch) in dtype (0 f32,
+// 1 f64); max_items: the
 // most items a product or copy stage holds; grid: 0 for the co-resident
 // blocks (at most max_items), else that many blocks (a test's way to a
 // refused launch). Returns 0, a CUDA error code, -2 when the device has no

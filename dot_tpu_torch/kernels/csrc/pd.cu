@@ -1,15 +1,12 @@
-// K14 pd_assemble and the permute / scale passes of K15 (pd_gather,
-// pd_scatter): the whole-mesh scalar matrix M + dt^2 D^T W D of LBFGS-PD
-// in its RCM-banded block-tridiagonal storage, and the vertex-side halves
-// of its solve.
+// K14 pd_assemble: the whole-mesh scalar matrix M + dt^2 D^T W D of
+// LBFGS-PD in its RCM-banded block-tridiagonal storage.
 //
 // Replaces dot_tpu/steppers/core.py:1656-1667 (_pd_pair_vals: 16 values
-// w_e sum_i D_a,i D_b,i per element, masked free x free), the scatter-adds
-// of 1669-1686 (_build_pd_factor: pair values into the flat [diag | sub]
-// band, mass or 1 on the diagonal, 1 on padding rows) and, of 1704-1714
-// (pd_solve), the zero-padded permutation with / d before the
-// block-tridiagonal solve and the / d with the inverse permutation after
-// it. The block products of the solve are K15's in block_matvec.cu.
+// w_e sum_i D_a,i D_b,i per element, masked free x free) and the
+// scatter-adds of 1669-1686 (_build_pd_factor: pair values into the flat
+// [diag | sub] band, mass or 1 on the diagonal, 1 on padding rows). Its
+// solve, pd_solve, is one launch of K7's solve entry (block_matvec.cu,
+// the program kind "pd").
 //
 // Bound on the H100: memory, and it does not matter: pd_assemble runs once
 // per change of the Dirichlet set. Its items (16 per element, less the
@@ -25,9 +22,6 @@
 // step by step as the plain version does (-fmad=false), and writes the
 // sum. A second launch adds mass * free + (1 - free) on the vertex
 // diagonals and writes the padding rows' ones. No atomics.
-//
-// pd_gather / pd_scatter: one thread per scalar; `inv` is the inverse RCM
-// permutation with -1 at padding rows.
 
 #include <cuda_runtime.h>
 
@@ -88,31 +82,6 @@ pd_diag_kernel(const T* __restrict__ mass, const T* __restrict__ freev,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pd_gather_kernel(const T* __restrict__ rhs, const int64_t* __restrict__ inv,
-                 const T* __restrict__ d, int64_t nv_p, T* __restrict__ out) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (t >= nv_p * 3) return;
-  const int64_t r = t / 3;
-  const int c = static_cast<int>(t - r * 3);
-  const int64_t v = inv[r];
-  out[t] = (v >= 0 ? rhs[v * 3 + c] : T(0)) / d[r];
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-pd_scatter_kernel(const T* __restrict__ z, const int64_t* __restrict__ perm,
-                  const T* __restrict__ d, int64_t n_vert,
-                  T* __restrict__ out) {
-  const int64_t t = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (t >= n_vert * 3) return;
-  const int64_t v = t / 3;
-  const int c = static_cast<int>(t - v * 3);
-  const int64_t r = perm[v];
-  out[t] = z[r * 3 + c] / d[r];
-}
-
 inline unsigned blocks_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
 }
@@ -165,44 +134,4 @@ extern "C" int dot_pd_assemble(int dtype, const void* g9, const void* conn,
   return dotk14::assemble<double>(g9, conn, w, freev, mass, n_ep, items,
                                   seg_off, udest, n_dest, diag_dest, n_vert,
                                   pad_dest, n_pad, flat, s);
-}
-
-// rhs (n_vert, 3); inv (nv_p,) vertex of each permuted row or -1; d (nv_p,);
-// out (nv_p, 3).
-extern "C" int dot_pd_gather(int dtype, const void* rhs, const void* inv,
-                             const void* d, long long nv_p, void* out,
-                             void* stream) {
-  if (nv_p == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto iv = static_cast<const int64_t*>(inv);
-  const unsigned nb = dotk14::blocks_for(nv_p * 3);
-  if (dtype == 0)
-    dotk14::pd_gather_kernel<float><<<nb, dotk14::kThreads, 0, s>>>(
-        static_cast<const float*>(rhs), iv, static_cast<const float*>(d),
-        nv_p, static_cast<float*>(out));
-  else
-    dotk14::pd_gather_kernel<double><<<nb, dotk14::kThreads, 0, s>>>(
-        static_cast<const double*>(rhs), iv, static_cast<const double*>(d),
-        nv_p, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// z (nv_p, 3); perm (n_vert,) permuted row of each vertex; d (nv_p,); out
-// (n_vert, 3).
-extern "C" int dot_pd_scatter(int dtype, const void* z, const void* perm,
-                              const void* d, long long n_vert, void* out,
-                              void* stream) {
-  if (n_vert == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  auto pm = static_cast<const int64_t*>(perm);
-  const unsigned nb = dotk14::blocks_for(n_vert * 3);
-  if (dtype == 0)
-    dotk14::pd_scatter_kernel<float><<<nb, dotk14::kThreads, 0, s>>>(
-        static_cast<const float*>(z), pm, static_cast<const float*>(d),
-        n_vert, static_cast<float*>(out));
-  else
-    dotk14::pd_scatter_kernel<double><<<nb, dotk14::kThreads, 0, s>>>(
-        static_cast<const double*>(z), pm, static_cast<const double*>(d),
-        n_vert, static_cast<double*>(out));
-  return static_cast<int>(cudaGetLastError());
 }

@@ -10,12 +10,11 @@ Each wrapper checks device, dtype, shape and contiguity, then
   decomposed path's K25-K28 and K32, kernels/admm2d.py for K29-K30 and
   the 2D ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
-  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (its single products and
-  its whole solves, pd_solve's included) and K15's products:
-  csrc/block_matvec.cu, K8 and K16: csrc/h0.cu, K10-K11: csrc/coarse.cu,
-  K12: csrc/band_equil.cu, K13: csrc/hdiag.cu, K14 and K15's permute
-  passes: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad
-  too): csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
+  csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (one launch a whole solve,
+  K15's pd_solve included): csrc/block_matvec.cu, K8 and K16: csrc/h0.cu,
+  K10-K11: csrc/coarse.cu, K12: csrc/band_equil.cu, K13: csrc/hdiag.cu,
+  K14: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad too):
+  csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
   K25-K28: csrc/dd2d.cu, K32: csrc/trsolve.cu, K29-K30: csrc/admm2d.cu
   (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and dd2d.cu), K9:
@@ -41,26 +40,6 @@ import torch
 
 from . import admm, admm2d, band, coarse, dd2d, lbfgs, pd, soa, soa2d
 
-KERNELS = ("ls_trial_energy", "elem_gradient", "elem_hessian",
-           "direction_pass", "band_assemble", "chol_inv", "block_matvec",
-           "block_solve", "h0_gather", "h0_average", "lbfgs_first",
-           "lbfgs_second", "coarse_assemble", "coarse_restrict",
-           "coarse_prolong", "band_compact", "band_equil_scatter",
-           "hessian_diag", "pd_assemble", "block_matvec_k", "pd_gather",
-           "pd_scatter", "local_gather_one", "local_scatter_one",
-           "admm_local_step", "make_pd3", "dtw_scatter", "own_band_assemble",
-           "w_matvec", "w_diag", "w_quad", "ls_trial_energy_parts",
-           "elem_gradient_from_F", "defgrad2d", "ls_trial_energy2d",
-           "elem_gradient2d", "elem_hessian2d", "dense_assemble2d",
-           "dense_scale2d", "svd2_flip", "eigh2", "make_pd2", "material2d",
-           "quadratic_form2d", "subdomain_assemble2d", "subdomain_scale2d",
-           "h0_gather2d", "h0_average2d", "local_gather_one2d",
-           "local_scatter_one2d", "pd_assemble2d", "hessian_diag2d",
-           "admm_local_step2d", "dtw_scatter2d", "ls_trial_energy2d_parts",
-           "elem_gradient2d_from_F", "w_assemble2d", "local_h_assemble2d",
-           "schur_update", "tri_solve")
-launches = dict.fromkeys(KERNELS, 0)
-
 plain = types.SimpleNamespace(
     ls_trial_energy=soa.ls_trial_energy_ref,
     elem_gradient=soa.elem_gradient_ref,
@@ -68,7 +47,6 @@ plain = types.SimpleNamespace(
     direction_pass=soa.direction_pass_ref,
     band_assemble=band.band_assemble_ref,
     chol_inv=band.chol_inv_ref,
-    block_matvec=band.block_matvec_ref,
     block_solve=band.block_solve_ref,
     h0_gather=band.h0_gather_ref,
     h0_average=band.h0_average_ref,
@@ -81,9 +59,6 @@ plain = types.SimpleNamespace(
     band_equil_scatter=band.band_equil_scatter_ref,
     hessian_diag=pd.hessian_diag_ref,
     pd_assemble=pd.pd_assemble_ref,
-    block_matvec_k=pd.block_matvec_k_ref,
-    pd_gather=pd.pd_gather_ref,
-    pd_scatter=pd.pd_scatter_ref,
     local_gather_one=pd.local_gather_one_ref,
     local_scatter_one=pd.local_scatter_one_ref,
     admm_local_step=admm.admm_local_step_ref,
@@ -121,6 +96,10 @@ plain = types.SimpleNamespace(
     local_h_assemble2d=admm2d.local_h_assemble2d_ref,
     schur_update=band.schur_update_ref,
     tri_solve=dd2d.tri_solve_ref)
+# w_diag: w_matvec's diagonal-only launch, which has no plain version of
+# its own
+KERNELS = tuple(vars(plain)) + ("w_diag",)
+launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None
 _DTYPES = {torch.float32: 0, torch.float64: 1}
@@ -154,10 +133,6 @@ def _load():
                                            ctypes.c_uint, P, P],
             ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
             ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
-            ("block_matvec", "dot_block_matvec"): [I, I] + [P] * 4
-            + [LL, I, I, LL, P],
-            ("block_matvec", "dot_block_matvec_k"): [I, I] + [P] * 4
-            + [LL, I, I, I, P],
             ("block_matvec", "dot_block_solve"): [I, I, P, I, I, I, LL, P, P,
                                                   P, I, P],
             ("h0", "dot_local_gather_one"): [I] + [P] * 4 + [LL, LL, P, P],
@@ -166,8 +141,6 @@ def _load():
             ("hdiag", "dot_hessian_diag"): [I, P, LL, P, P, P, LL, P, P],
             ("pd", "dot_pd_assemble"): ([I] + [P] * 5 + [LL] + [P] * 3
                                         + [LL, P, LL, P, LL, P, P]),
-            ("pd", "dot_pd_gather"): [I, P, P, P, LL, P, P],
-            ("pd", "dot_pd_scatter"): [I, P, P, P, LL, P, P],
             ("h0", "dot_h0_gather"): [I] + [P] * 4 + [LL, P, P],
             ("h0", "dot_h0_average"): [I] + [P] * 5 + [LL, P, P],
             ("band_asm", "dot_band_compact"): ([I, P, LL] + [P] * 6
@@ -540,37 +513,6 @@ def _block_stride(name, A, B, n):
         raise ValueError(f"{name}: the blocks of A overlap (batch stride "
                          f"{stride})")
     return stride
-
-
-def block_matvec(A, v, c=None, trans=False, out=None):
-    """K7: op(A) v, or c - op(A) v, over a batch: A (B, n, n) in bf16, f32
-    or f64, taken to v's dtype; v, c, out (B, n) in f32 or f64. `out`
-    (may be c, must not overlap v) receives the result. A's blocks may lie
-    any fixed distance apart (a view [:, i] of an (m, P, n, n) stack): they
-    are read in place, never copied."""
-    name = "block_matvec"
-    dt = _float(name, v)
-    B, n = v.shape[0], v.shape[-1]
-    _need(name, "v", v, v.device, dt, (B, n))
-    if A.device != v.device or A.dtype not in _A_DTYPES:
-        raise TypeError(f"{name}: A is {A.dtype} on {A.device}")
-    stride = _block_stride(name, A, B, n)
-    if c is not None:
-        _need(name, "c", c, v.device, dt, (B, n))
-    if out is not None:
-        _need(name, "out", out, v.device, dt, (B, n))
-        if _overlap(out, v):
-            raise ValueError(f"{name}: out overlaps v")
-    if not _route(name, v):
-        return band.block_matvec_ref(A, v, c, trans, out)
-    lib = _load()
-    if out is None:
-        out = torch.empty_like(v)
-    err = lib.block_matvec(_A_DTYPES[A.dtype], _DTYPES[dt], _ptr(A), _ptr(v),
-                           _ptr(c), _ptr(out), B, n, int(bool(trans)),
-                           stride, _stream(v))
-    _ok(name, err)
-    return out
 
 
 def block_solve(prog, leaves, r):
@@ -950,78 +892,6 @@ def pd_assemble(g9, conn, w, freev, mass, plan):
         plan.pad_dest.shape[0], _ptr(flat), _stream(g9))
     _ok(name, err)
     return flat
-
-
-def block_matvec_k(A, v, c=None, trans=False, out=None):
-    """K15: op(A) v, or c - op(A) v, with k = 3 right-hand sides in one
-    pass over A: A (B, n, n) contiguous in bf16, f32 or f64, taken to v's
-    dtype; v, c, out (B, n, 3). `out` (may be c) must not overlap v."""
-    name = "block_matvec_k"
-    dt = _float(name, v)
-    if v.dim() != 3:
-        raise ValueError(f"{name}: v has shape {tuple(v.shape)}, not "
-                         "(B, n, k)")
-    B, n, k = v.shape
-    _need(name, "v", v, v.device, dt, (B, n, k))
-    _need(name, "A", A, v.device, tuple(_A_DTYPES), (B, n, n))
-    if c is not None:
-        _need(name, "c", c, v.device, dt, (B, n, k))
-    if out is not None:
-        _need(name, "out", out, v.device, dt, (B, n, k))
-        if _overlap(out, v):
-            raise ValueError(f"{name}: out overlaps v")
-    if not _route(name, v):
-        return pd.block_matvec_k_ref(A, v, c, trans, out)
-    if k != 3:
-        raise ValueError(f"{name}: the kernel takes 3 right-hand sides, "
-                         f"not {k}")
-    lib = _load()
-    if out is None:
-        out = torch.empty_like(v)
-    err = lib.block_matvec_k(_A_DTYPES[A.dtype], _DTYPES[dt], _ptr(A),
-                             _ptr(v), _ptr(c), _ptr(out), B, n, k,
-                             int(bool(trans)), _stream(v))
-    _ok(name, err)
-    return out
-
-
-def pd_gather(rhs, inv, d):
-    """K15 (gather): (nv_p, 3) rows of rhs (nV, 3) permuted (inv (nv_p,):
-    the vertex of each row, -1 at padding rows, which are zero) and divided
-    by d (nv_p,)."""
-    name, dev = "pd_gather", rhs.device
-    dt = _float(name, rhs)
-    nv_p = inv.shape[0]
-    _need(name, "rhs", rhs, dev, dt, (None, 3))
-    _need(name, "inv", inv, dev, torch.int64, (nv_p,))
-    _need(name, "d", d, dev, dt, (nv_p,))
-    if not _route(name, rhs):
-        return pd.pd_gather_ref(rhs, inv, d)
-    lib = _load()
-    out = torch.empty((nv_p, 3), dtype=dt, device=dev)
-    err = lib.pd_gather(_DTYPES[dt], _ptr(rhs), _ptr(inv), _ptr(d), nv_p,
-                        _ptr(out), _stream(rhs))
-    _ok(name, err)
-    return out
-
-
-def pd_scatter(z, perm, d):
-    """K15 (scatter): (nV, 3) (z / d)[perm]; z (nv_p, 3), d (nv_p,), perm
-    (nV,) the permuted row of each vertex."""
-    name, dev = "pd_scatter", z.device
-    dt = _float(name, z)
-    nv_p, nv = z.shape[0], perm.shape[0]
-    _need(name, "z", z, dev, dt, (nv_p, 3))
-    _need(name, "perm", perm, dev, torch.int64, (nv,))
-    _need(name, "d", d, dev, dt, (nv_p,))
-    if not _route(name, z):
-        return pd.pd_scatter_ref(z, perm, d)
-    lib = _load()
-    out = torch.empty((nv, 3), dtype=dt, device=dev)
-    err = lib.pd_scatter(_DTYPES[dt], _ptr(z), _ptr(perm), _ptr(d), nv,
-                         _ptr(out), _stream(z))
-    _ok(name, err)
-    return out
 
 
 def _local_tables(name, ref, l2g, valid, d, part):

@@ -6,9 +6,12 @@ K13 hessian_diag     diagonal of M + dt^2 H per vertex (warmStart 5;
 K14 pd_assemble      the LBFGS-PD matrix M + dt^2 D^T W D in its RCM-banded
                      flat [diag | sub] storage (core.py 1656-1686
                      _pd_pair_vals / _build_pd_factor)
-K15 block_matvec_k   c - op(A) v against k right-hand sides (the k-column
-    pd_gather /      branch of core.py 1224-1261 _btd_solve) and the
-    pd_scatter       permute / scale passes of core.py 1704-1714 pd_solve
+K15 pd_solve's      c - op(A) v against k right-hand sides
+    products and     (block_matvec_k_ref: the k-column einsums of core.py
+    passes           1224-1261 _btd_solve) and the permute / scale passes
+                     of core.py 1704-1714 pd_solve (pd_gather_ref,
+                     pd_scatter_ref); on the card all of it is one launch
+                     of K7's solve entry (band.block_solve_ref)
 K16 local_gather_one / local_scatter_one
                      one subdomain's rhs gather and zero-extended scatter of
                      the GSDD sweep (core.py 1282-1294, gsdd.py 52-55)

@@ -56,7 +56,6 @@ KERNEL_NAMES = {
     "direction_pass": ("direction_kernel",),
     "band_assemble": ("band_assemble_kernel",),
     "chol_inv": ("chol_inv_kernel",),
-    "block_matvec": ("matvec_kernel", "matvec_t_kernel"),
     "block_solve": ("solve_kernel",),
     "h0_gather": ("h0_gather_kernel",),
     "h0_average": ("h0_average_kernel",),
@@ -69,9 +68,6 @@ KERNEL_NAMES = {
     "band_equil_scatter": ("dotk12::d_kernel", "dotk12::scatter_kernel"),
     "hessian_diag": ("hessian_diag_kernel",),
     "pd_assemble": ("pd_reduce_kernel", "pd_diag_kernel"),
-    "block_matvec_k": ("matvec_k_kernel", "matvec_kt_kernel"),
-    "pd_gather": ("pd_gather_kernel",),
-    "pd_scatter": ("pd_scatter_kernel",),
     "local_gather_one": (),     # K8's h0_gather_kernel on one row
     "local_scatter_one": ("local_scatter_kernel",),
     "admm_local_step": ("admm_local_step_kernel",),

@@ -834,7 +834,9 @@ class System(SystemBase):
         if isinstance(L, CRFactor):
             return self._block_solve("cr", factor_leaves(L), r)
         if isinstance(L, BTDFactor):
-            return self._btd_solve(L, r)
+            # forward/backward block substitution with the pre-inverted
+            # diagonal factors (dot_tpu core.py:1219-1261)
+            return self._block_solve("btd", list(L), r)
         rr = r.to(self._solve_dtype)[..., None]
         y = torch.linalg.solve_triangular(L, rr, upper=False)
         z = torch.linalg.solve_triangular(L.mT, y, upper=True)
@@ -855,18 +857,6 @@ class System(SystemBase):
             prog = self._solve_progs[key] = band.solve_program(kind, leaves)
         return self.k.block_solve(prog, leaves,
                                   r.to(self._solve_dtype).contiguous())
-
-    def _btd_solve(self, fac, r):
-        """Forward/backward block substitution with the pre-inverted
-        diagonal factors (dot_tpu core.py:1219-1261). r is (P, n): one
-        launch of K7's solve entry; or (P, n, k) for k right-hand sides at
-        once: band.btd_solve_ref's sequence of K15 launches (each block is
-        read once for all k; off the paths since pd_solve is one launch)."""
-        if r.dim() == 3:
-            return band.btd_solve_ref(fac.linv, fac.sub,
-                                      r.to(self._solve_dtype),
-                                      self.k.block_matvec_k)
-        return self._block_solve("btd", list(fac), r)
 
     @tracing.span("h0_apply")
     def h0_apply(self, L, d, rhs, kc=None, fixed=None):

@@ -1,9 +1,9 @@
 """K7's solve entry (ops.block_solve: one launch a solve on the card) on
 the CPU: the solve program's stage table (kernels/band.py solve_program)
-walked by its CPU mirror band.run_solve_program_ref against the launch
-sequences it replaces (band.btd_solve_ref, cr_solve_ref and
-pair_solve_ref, the products K7 launched one by one), and System.h0_apply
-on it against dot_tpu's.
+walked by its CPU mirror band.run_solve_program_ref against the plain
+product sequences (band.btd_solve_ref, cr_solve_ref and pair_solve_ref:
+the products a launch sequence made one by one before the solve was one
+launch), and System.h0_apply on it against dot_tpu's.
 
 Factors (plans built with dot_tpu.partition, the recipe of
 tests/test_torch_cr.py: band_bs_unit 48, bs 96), rebuilt by the port at a

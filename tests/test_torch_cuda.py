@@ -190,21 +190,8 @@ def test_h0_kernels_match_plain_versions(cuda, dtype):
     assert torch.isnan(Lb[2]).all() and torch.isnan(Xb[2]).all()
     assert torch.isfinite(Lb[[0, 1, 3]]).all()
     fac, d = sysm.factorize((diag, sub), fast=True)
-    G = fac.levels[0][1].reshape(-1, bs, bs)
-    stores = [G] + ([G.to(torch.float32)] if dtype == torch.float32 else [])
     if dtype == torch.float32:
-        assert G.dtype == torch.bfloat16
-    v = torch.as_tensor(rng.normal(size=(G.shape[0], bs)), dtype=dtype,
-                        device=cuda)
-    c = torch.as_tensor(rng.normal(size=(G.shape[0], bs)), dtype=dtype,
-                        device=cuda)
-    for S in stores:
-        for trans in (False, True):
-            assert _rel(ops.block_matvec(S, v, c, trans),
-                        band.block_matvec_ref(S, v, c, trans)) <= tol
-            out = c.clone()
-            ops.block_matvec(S, v, out, trans, out=out)
-            assert _rel(out, band.block_matvec_ref(S, v, c, trans)) <= tol
+        assert fac.levels[0][1].dtype == torch.bfloat16
     rhs = torch.as_tensor(rng.normal(size=(sysm.n_vert, 3)), dtype=dtype,
                           device=cuda)
     z = torch.as_tensor(rng.normal(size=(P, sysm.n3)), dtype=dtype,
@@ -215,8 +202,8 @@ def test_h0_kernels_match_plain_versions(cuda, dtype):
     assert _rel(ops.h0_average(*a), band.h0_average_ref(*a)) <= tol
     torch.cuda.synchronize()
     assert all(ops.launches[k] > 0 for k in (
-        "band_assemble", "chol_inv", "block_matvec", "h0_gather",
-        "h0_average")), ops.launches
+        "band_assemble", "chol_inv", "h0_gather", "h0_average")), \
+        ops.launches
 
 
 def test_cr_step_on_card_matches_cpu(cuda):
@@ -385,9 +372,9 @@ def _stepper_scene(script="stretch", cells=(8, 3, 3)):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_stepper_kernels_match_plain_versions(cuda, dtype):
-    """K13 (hessian_diag), K14 (pd_assemble), K15 (block_matvec_k and the
-    permute passes) and K16 (local gather / scatter) against their plain
-    versions: f64 1e-12, f32 1e-5."""
+    """K13 (hessian_diag), K14 (pd_assemble) and K16 (local gather /
+    scatter) against their plain versions: f64 1e-12, f32 1e-5 (K15 is
+    K7's "pd" solve: test_pd_solve_matches_plain_in_one_launch)."""
     from dot_tpu_torch.kernels import pd
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     mesh, cfg, sd = _stepper_scene()
@@ -412,26 +399,7 @@ def test_stepper_kernels_match_plain_versions(cuda, dtype):
     a_args = (sysm.g9, sysm.conn, sysm._pd_weights(), free, sysm.mass, bp)
     assert _rel_max(ops.pd_assemble(*a_args),
                     pd.pd_assemble_ref(*a_args)) <= tol
-    L, d = sysm.build_pd_factor(fixed)
-    A = L.linv.view(bp.nb, bp.bs, bp.bs)
-    v, c = t(rng.normal(size=(2, bp.nb, bp.bs, 3)))
-    for store in (A, A.to(torch.bfloat16)):
-        for trans in (False, True):
-            k3 = ops.block_matvec_k(store, v, c, trans)
-            assert _rel_max(k3, pd.block_matvec_k_ref(store, v, c,
-                                                      trans)) <= 10 * tol
-            for j in range(3):      # column j is K7 on column j, bit for bit
-                col = ops.block_matvec(store, v[..., j].contiguous(),
-                                       c[..., j].contiguous(), trans)
-                assert torch.equal(k3[..., j], col)
-    with pytest.raises(ValueError, match="3 right-hand sides"):
-        ops.block_matvec_k(A, v[..., :2].contiguous())
     rhs = t(rng.normal(size=(mesh.n_vert, 3)))
-    z = t(rng.normal(size=(bp.nv_p, 3)))
-    assert _rel_max(ops.pd_gather(rhs, bp.inv, d[0]),
-                    pd.pd_gather_ref(rhs, bp.inv, d[0])) <= tol
-    assert _rel_max(ops.pd_scatter(z, bp.perm, d[0]),
-                    pd.pd_scatter_ref(z, bp.perm, d[0])) <= tol
 
     plan = partition.build_plan(mesh, 4, pad_elem_to=16, pad_n3_to=48)
     s4 = System(mesh, cfg, plan, dtype=dtype, device=cuda)
@@ -447,23 +415,29 @@ def test_stepper_kernels_match_plain_versions(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_block_matvec_on_a_strided_subdomain_slice(cuda, dtype):
-    """K7 reads one subdomain's blocks of a scan-major (m, P, n, n) leaf in
-    place: the same numbers as on a contiguous copy, no copy made."""
+def test_block_solve_on_a_strided_subdomain_slice(cuda, dtype):
+    """K7's solve reads one subdomain's blocks of scan-major (m, P, n, n)
+    leaves in place: the same bits as on contiguous copies, no copy made
+    (f32 on bf16 leaves, as the paths' factors)."""
+    from dot_tpu_torch.kernels import band
     rng = np.random.default_rng(3)
-    A = torch.as_tensor(rng.normal(size=(5, 3, 48, 48)), dtype=dtype,
+    nb, n = 5, 48
+    linv = torch.as_tensor(np.tril(rng.normal(size=(nb, 3, n, n))) / n ** 0.5
+                           + np.eye(n), dtype=dtype, device=cuda)
+    sub = torch.as_tensor(rng.normal(size=(nb - 1, 3, n, n)) / n,
+                          dtype=dtype, device=cuda)
+    r = torch.as_tensor(rng.normal(size=(1, nb * n)), dtype=dtype,
                         device=cuda)
-    v, c = torch.as_tensor(rng.normal(size=(2, 5, 48)), dtype=dtype,
-                           device=cuda)
-    for store in (A, A.to(torch.bfloat16)):
-        view = store[:, 1]
-        assert not view.is_contiguous()
-        for trans in (False, True):
-            got = ops.block_matvec(view, v, c, trans)
-            assert torch.equal(got, ops.block_matvec(view.contiguous(), v, c,
-                                                     trans))
-    with pytest.raises(ValueError, match="row-major"):
-        ops.block_matvec(A[:, 1].mT, v)
+    stores = [(linv, sub)]
+    if dtype == torch.float32:
+        stores.append((linv.to(torch.bfloat16), sub.to(torch.bfloat16)))
+    for leaves in stores:
+        view = [t[:, 1:2] for t in leaves]
+        assert not any(t.is_contiguous() for t in view)
+        got = ops.block_solve(band.solve_program("btd", view), view, r)
+        copy = [t.contiguous() for t in view]
+        want = ops.block_solve(band.solve_program("btd", copy), copy, r)
+        assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 def _solve_cases(dev, dtype):
@@ -501,11 +475,11 @@ def _solve_cases(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_block_solve_is_the_k7_sequence_bit_for_bit(cuda, dtype):
+def test_block_solve_matches_plain_in_one_launch(cuda, dtype):
     """K7's solve entry on every factor kind (cyclic reduction, block scan,
     P = 1, a subdomain's strided slice, the coarse pair): one launch and
-    one device kernel a solve, bit for bit the sequence of K7 launches it
-    replaces, and the plain version within K7's tolerance."""
+    one device kernel a solve, the plain version within K7's tolerance
+    (f64 1e-12, f32 1e-4 norm-wise), and two calls bit for bit."""
     from dot_tpu_torch.kernels import band
     from dot_tpu_torch.profiling import captured_work
     rng = np.random.default_rng(4)
@@ -515,20 +489,18 @@ def test_block_solve_is_the_k7_sequence_bit_for_bit(cuda, dtype):
         n0 = dict(ops.launches)
         z = ops.block_solve(prog, leaves, r)
         assert ops.launches["block_solve"] == n0["block_solve"] + 1
-        assert ops.launches["block_matvec"] == n0["block_matvec"]
-        # the launch sequence the entry replaces: one K7 launch a product
-        want = band.block_solve_ref(prog, leaves, r, ops.block_matvec)
-        assert torch.isfinite(z).all() and torch.equal(z, want), kind
+        assert torch.isfinite(z).all(), kind
         assert _rel(z, band.block_solve_ref(prog, leaves, r)) \
-            <= TOL_H0[dtype][0]
+            <= TOL_H0[dtype][0], kind
         k = captured_work(lambda: ops.block_solve(prog, leaves, r))
         assert sum(k.values()) == 1 and "solve_kernel" in next(iter(k)), k
+        assert torch.equal(ops.block_solve(prog, leaves, r), z), kind
 
 
 def test_block_solve_raises_when_the_launch_is_refused(cuda):
     """A grid above the co-resident limit (the C entry's grid argument) is
     refused by the cooperative launch: the wrapper raises and nothing
-    falls back to K7's launch sequence."""
+    falls back."""
     from dot_tpu_torch.kernels import band
     kind, leaves, shape = _solve_cases(cuda, torch.float32)[0]
     prog = band.solve_program(kind, leaves)
@@ -539,8 +511,8 @@ def test_block_solve_raises_when_the_launch_is_refused(cuda):
     assert ops.launches == n0
     z = ops.block_solve(prog, leaves, r)          # and the next one runs
     torch.cuda.synchronize()
-    assert torch.equal(z, band.block_solve_ref(prog, leaves, r,
-                                               ops.block_matvec))
+    assert _rel(z, band.block_solve_ref(prog, leaves, r)) \
+        <= TOL_H0[torch.float32][0]
 
 
 def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
@@ -560,13 +532,10 @@ def test_lbfgs_pd_and_gsdd_steps_kernels_match_plain(cuda):
         n0 = dict(ops.launches)
         s, (stats, sys_e) = st.step(st.init_state())
         if use:
-            # one launch of K7's solve entry a pd_solve (one an iteration):
-            # no K15 product, gather or scatter launch on the path
+            # one launch of K7's solve entry a pd_solve (one an iteration)
             assert ops.launches["pd_assemble"] == n0["pd_assemble"] + 1
             assert ops.launches["block_solve"] \
                 == n0["block_solve"] + stats.inner_iters
-            for k in ("block_matvec_k", "pd_gather", "pd_scatter"):
-                assert ops.launches[k] == n0[k], k
         outs.append((s.x.cpu().numpy(), stats.inner_iters, sys_e))
     assert outs[0][1] == outs[1][1]
     np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-9, atol=1e-12)
@@ -619,12 +588,12 @@ def _pd_solve_cases(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_pd_solve_is_one_launch_bit_for_bit_the_k15_sequence(cuda, dtype):
+def test_pd_solve_matches_plain_in_one_launch(cuda, dtype):
     """K7's solve entry with the "pd" kind (System.pd_solve): one launch and
-    one device kernel a call, bit for bit the sequence it replaced (K15's
-    pd_gather, 4 nb - 2 block_matvec_k launches, pd_scatter) at the path's
-    factor and at n 512 and 37, and the plain version within K15's
-    tolerance (f64 1e-12, f32 1e-5 norm-wise)."""
+    one device kernel a call at the path's factor and at n 512 and 37, the
+    plain version (the gather, 4 nb - 2 3-column products, the scatter)
+    within K15's tolerance (f64 1e-12, f32 1e-5 norm-wise), and two calls
+    bit for bit."""
     from dot_tpu_torch.kernels import band
     from dot_tpu_torch.profiling import captured_work
     rng = np.random.default_rng(13)
@@ -636,11 +605,7 @@ def test_pd_solve_is_one_launch_bit_for_bit_the_k15_sequence(cuda, dtype):
         n0 = dict(ops.launches)
         z = ops.block_solve(prog, leaves, r)
         assert ops.launches["block_solve"] == n0["block_solve"] + 1
-        for k in ("block_matvec_k", "pd_gather", "pd_scatter"):
-            assert ops.launches[k] == n0[k], k
-        seq = band.block_solve_ref(prog, leaves, r, ops.block_matvec_k,
-                                   ops.pd_gather, ops.pd_scatter)
-        assert torch.isfinite(z).all() and torch.equal(z, seq)
+        assert torch.isfinite(z).all()
         assert _rel(z, band.block_solve_ref(prog, leaves, r)) <= tol
         k = captured_work(lambda: ops.block_solve(prog, leaves, r))
         assert sum(k.values()) == 1 and "solve_kernel" in next(iter(k)), k
@@ -827,7 +792,6 @@ def test_admm_pd_step_on_card_matches_cpu(cuda):
             # pd_solve: one launch of K7's solve entry an iteration
             assert ops.launches["block_solve"] \
                 == n0["block_solve"] + sum(its)
-            assert ops.launches["block_matvec_k"] == n0["block_matvec_k"]
         out.append((s.x.cpu().numpy(), its, e))
     assert out[0][1] == out[1][1]
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8, atol=1e-11)

@@ -174,10 +174,10 @@ def test_three_column_solve_equals_three_one_column_solves():
     L, _ = tsys.build_pd_factor(_t(sd.fixed0))
     n = L.linv.shape[0] * L.linv.shape[2]
     r = _t(np.random.default_rng(5).normal(size=(1, n, 3)))
-    z3 = tsys._btd_solve(L, r)
+    z3 = band.btd_solve_ref(L.linv, L.sub, r, pd.block_matvec_k_ref)
     assert z3.shape == (1, n, 3)
     for j in range(3):
-        zj = tsys._btd_solve(L, r[..., j].contiguous())
+        zj = tsys._block_solve("btd", list(L), r[..., j].contiguous())
         np.testing.assert_allclose(z3[..., j].numpy(), zj.numpy(),
                                    rtol=1e-12, atol=1e-14)
 
@@ -199,9 +199,9 @@ def _pd_factor(dtype):
                          ids=["f64", "f32"])
 def test_pd_program_is_the_k15_sequence(dtype):
     """K7's solve entry with the "pd" kind (pd_solve in one launch on the
-    card): its CPU mirror walking the stage table equals pd_gather ->
+    card): its CPU mirror walking the stage table equals pd_gather_ref ->
     btd_solve_ref with block_matvec_k_ref (the 4 nb - 2 K15 products) ->
-    pd_scatter bit for bit, and so do ops.block_solve (the plain version on
+    pd_scatter_ref bit for bit, and so do ops.block_solve (the plain version on
     the CPU) and System.pd_solve; the stages are the gather, the products
     one for one on (n, 3) blocks, the scatter."""
     tsys, L, d = _pd_factor(dtype)

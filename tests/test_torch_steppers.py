@@ -226,9 +226,9 @@ def test_local_scatter_one_leaves_vertex_0_to_its_owner():
         ops.local_gather_one(q, l2g, valid, d, 2)
 
 
-def test_block_matvec_refuses_blocks_it_would_have_to_copy():
-    A = torch.zeros((3, 2, 4, 4), dtype=torch.float64)
-    v = torch.zeros((3, 4), dtype=torch.float64)
-    assert ops.block_matvec(A[:, 1], v).shape == (3, 4)       # strided: fine
+def test_schur_update_refuses_blocks_it_would_have_to_copy():
+    D = torch.zeros((3, 2, 4, 4), dtype=torch.float32)
+    A = torch.zeros((3, 4, 4), dtype=torch.bfloat16)
+    assert ops.schur_update(D[:, 1], A).shape == (3, 4, 4)    # strided: fine
     with pytest.raises(ValueError, match="row-major"):
-        ops.block_matvec(A[:, 1].mT, v)
+        ops.schur_update(D[:, 1].mT, A)

@@ -1,5 +1,5 @@
 """LBFGS-PD's and ADMM-PD's pd_solve as one launch of K7's solve entry
-(program kind "pd") against the K15 launch sequence it replaces, on one GPU.
+(program kind "pd"), on one GPU.
 
     python3 tools/torch_pd_solve_bench.py [TREE ...]
 
@@ -8,10 +8,11 @@ runs in its own process, in the order given (pass two trees as A B B A to
 compare them on one card). At bar17's PD shape (P 1, nb 33, bs 512, 16,473
 vertices), with random leaves from a seed (the inverse factors lower
 triangular, as K6 writes them; a random permutation with padding rows; a
-scale d in [0.5, 2]), in f32 and f64: bit equality with the K15 sequence
-(pd_gather, 130 block_matvec_k, pd_scatter), the single timed call
-(median of 15, CUDA events) and the time a call back to back (20 calls
-between two events) of both, the bytes bound (band.solve_cost at 3.35
+scale d in [0.5, 2]), in f32 and f64: the norm-wise error against the
+plain version (band.block_solve_ref: the gather, 130 3-column products,
+the scatter) and whether two calls agree bit for bit, the single timed
+call (median of 15, CUDA events) and the time a call back to back (20
+calls between two events), the bytes bound (band.solve_cost at 3.35
 TB/s), the time by stage kind in the one launch (the program cut after
 each stage, back to back, less the program cut before it: the gather,
 the op = A and op = A^T products, the scatter) and the same program's
@@ -80,20 +81,18 @@ def bench(tree):
         r = torch.randn((nv, 3), generator=gen, device=dev, dtype=dt)
         prog = band.solve_program("pd", lv)
         z = ops.block_solve(prog, lv, r)
-
-        def seq():
-            return band.block_solve_ref(prog, lv, r, ops.block_matvec_k,
-                                        ops.pd_gather, ops.pd_scatter)
-        same = torch.equal(z, seq())
+        ref = band.block_solve_ref(prog, lv, r)
+        err = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
+        same = torch.equal(z, ops.block_solve(prog, lv, r))
 
         def one():
             return ops.block_solve(prog, lv, r)
-        t = [single(one), b2b(one), single(seq), b2b(seq)]
+        t = [single(one), b2b(one)]
         nbytes = band.solve_cost(prog, lv, r)[0]
         name = str(dt).split(".")[-1]
-        print(f"{tree}: {name}: {len(prog.stages)} stages, bit for bit "
-              f"{same}; one launch {t[0]:.4f} ms single, {t[1]:.4f} back to "
-              f"back; K15 sequence {t[2]:.4f} / {t[3]:.4f} ms; bytes bound "
+        print(f"{tree}: {name}: {len(prog.stages)} stages, vs plain rel "
+              f"{err:.3e}, two calls bit for bit {same}; one launch "
+              f"{t[0]:.4f} ms single, {t[1]:.4f} back to back; bytes bound "
               f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         kinds = {band.OP_GATHER: "gather", band.OP_A: "op A",
                  band.OP_AT: "op A^T", band.OP_SCATTER: "scatter"}
@@ -117,7 +116,7 @@ def bench(tree):
         tb = b2b(lambda: ops.block_solve(ps, small, rs))
         print(f"{tree}: {name}: the same {len(ps.stages)} stages on 8-wide "
               f"blocks: {tb:.4f} ms a launch", flush=True)
-        del z, lv, small
+        del z, ref, lv, small
 
 
 def main():

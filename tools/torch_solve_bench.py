@@ -1,4 +1,4 @@
-"""K7's solve entry against the K7 launch sequence it replaces, on one GPU.
+"""K7's solve entry at the paths' factor shapes, on one GPU.
 
     python3 tools/torch_solve_bench.py [TREE]
 
@@ -9,15 +9,17 @@ triangular, as K6 writes them): bar17's cyclic-reduction factor (P 6,
 nb 13, bs 768, bf16 leaves, f32 solve), bar135's block scan (P 133, nb 8,
 bs 768, bf16 leaves in f32, f64 leaves in f64), the P = 1 scan of Newton /
 LBFGS-H (nb 43, bs 1152, f32) and the 798^2 coarse pair (f32). Prints, per
-shape: bit equality with the K7 sequence, the single timed call (median of
+shape: the norm-wise error against the plain version (band.block_solve_ref)
+and whether two calls agree bit for bit, the single timed call (median of
 15, CUDA events) and the time a call back to back (20 calls between two
-events) of both, the bytes bound (band.solve_cost: each leaf read once,
-the inverse factors' lower triangles only, r and z, at 3.35 TB/s); at
-bar135 each stage's time in the one launch (the program cut after it
-less the program cut before it, back to back) beside a program of that
-stage alone and its own K7 launch; the card's name and power limit, the
+events), the bytes bound (band.solve_cost: each leaf read once, the
+inverse factors' lower triangles only, r and z, at 3.35 TB/s); at bar135
+each stage's time in the one launch (the program cut after it less the
+program cut before it, back to back) beside a program of that stage
+alone; the card's name and power limit, the
 time of a launch of 29 grid barriers with next to no work and of bar135's
-scan on grids of 132, 264, 396 and 528 blocks, and the solve kernel's
+scan on grids of 132, 264, 396 and 528 blocks (or that the launch was
+refused: a grid above the co-resident blocks), and the solve kernel's
 registers from the build log.
 """
 
@@ -70,17 +72,10 @@ def main():
     def stage_times(prog, lv, r):
         """Where the one launch's time goes, stage by stage: the back-to-
         back time of the program cut after stage s (s = 1 .. all) less the
-        time cut after s - 1, beside the back-to-back times of a program of
+        time cut after s - 1, beside the back-to-back time of a program of
         that stage alone (the one launch's item walk without the stages
-        around it) and of the stage's own K7 launch (the sequence's mv
-        calls, one a stage, recorded and replayed alone)."""
-        calls = []
-
-        def mv(*a, **k):
-            calls.append((a, k))
-            return ops.block_matvec(*a, **k)
-        band.block_solve_ref(prog, lv, r, mv)
-        prev, tot = 0.0, [0.0, 0.0, 0.0]
+        around it)."""
+        prev, tot = 0.0, [0.0, 0.0]
         for s in range(1, len(prog.stages) + 1):
             cut = prog._replace(stages=prog.stages[:s],
                                 table=prog.table[:s])
@@ -88,21 +83,16 @@ def main():
             one = prog._replace(stages=prog.stages[s - 1:s],
                                 table=prog.table[s - 1:s])
             t1 = b2b(lambda: ops.block_solve(one, lv, r))
-            a, k = calls[s - 1]
-            alone = b2b(lambda: ops.block_matvec(*a, **k))
             st = prog.stages[s - 1]
             print(f"  stage {s - 1}: op {int(st[band.F_OP])}, lower "
                   f"{int(st[band.F_LOWER])}, barrier {int(st[band.F_SYNC])}"
                   f": {t - prev:.4f} ms in the one launch, {t1:.4f} ms as a "
-                  f"one-stage program, {alone:.4f} ms as its own K7 launch",
-                  flush=True)
+                  f"one-stage program", flush=True)
             tot[0] += t - prev
             tot[1] += t1
-            tot[2] += alone
             prev = t
         print(f"  sum: {tot[0]:.4f} ms in the one launch, {tot[1]:.4f} ms "
-              f"as one-stage programs, {tot[2]:.4f} ms as K7 launches",
-              flush=True)
+              f"as one-stage programs", flush=True)
 
     def b2b(fn, calls=20):
         fn()
@@ -135,23 +125,22 @@ def main():
                         else torch.float32)
         prog = band.solve_program(kind, lv)
         z = ops.block_solve(prog, lv, r)
-        seq = band.block_solve_ref(prog, lv, r, ops.block_matvec)
-        same = torch.equal(z, seq)
+        ref = band.block_solve_ref(prog, lv, r)
+        err = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
+        same = torch.equal(z, ops.block_solve(prog, lv, r))
         fn = (lambda prog=prog, lv=lv, r=r: ops.block_solve(prog, lv, r))
-        sq = (lambda prog=prog, lv=lv, r=r: band.block_solve_ref(
-            prog, lv, r, ops.block_matvec))
-        times = [single(fn), b2b(fn), single(sq), b2b(sq)]
+        times = [single(fn), b2b(fn)]
         nbytes = band.solve_cost(prog, lv, r)[0]
-        print(f"{name}: {len(prog.stages)} stages, bit for bit {same}; "
-              f"one launch {times[0]:.4f} ms single, {times[1]:.4f} back to "
-              f"back; K7 sequence {times[2]:.4f} / {times[3]:.4f} ms; bytes "
-              f"bound {nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
+        print(f"{name}: {len(prog.stages)} stages, vs plain rel {err:.3e}, "
+              f"two calls bit for bit {same}; one launch {times[0]:.4f} ms "
+              f"single, {times[1]:.4f} back to back; bytes bound "
+              f"{nbytes / 3.35e12 * 1e3:.4f} ms", flush=True)
         if name.startswith("bar135"):
             stage_times(prog, lv, r)
-        del z, seq
+        del z, ref
     # the grid barriers alone: a scan of 8 blocks of 32^2 (30 stages, 29
     # barriers, next to no work), and bar135's scan, on grids of 132 k
-    # blocks
+    # blocks (a grid above the co-resident blocks is refused)
     small = [leaf(8, 1, 32, torch.float32, True),
              leaf(7, 1, 32, torch.float32)]
     big = cases[1][2]
@@ -160,7 +149,11 @@ def main():
         prog = band.solve_program("btd", lv)
         r = torch.randn((P, width), generator=gen, device=dev)
         for k in (1, 2, 3, 4):
-            t = b2b(lambda k=k: ops._block_solve(prog, lv, r, 132 * k))
+            try:
+                t = b2b(lambda k=k: ops._block_solve(prog, lv, r, 132 * k))
+            except RuntimeError as e:
+                print(f"grid {132 * k}: refused ({tag}: {e})", flush=True)
+                continue
             print(f"grid {132 * k}: {t:.4f} ms a launch ({tag})",
                   flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
