@@ -10,8 +10,8 @@ result line):
            chol_inv.cu, K31 schur.cu, K7 (K15's solve too) block_matvec.cu,
            K8 and K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13
            hdiag.cu, K14 pd.cu, K17 / K18 / K20 admm.cu, K21-K24
-           elem2d.cu, K25-K28 dd2d.cu, K32 trsolve.cu, K29 / K30
-           admm2d.cu; K19 and the
+           elem2d.cu, K25-K28 dd2d.cu, K32 trsolve.cu, K33 dense_chol.cu,
+           K29 / K30 admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
            and elem.cu, those of K21 / K22 in elem2d.cu, K26's W and
            local-Hessian entries in dd2d.cu; K9 lbfgs.cu) with nvcc for
@@ -77,7 +77,12 @@ result line):
            read); K32 on that plan's factor (f32: its error against an f64
            solve of the factor within twice the library pair's; f64 1e-12
            against the pair; bit for bit run to run and in a P = 1 slice;
-           one device kernel a call; back-to-back times); K29 (with its
+           one device kernel a call; back-to-back times); K33 on that
+           plan's scaled subdomain matrices (f32: its error against an f64
+           factor within 1.5x the library Cholesky's; f64 1e-12 against
+           its plain version; bit for bit run to run; exact zeros above
+           the diagonal; one device kernel a call; back-to-back times
+           beside cholesky_ex alone); K29 (with its
            loop counts, which set its bound) and K30
            with both epilogues on the full-size scene's triangles, and the
            per-slab / from-F entries of K21 / K22 and K26's W / consensus
@@ -251,7 +256,7 @@ DIM2DD_RUNS = {
 DD2D_KERNELS = ("quadratic_form2d", "subdomain_assemble2d",
                 "subdomain_scale2d", "h0_gather2d", "h0_average2d",
                 "local_gather_one2d", "local_scatter_one2d", "pd_assemble2d",
-                "tri_solve")
+                "tri_solve", "dense_chol")
 # the 2D ADMM family (dim2admm): the full-size spikes scene under each ADMM
 # stepper: (scene's timeStepper line, timed frames after one warm-up)
 DIM2ADMM_RUNS = {"ADMM": ("ADMM", 2), "ADMMDD4": ("ADMMDD 4", 1)}
@@ -373,6 +378,8 @@ SOURCES = {
                        "dot_tpu/dim2.py:567"),
     "tri_solve": ("cuda", "dot_tpu_torch/kernels/csrc/trsolve.cu",
                   "dot_tpu/dim2.py:623"),
+    "dense_chol": ("cuda", "dot_tpu_torch/kernels/csrc/dense_chol.cu",
+                   "dot_tpu/dim2.py:604"),
     "admm_local_step2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
                           "dot_tpu/steppers/admm.py:142"),
     "dtw_scatter2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
@@ -2687,11 +2694,11 @@ def _one_pass_check(torch, kname, fn, tag, bad, launches_per_call):
 
 
 def phase_dd2d_kernels(torch, record):
-    """K25-K28 and K32 against their plain versions at the dim2dd path's
-    full-size shapes (spikes at resolution 20,000 on the 4-part element
-    plan; K28 on the (nV)^2 PD matrix; K32 on the plan's factor), f64 and
-    f32, and factorize_fast's global 1e-4 tier on an indefinite
-    subdomain."""
+    """K25-K28, K32 and K33 against their plain versions at the dim2dd
+    path's full-size shapes (spikes at resolution 20,000 on the 4-part
+    element plan; K28 on the (nV)^2 PD matrix; K33 on the plan's scaled
+    subdomain matrices and K32 on their factor), f64 and f32, and
+    factorize_fast's global 1e-4 tier on an indefinite subdomain."""
     from dot_tpu_torch import dim2, plan2d, scripts
     from dot_tpu_torch.config import Config
     from dot_tpu_torch.kernels import dd2d, ops, soa2d
@@ -2821,6 +2828,44 @@ def phase_dd2d_kernels(torch, record):
                        f"finite {fin}, {e_shift:.3e} / {e_plain:.3e}")
         del Hi, Li, L_plain, L_shift
         torch.cuda.empty_cache()
+
+        # ---- K33: the scaled subdomain matrices' batched Cholesky (f32:
+        # its error against an f64 factor of the same matrices, over the
+        # library's; f64: against the plain version), bit for bit from
+        # run to run, exact zeros above the diagonal, one device kernel a
+        # call; its bound as dense_factor_roofline counts it (P n^3 / 3
+        # at the f32 rate); plain = the library Cholesky + its NaN passes,
+        # library = cholesky_ex alone
+        Sn = ops.subdomain_scale2d(Hk.clone(), dk, tab)
+        Lk, bad_k = ops.dense_chol(Sn)
+        lib, _ = dd2d.dense_chol_ref(Sn)
+        if dtype == torch.float32:
+            L64, _ = dd2d.dense_chol_ref(Sn.double())
+            e_k, e_lib = _rel_norm(Lk.double(), L64), _rel_norm(
+                lib.double(), L64)
+            k33_err = ("error vs an f64 factor, over the library's "
+                       f"({e_k:.3e} / {e_lib:.3e})", e_k / e_lib, 1.5,
+                       float((Lk - lib).abs().max()))
+            del L64
+        else:
+            k33_err = ("vs plain (the library Cholesky)", _rel_norm(Lk, lib),
+                       1e-12, float((Lk - lib).abs().max()))
+        res["dense_chol"] = [
+            k33_err,
+            ("run to run (bit for bit)",
+             0.0 if torch.equal(Lk, ops.dense_chol(Sn)[0]) else 1.0, 0.0,
+             None),
+            ("|triu(L, 1)|", float(torch.triu(Lk, 1).abs().max()), 0.0, None),
+            ("flag", 1.0 if bool(bad_k) else 0.0, 0.0, None)]
+        del Lk, lib
+        times["dense_chol"] = (lambda: ops.dense_chol(Sn),
+                               lambda: dd2d.dense_chol_ref(Sn),
+                               lambda: torch.linalg.cholesky_ex(Sn))
+        costs["dense_chol"] = (
+            (P * n2p * n2p + P * n2p * (n2p + 1) / 2) * sz, P * n2p ** 3 / 3)
+        per_call["dense_chol"] = _work_check(
+            name, "dense_chol", lambda: ops.dense_chol(Sn), 1,
+            ("dense_chol",), bad)
 
         # ---- K27: the H0 apply's gather / averaging, one subdomain's
         # gather / scatter, around K32's solves of a real factor
@@ -2957,7 +3002,7 @@ def phase_dd2d_kernels(torch, record):
             if name == "float32" and kname in per_call:
                 record[kname]["launches_per_call"] = per_call[kname]
             if kname in ("subdomain_assemble2d", "pd_assemble2d",
-                         "tri_solve"):
+                         "tri_solve", "dense_chol"):
                 _back_to_back(torch, name, kname, times[kname], record)
         say(f"kernels: {name} 2D decomposed shapes: spikes resolution "
             f"{SPIKES_FULL}, plan {t_plan:.2f} s: P {P}, n2p {n2p} "
@@ -2974,7 +3019,7 @@ def phase_dd2d_kernels(torch, record):
 def _dd2d_split(sim, frames):
     """ms/frame of the parts of a DOT 2D frame over `frames` more frames,
     each call wrapped in synchronised host timers: the H0 rebuild (K23,
-    K26 and the library Cholesky), the H0 apply (K27 and K32's
+    K26 and K33's Cholesky), the H0 apply (K27 and K32's
     solves), K25, the line-search trials (K21) and the gradient (K22)."""
     import collections
     import torch
@@ -2985,12 +3030,12 @@ def _dd2d_split(sim, frames):
              "elastic_energy", "gradient")
     for name in names:
         wrap_timed(sysm, name, acc)
-    chol = wrap_timed(None, "cholesky_ex", acc, module=torch.linalg,
-                      label="cholesky")
+    from dot_tpu_torch.kernels import ops
+    chol = wrap_timed(None, "dense_chol", acc, module=ops, label="cholesky")
     try:
         sim.run(frames)
     finally:
-        torch.linalg.cholesky_ex = chol
+        ops.dense_chol = chol
         for name in names:
             delattr(sysm, name)
     return {k: acc[k] / frames * 1e3 for k in names + ("cholesky",)}
@@ -3001,15 +3046,18 @@ def _dd2d_launch_problems(tag, sysm, launches, fr):
     iteration; K26 once a rebuild (the initial state + once a frame); K27's
     gather and averaging once an H0 apply (one an iteration), GSDD's
     one-subdomain pair P times a sweep, K32 once with each; K28 once a run
-    (LBFGS-PD)."""
+    (LBFGS-PD); K33 once a factorization (LBFGS-PD's one; once a rebuild,
+    twice where the 1e-4 tier refactors: from once to twice a rebuild)."""
     iters = sum(r["iters"] for r in fr)
     rebuilds = len(fr) + 1
     k = launches
     want = dict.fromkeys(DD2D_KERNELS, 0)
     if tag == "LBFGS":
-        want.update(pd_assemble2d=1, subdomain_scale2d=1)
+        want.update(pd_assemble2d=1, subdomain_scale2d=1, dense_chol=1)
     else:
-        want.update(subdomain_assemble2d=rebuilds, subdomain_scale2d=rebuilds)
+        refactors = k["dense_chol"] - rebuilds
+        want.update(subdomain_assemble2d=rebuilds, subdomain_scale2d=rebuilds,
+                    dense_chol=rebuilds + min(max(refactors, 0), rebuilds))
         if tag == "GSDD4":
             want.update(local_gather_one2d=sysm.n_parts * iters,
                         local_scatter_one2d=sysm.n_parts * iters,

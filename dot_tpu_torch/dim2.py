@@ -398,19 +398,20 @@ class System2D(SystemBase):
                                            self.mass_img, self.asm_tab)
 
     def _cholesky_nan(self, Hn):
-        """(L, 0-d bool): the batched library Cholesky of Hn (P, n, n), NaN
-        in every matrix whose factorization failed, and whether any did (a
-        NaN anywhere in L reaches its diagonal)."""
-        L, info = torch.linalg.cholesky_ex(Hn)
-        nan = torch.where(info != 0, torch.nan, 0.0).to(L.dtype)
-        L.add_(nan.reshape(info.shape + (1, 1)))
-        return L, torch.isnan(L.diagonal(dim1=-2, dim2=-1)).any()
+        """(L, 0-d bool): the lower Cholesky factors of Hn (P, n, n) or
+        (n, n), read from its lower triangle, exact zeros above the
+        diagonal, all NaN in every matrix whose factorization failed, and
+        whether any did, on the device (K33 in one launch; its plain
+        version, the batched library Cholesky and its NaN passes, on the
+        CPU)."""
+        L, bad = self.k.dense_chol(Hn.reshape((-1,) + Hn.shape[-2:]))
+        return L.reshape(Hn.shape), bad
 
     @tracing.span("h0_factor")
     def factorize_fast(self, Hd, d):
         """(L, d): the Jacobi-equilibrated, symmetrized matrices (K26's
         second entry; Hd is scaled in place on the card), rounded through
-        bf16 for LBFGS-HI, then the batched library Cholesky. If any factor
+        bf16 for LBFGS-HI, then the batched Cholesky (K33). If any factor
         fails, all P are refactored with 1e-4 on the diagonal, as dot_tpu's
         global tier does (dim2.py:604-621): one host read."""
         Hn = self._to_factor_dtype(
@@ -461,8 +462,8 @@ class System2D(SystemBase):
 
     def build_pd_factor(self, fixed, w=None):
         """(L, d) of M + dt^2 D^T W D on the (nV)^2 scalar matrix with unit
-        rows at fixed vertices (K28, K26's scaling entry on its slots, the
-        library Cholesky, NaN where it fails; dot_tpu/dim2.py:698-729). `w`:
+        rows at fixed vertices (K28, K26's scaling entry on its slots, K33's
+        Cholesky, NaN where it fails; dot_tpu/dim2.py:698-729). `w`:
         (nE,) element weights (default: LBFGS-PD's dt^2 area (2 mu +
         lambda))."""
         if self._pd_tab is None:
@@ -617,7 +618,7 @@ class ADMMDD2D:
         """(Wm, Lc, dc): the masked dense W (P, n2p, n2p) and the factor of
         the Jacobi-equilibrated consensus matrix at x (initWeights_fast and
         boundaryConsensusSolve's matrix; K23, K26's w_assemble2d, K26's
-        scaling, the library Cholesky)."""
+        scaling, K33's Cholesky)."""
         sys = self.system
         sfree = torch.cat([torch.logical_not(fixed[self.shared_ids]).to(
             sys.dtype), torch.zeros(1, dtype=sys.dtype, device=sys.device)])
@@ -680,7 +681,7 @@ class ADMMDD2D:
         Hessian: own triangles' elasticity at the local positions + local
         mass + W, identity at fixed and padding rows
         (computeHessianProxy_subdomain; K23, K26's local_h_assemble2d and
-        its scaling over the union of own and W slots, the batched library
+        its scaling over the union of own and W slots, K33's batched
         Cholesky with NaN where it fails)."""
         sys = self.system
         eh = sys.k.elem_hessian2d(xl_flat, self.conn_local, self.lg4,
@@ -701,8 +702,8 @@ class ADMMDD2D:
     def init_dual(self, g, g_loc, Wm, free2f, md2f):
         """u = W^-1 (g_global - g_local) on the interface dofs: the dense
         batched solve of W + I off the dual dofs (ADMMDDTimeStepper.cpp:
-        736-796); the library Cholesky of the equilibrated, symmetrized
-        matrix, as jnp.linalg.cholesky factors it."""
+        736-796); K33's Cholesky of the equilibrated, symmetrized matrix
+        (jnp.linalg.cholesky in dot_tpu)."""
         sys = self.system
         P, N, n2p = self.P, self.N, self.n2p
         rhs_u = (g[sys.l2g][:, :, :2] * sys.local_valid[..., None]

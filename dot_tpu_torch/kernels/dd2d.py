@@ -1,6 +1,6 @@
-"""The 2D decomposed path's kernels (K25-K28, K32) in plain PyTorch, and
-the host-side tables their CUDA versions (csrc/dd2d.cu, csrc/trsolve.cu)
-read.
+"""The 2D decomposed path's kernels (K25-K28, K32, K33) in plain PyTorch,
+and the host-side tables their CUDA versions (csrc/dd2d.cu,
+csrc/trsolve.cu, csrc/dense_chol.cu) read.
 
 Each `*_ref` function computes what dot_tpu/dim2.py's System2D computes
 (the line references are on each function), in the same operation order,
@@ -390,3 +390,14 @@ def tri_solve_ref(L, r):
     (dot_tpu/dim2.py:623-629)."""
     y = torch.linalg.solve_triangular(L, r[..., None], upper=False)
     return torch.linalg.solve_triangular(L.mT, y, upper=True)[..., 0]
+
+
+def dense_chol_ref(A):
+    """K33's plain version: (L, 0-d bool) for P SPD matrices A (P, n, n),
+    read from their lower triangles: the batched library Cholesky, all NaN
+    in every matrix whose factorization failed, and whether any did (a NaN
+    anywhere in L reaches its diagonal; dot_tpu/dim2.py:604-621)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    nan = torch.where(info != 0, torch.nan, 0.0).to(L.dtype)
+    L.add_(nan.reshape(info.shape + (1, 1)))
+    return L, torch.isnan(L.diagonal(dim1=-2, dim2=-1)).any()

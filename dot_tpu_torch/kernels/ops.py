@@ -1,4 +1,4 @@
-"""Wrappers of the thirty-two hand-written kernels of the steppers' paths.
+"""Wrappers of the thirty-three hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
@@ -7,7 +7,7 @@ Each wrapper checks device, dtype, shape and contiguity, then
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
   check entries of their device functions, kernels/dd2d.py for the 2D
-  decomposed path's K25-K28 and K32, kernels/admm2d.py for K29-K30 and
+  decomposed path's K25-K28, K32 and K33, kernels/admm2d.py for K29-K30 and
   the 2D ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (one launch a whole solve,
@@ -16,10 +16,11 @@ Each wrapper checks device, dtype, shape and contiguity, then
   K14: csrc/pd.cu, K17, K18 and K20 (its line-search entry w_quad too):
   csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
-  K25-K28: csrc/dd2d.cu, K32: csrc/trsolve.cu, K29-K30: csrc/admm2d.cu
+  K25-K28: csrc/dd2d.cu, K32: csrc/trsolve.cu, K33: csrc/dense_chol.cu,
+  K29-K30: csrc/admm2d.cu
   (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and dd2d.cu), K9:
-  csrc/lbfgs.cu, all through ctypes (K6, K7's solves, K9, w_quad and K32
-  launch cooperatively); K4:
+  csrc/lbfgs.cu, all through ctypes (K6, K7's solves, K9, w_quad, K32
+  and K33 launch cooperatively); K4:
   triton_qf.py),
   checks the launch's cudaGetLastError and adds one to its count in
   `launches`;
@@ -95,7 +96,8 @@ plain = types.SimpleNamespace(
     w_assemble2d=admm2d.w_assemble2d_ref,
     local_h_assemble2d=admm2d.local_h_assemble2d_ref,
     schur_update=band.schur_update_ref,
-    tri_solve=dd2d.tri_solve_ref)
+    tri_solve=dd2d.tri_solve_ref,
+    dense_chol=dd2d.dense_chol_ref)
 # w_diag: w_matvec's diagonal-only launch, which has no plain version of
 # its own
 KERNELS = tuple(vars(plain)) + ("w_diag",)
@@ -131,6 +133,11 @@ def _load():
             ("schur", "dot_schur_update"): [I, P, LL, P, I, LL, I, P, P],
             ("trsolve", "dot_tri_solve"): [I, P, P, P, I, I, I,
                                            ctypes.c_uint, P, P],
+            ("dense_chol", "dot_dense_chol"): [P, P, I, I, ctypes.c_uint,
+                                               P, P, P, P],
+            ("dense_chol64", "dot_dense_chol64"): [P, P, I, I,
+                                                   ctypes.c_uint, P, P, P,
+                                                   P],
             ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
             ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
             ("block_matvec", "dot_block_solve"): [I, I, P, I, I, I, LL, P, P,
@@ -426,9 +433,8 @@ _ERRORS = {-2: "the device has no cooperative launch",
 
 def _ok_coop(name, err):
     """_ok for the kernels with codes of their own (the cooperatively
-    launched K6, K7's solves, K9, w_quad and K32; K31): the negative codes
-    name
-    what the card lacks."""
+    launched K6, K7's solves, K9, w_quad, K32 and K33; K31): the negative
+    codes name what the card lacks."""
     if err in _ERRORS:
         raise RuntimeError(f"{name}: kernel not launched ({_ERRORS[err]})")
     _ok(name, err)
@@ -1698,20 +1704,25 @@ def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
 # K29, K30 and the added entry points of K21 / K22 / K26: the two 2D ADMM
 # steppers
 # ----------------------------------------------------------------------
-# K32's tagged words (the solved vectors, 32 bits of a value beside the
-# call's epoch in each 64-bit word), per device: [int64 tensor, the last
-# call's epoch]. The words are zeroed once; each call publishes under a
-# new epoch, so no call resets, memsets or reads them. Calls on one device
-# share them: they run in the order of one stream (a CUDA graph holding a
-# call would replay its epoch: none may be replayed).
+# The hand-off words of K32 (the solved vectors, 32 bits of a value beside
+# the call's epoch in each 64-bit word) and K33 (a word a tile holding the
+# epoch that published it, then the task counter), per kernel and device:
+# [int64 tensor, the last call's epoch]. The words are zeroed once; each
+# call publishes under a new epoch, so no call resets, memsets or reads
+# them. Calls on one device share them: they run in the order of one
+# stream (a CUDA graph holding a call would replay its epoch: none may be
+# replayed).
 _tri_words = {}
+_chol_words = {}
 
 
-def _tri_epoch(dev, n_words):
-    st = _tri_words.get(dev)
+def _epoch_words(store, dev, n_words):
+    """(at least n_words int64 words, a new nonzero epoch) of one kernel's
+    store on `dev`."""
+    st = store.get(dev)
     if st is None or st[0].numel() < n_words or st[1] == 0xffffffff:
-        st = _tri_words[dev] = [torch.zeros(n_words, dtype=torch.int64,
-                                            device=dev), 0]
+        st = store[dev] = [torch.zeros(n_words, dtype=torch.int64,
+                                       device=dev), 0]
     st[1] += 1
     return st[0], st[1]
 
@@ -1737,11 +1748,46 @@ def tri_solve(L, r):
         return dd2d.tri_solve_ref(L, r)
     lib = _load()
     z = torch.empty_like(r)
-    words, epoch = _tri_epoch(L.device, 2 * P * n * (r.element_size() // 4))
+    words, epoch = _epoch_words(_tri_words, L.device,
+                                2 * P * n * (r.element_size() // 4))
     err = lib.tri_solve(_DTYPES[dt], _ptr(S), _ptr(r), _ptr(z), P, n,
                         int(upper), epoch, _ptr(words), _stream(L))
     _ok_coop(name, err)
     return z
+
+
+def dense_chol(A):
+    """K33: (L, bad) for P SPD matrices A (P, n, n), read from their lower
+    triangles, in one launch: L (P, n, n) lower with exact zeros above the
+    diagonal, column major (L.mT contiguous, as the batched library
+    Cholesky leaves it; K32 reads it so), all NaN in every matrix with a
+    pivot <= 0 or not finite; bad a 0-d bool on the device, written by the
+    kernel: whether any matrix failed. f32 and f64 (FFMA on the CUDA
+    cores); other dtypes raise."""
+    name = "dense_chol"
+    dt = _float(name, A)
+    if A.dim() != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"{name}: A has shape {tuple(A.shape)}, not "
+                         "(P, n, n)")
+    _need(name, "A", A, A.device, dt)
+    if not _route(name, A):
+        return dd2d.dense_chol_ref(A)
+    P, n = A.shape[0], A.shape[2]
+    U = torch.empty_like(A)
+    if A.numel() == 0:
+        return U.mT, torch.zeros((), dtype=torch.bool, device=A.device)
+    bad = torch.empty((), dtype=torch.bool, device=A.device)
+    lib = _load()
+    # 32-bit words: a tile's (64 wide, the narrower tile: enough for both
+    # dtypes) and a matrix's failure word; the last 64-bit word the counter
+    nt = -(-n // 64)
+    n32 = P * nt * (nt + 1) // 2 + P
+    words, epoch = _epoch_words(_chol_words, A.device, (n32 + 1) // 2 + 1)
+    entry = lib.dense_chol if dt == torch.float32 else lib.dense_chol64
+    err = entry(_ptr(A), _ptr(U), P, n, epoch, _ptr(words),
+                _ptr(words[-1:]), _ptr(bad), _stream(A))
+    _ok_coop(name, err)
+    return U.mT, bad
 
 
 def admm_local_step2d(Dx, u4, w, vol_dtsq, mu, lam, mat, want_counts=False):

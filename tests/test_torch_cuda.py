@@ -8,7 +8,8 @@ pd_solve), K31 at the scan's shapes and on a chunked band, K17-K20
 from-F entry points on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
 ADMM-DD entries of K21, K22, K26, K32 on random factors and on the
-spikes scene's) against its plain PyTorch version on CUDA tensors, K6
+spikes scene's, K33 on random SPD batches) against its plain PyTorch
+version on CUDA tensors, K6
 at its paths' shapes in one launch a call, and time steps on the card against the same steps on the CPU or on the
 plain versions (DOT on dense, cyclic-reduction and coarse + chunked plans,
 Newton, LBFGS-PD, GSDD, ADMM-PD, ADMM-DD, the 2D Newton, DOT 4, ADMM-PD
@@ -1668,3 +1669,59 @@ def test_admm2d_frame_on_card_matches_cpu(cuda, stepper):
     assert out[0][1] == out[1][1]
     np.testing.assert_allclose(out[1][0], out[0][0], rtol=1e-8, atol=1e-11)
     assert out[1][2] == pytest.approx(out[0][2], rel=1e-9)
+
+
+# ----------------------------------------------------------------------
+# K33: the 2D dense H0 rebuild's batched Cholesky
+# ----------------------------------------------------------------------
+# (P, n): the spikes plan's width; a width off both dtypes' tiles at P = 1.
+# Last in the file: these tests run no profiler, and the ones that do
+# (_device_launches) lost every device event of their traces now and then
+# when they ran after them in one process
+K33_CASES = {"p4_5248": (4, 5248), "p1_1000": (1, 1000)}
+
+
+@pytest.mark.parametrize("case", list(K33_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_dense_chol_matches_the_plain_version(cuda, dtype, case):
+    """K33 against its plain version (the batched library Cholesky and its
+    NaN passes) on random Jacobi-equilibrated SPD batches read from their
+    lower triangles (the upper one garbage): f64 within 1e-12 norm-wise;
+    f32 within 1.5x the library's error against an f64 factor of the same
+    matrices; bit for bit from run to run; exact zeros above the diagonal,
+    column major; the flag a 0-d bool, clear; one indefinite matrix of the
+    batch all NaN with the flag set, the others bit for bit the batch
+    without it; one launch a call."""
+    from dot_tpu_torch.kernels import dd2d
+    P, n = K33_CASES[case]
+    rng = np.random.default_rng(33)
+    a = torch.as_tensor(rng.normal(size=(P, n, n)), device=cuda)
+    A = a @ a.mT / n + 0.05 * torch.eye(n, dtype=torch.float64, device=cuda)
+    del a
+    d = torch.sqrt(A.diagonal(dim1=1, dim2=2))
+    A = (A / d[:, :, None] / d[:, None, :]).to(dtype)
+    A += torch.triu(torch.full_like(A, 7.0), 1)
+    ops.reset_launches()
+    L, bad = ops.dense_chol(A)
+    L2, _ = ops.dense_chol(A)
+    assert ops.launches["dense_chol"] == 2
+    assert bad.dim() == 0 and bad.dtype == torch.bool and not bool(bad)
+    assert torch.equal(L, L2)
+    assert L.mT.is_contiguous()
+    assert bool((torch.triu(L, 1) == 0).all())
+    del L2
+    ref, _ = dd2d.dense_chol_ref(A)
+    if dtype == torch.float64:
+        assert _rel(L, ref) <= 1e-12
+    else:
+        L64, _ = dd2d.dense_chol_ref(A.double())
+        assert _rel(L.double(), L64) <= 1.5 * _rel(ref.double(), L64)
+        del L64
+    del ref
+    i = 1 if P > 1 else 0
+    A[i, n // 3, n // 3] = -1.0
+    Li, bad_i = ops.dense_chol(A)
+    assert ops.launches["dense_chol"] == 3
+    assert bool(bad_i) and bool(torch.isnan(Li[i]).all())
+    others = [k for k in range(P) if k != i]
+    assert torch.equal(Li[others], L[others])

@@ -358,3 +358,56 @@ def test_solve_local_route_and_refusals(pair, factored):
         ops.tri_solve(Lr, r.float())
     with pytest.raises(RuntimeError, match="no kernel for device"):
         ops.tri_solve(Lr.to("meta"), r.to("meta"))
+
+
+@pytest.mark.parametrize("case", ["one_of_four_fails", "single_fails",
+                                  "none_fails"])
+def test_cholesky_nan_contract_on_the_plain_route(pair, case):
+    """System2D._cholesky_nan through K33's wrapper on CPU tensors (its
+    plain version, no launch counted): the factors are read from the lower
+    triangle (the upper one here is garbage), exact zeros above the
+    diagonal, column major as K32 reads them; a matrix with a pivot <= 0 is
+    all NaN and the others are bit for bit the batch without it; the flag
+    is a 0-d bool on the tensors' device. The wrapper refuses other dtypes,
+    shapes, strides and devices."""
+    _, ts, _ = pair
+    rng = np.random.default_rng(33)
+    P, n = 4, 37
+    a = rng.normal(size=(P, n, n))
+    A = a @ a.transpose(0, 2, 1) / n + np.eye(n)
+    A += np.triu(np.full((n, n), 7.0), 1)
+    H = torch.as_tensor(A)
+    failed = {"one_of_four_fails": [1], "single_fails": [2],
+              "none_fails": []}[case]
+    Hf = H.clone()
+    for i in failed:
+        Hf[i, 5, 5] = -1.0
+    if case == "single_fails":
+        H, Hf, failed = H[2], Hf[2], [None]
+    ops.reset_launches()
+    L, bad = ts._cholesky_nan(Hf)
+    L0, bad0 = ts._cholesky_nan(H)
+    assert ops.launches["dense_chol"] == 0
+    assert L.shape == H.shape and L.mT.is_contiguous()
+    assert bad.dim() == 0 and bad.dtype == torch.bool
+    assert bad.device == H.device
+    assert bool(bad) == bool(failed) and not bool(bad0)
+    sym = torch.tril(H) + torch.tril(H, -1).mT
+    np.testing.assert_allclose(L0.numpy(), torch.linalg.cholesky(sym).numpy(),
+                               rtol=SOLVE, atol=SOLVE)
+    assert bool((torch.triu(L0, 1) == 0).all())
+    mats = [(None, L, L0)] if H.dim() == 2 else [
+        (i, L[i], L0[i]) for i in range(P)]
+    for i, Li, L0i in mats:
+        if i in failed:
+            assert bool(torch.isnan(Li).all())
+        else:
+            assert torch.equal(Li, L0i)
+    with pytest.raises(TypeError):
+        ops.dense_chol(H.reshape(-1, n, n).to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shape"):
+        ops.dense_chol(H.reshape(-1, n, n)[..., 1:].contiguous())
+    with pytest.raises(ValueError, match="not contiguous"):
+        ops.dense_chol(H.reshape(-1, n, n).mT)
+    with pytest.raises(RuntimeError, match="no kernel for device"):
+        ops.dense_chol(H.reshape(-1, n, n).to("meta"))
