@@ -21,11 +21,16 @@ contract.
   `h0_refactor`). The per-element passes, the assemblies and the vertex
   gathers are the kernels K21-K28 of kernels/ops.py (plain versions:
   kernels/soa2d.py, kernels/dd2d.py); the decomposed H0's solve pairs
-  are K32 (`solve_local`); the dense Cholesky factorizations and the other
-  triangular solves are library calls, as they all are in dot_tpu.
+  are K32 (`solve_local`), its Cholesky factorizations K33; Newton's
+  whole-mesh Cholesky and the other triangular solves are library calls,
+  as they all are in dot_tpu. Built for Newton (`whole_mesh`), it states
+  the whole-mesh factor as its layout (one block of 2 nV dofs), and
+  `factorize` and `solve` open the spans `dense_factor` and
+  `dense_solve`.
 - `Newton2DStepper` is steppers/newton.py's host loop with that factor:
-  one dense factorization per inner iteration (dim2.py:835-966). DOT,
-  GSDD and the LBFGS steppers are the 3D ones (steppers/), unchanged.
+  one dense factorization per inner iteration (dim2.py:835-966), inside
+  the stepper's `newton_factor` span. DOT, GSDD and the LBFGS steppers
+  are the 3D ones (steppers/), unchanged.
 - `ADMMPD2D` (dim2.py:780-832) is steppers/admm.py's host loop with the
   2D local step (K29) and the 2D D^T W scatter (K30) over LBFGS-PD's dense
   (nV)^2 factor with the Overby weights. `ADMMDD2D` (dim2.py:969-1459) is
@@ -181,7 +186,8 @@ class System2D(SystemBase):
     dim 2, DOTTimeStepper / LBFGSTimeStepper at DIM = 2)."""
 
     def __init__(self, mesh: Mesh2D, cfg, dtype=torch.float64, device=None,
-                 use_kernels=True, plan=None, factor_dtype=None):
+                 use_kernels=True, plan=None, factor_dtype=None,
+                 whole_mesh=False):
         """`device`: None for the card (raises without one: pass "cpu" to
         run on the CPU). `use_kernels=False` runs the plain PyTorch
         versions of K21-K28 and K32 on any device (a comparison run; the
@@ -189,7 +195,9 @@ class System2D(SystemBase):
         `plan`: a plan2d.Plan2D (an element plan for DOT / GSDD, one part
         for LBFGS-H / HI, a node plan for LBFGS-JH) or None (Newton,
         LBFGS-PD). `factor_dtype=torch.bfloat16`: the subdomain matrices
-        are rounded to bf16 and factorized in f32 (LBFGS-HI)."""
+        are rounded to bf16 and factorized in f32 (LBFGS-HI).
+        `whole_mesh=True` (Newton, no plan): the H0 layout states
+        `factorize`'s dense whole-mesh factor, one block of 2 nV dofs."""
         self.mesh = mesh
         self.cfg = cfg
         self.dtype = dtype
@@ -233,12 +241,13 @@ class System2D(SystemBase):
         # the decomposition plan's tables (dot_tpu/dim2.py:409-421); K26's
         # slot runs and K27's vertex-sorted gather derived once here. The
         # H0 layout (SystemBase): P dense blocks of the padded subdomain
-        # width, no band, no coarse space
+        # width (Newton: the whole mesh as one block), no band, no coarse
+        # space
         self.plan = plan
-        self.n_parts = plan.n_parts if plan is not None else 0
-        self.n3 = plan.n2 if plan is not None else 0
+        self.n_parts, self.n3 = (1, self.n2) if whole_mesh else (0, 0)
         self._pd_tab = None
         if plan is not None:
+            self.n_parts, self.n3 = plan.n_parts, plan.n2
             self.l2g = t(plan.local_to_global, torch.int64)
             self.local_valid = t(plan.local_valid, torch.bool)
             self.dup = t(plan.dup.astype(np.float64))
@@ -307,6 +316,7 @@ class System2D(SystemBase):
                                      self.lam_e, self.vol_w, self.mat,
                                      self.dt_sq)
 
+    @tracing.span("dense_factor")
     def factorize(self, x, fixed):
         """(L, d): the dense Jacobi-equilibrated Cholesky factor of the
         projected Hessian M + dt^2 sum H_e with unit rows at fixed dofs
@@ -323,6 +333,7 @@ class System2D(SystemBase):
         nan = torch.where(info != 0, torch.nan, 0.0).to(self.dtype)
         return L.add_(nan), d
 
+    @tracing.span("dense_solve")
     def solve(self, L, d, g):
         """p = -H^{-1} g for the (nV, 3) gradient; z column zero."""
         r = (-g[:, :2].reshape(self.n2) / d)[:, None]
@@ -506,9 +517,13 @@ class Newton2DStepper(NewtonStepper):
             raise ValueError("Newton2DStepper needs a System2D")
 
     def direction(self, x, fixed, g):
-        sys = self.system
-        L, d = sys.factorize(x, fixed)
-        return sys.solve(L, d, g)
+        L, d = self.factor(x, fixed)
+        return self.system.solve(L, d, g)
+
+    @tracing.span("newton_factor")
+    def factor(self, x, fixed):
+        """(L, d): the dense whole-mesh factor of the Hessian at x."""
+        return self.system.factorize(x, fixed)
 
 
 class ADMMPD2D(ADMMPDStepper):
@@ -896,7 +911,8 @@ class Sim2D(Simulator):
                 cfg, self.mesh.n_vert))
         self.system = System2D(self.mesh, cfg, dtype=dtype,
                                device=self.device, use_kernels=use_kernels,
-                               plan=plan, factor_dtype=fdt)
+                               plan=plan, factor_dtype=fdt,
+                               whole_mesh=st == "Newton")
         if st == "ADMM":
             self.stepper = ADMMPD2D(self.system, self.script_data,
                                     max_iter=cfg.max_iter_apd)
