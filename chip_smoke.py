@@ -11,7 +11,7 @@ result line):
            K8 and K16 h0.cu, K10-K11 coarse.cu, K12 band_equil.cu, K13
            hdiag.cu, K14 pd.cu, K17 / K18 / K20 admm.cu, K21-K24
            elem2d.cu, K25-K28 dd2d.cu, K32 trsolve.cu, K33 dense_chol.cu,
-           K29 / K30 admm2d.cu; K19 and the
+           K34 whole_chol.cu, K29 / K30 admm2d.cu; K19 and the
            per-slab / from-F entry points of K1 / K2 live in band_asm.cu
            and elem.cu, those of K21 / K22 in elem2d.cu, K26's W and
            local-Hessian entries in dd2d.cu; K9 lbfgs.cu) with nvcc for
@@ -82,7 +82,12 @@ result line):
            factor within 1.5x the library Cholesky's; f64 1e-12 against
            its plain version; bit for bit run to run; exact zeros above
            the diagonal; one device kernel a call; back-to-back times
-           beside cholesky_ex alone); K29 (with its
+           beside cholesky_ex alone); K34 on the spikes Newton matrix
+           at the scene's start (n 20,342) and the scaled PD matrix (n
+           10,171), f32: its error against an f64 factor at most the
+           library Cholesky's, bit for bit run to run, exact zeros above
+           the diagonal, one device kernel a call, times beside its plain
+           version, cholesky_ex alone and the bound; K29 (with its
            loop counts, which set its bound) and K30
            with both epilogues on the full-size scene's triangles, and the
            per-slab / from-F entries of K21 / K22 and K26's W / consensus
@@ -380,6 +385,8 @@ SOURCES = {
                   "dot_tpu/dim2.py:623"),
     "dense_chol": ("cuda", "dot_tpu_torch/kernels/csrc/dense_chol.cu",
                    "dot_tpu/dim2.py:604"),
+    "whole_chol": ("cuda", "dot_tpu_torch/kernels/csrc/whole_chol.cu",
+                   "dot_tpu/dim2.py:496"),
     "admm_local_step2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
                           "dot_tpu/steppers/admm.py:142"),
     "dtw_scatter2d": ("cuda", "dot_tpu_torch/kernels/csrc/admm2d.cu",
@@ -2447,21 +2454,20 @@ def phase_dim2_kernels(torch, record):
 def _dim2_split(sim, frames):
     """ms/frame of the parts of a Newton2D frame over `frames` more frames,
     each call wrapped in synchronised host timers: the assembly (K23, K24
-    and its scaling), the library Cholesky, the two triangular solves, the
+    and its scaling), the Cholesky (K34), the two triangular solves, the
     line-search trials (K21) and the gradient (K22)."""
     import collections
-    import torch
+    from dot_tpu_torch.kernels import ops
     acc = collections.Counter()
     sysm = sim.system
     names = ("factorize", "solve", "elastic_energy", "gradient")
     for name in names:
         wrap_timed(sysm, name, acc)
-    chol = wrap_timed(None, "cholesky_ex", acc, module=torch.linalg,
-                      label="cholesky")
+    chol = wrap_timed(None, "whole_chol", acc, module=ops, label="cholesky")
     try:
         sim.run(frames)
     finally:
-        torch.linalg.cholesky_ex = chol
+        ops.whole_chol = chol
         for name in names:
             delattr(sysm, name)
     ms = {k: acc[k] / frames * 1e3 for k in names + ("cholesky",)}
@@ -2577,6 +2583,12 @@ def phase_dim2(torch, launches_out):
                 or launches["dense_scale2d"] != iters):
             problems.append(f"{iters} Newton iterations but launches "
                             f"{launches}")
+        # K34 factors each f32 iteration's matrix in one launch (f64: K33)
+        k34 = launches["whole_chol"]
+        say(f"dim2: K34 launches {k34} over {iters} Newton iterations "
+            f"({name}; want {iters if name == 'float32' else 0})")
+        if k34 != (iters if name == "float32" else 0):
+            problems.append(f"{iters} Newton iterations, {k34} K34 launches")
         split = _dim2_split(sim, 2)
         more = sim.frames[n_fr:]
         it2 = max(sum(r["iters"] for r in more), 1) / 2
@@ -3014,6 +3026,76 @@ def phase_dd2d_kernels(torch, record):
     if bad:
         raise Fail("kernel disagrees with its plain version: "
                    + "; ".join(bad))
+
+
+def phase_k34_kernel(torch, record):
+    """K34 (f32) at the two P = 1 shapes of the 2D path: the spikes Newton
+    matrix at the scene's start (n 20,342: System2D.factorize's, K34's
+    own) and the scaled 2D PD matrix (n 10,171: build_pd_factor's, which
+    stays on K33): its error against an f64 factor of the same matrix
+    over the library's (tol 1), bit for bit run to run, exact zeros above
+    the diagonal, the flag clear, one device kernel a call; timed single
+    and back to back beside its plain version (K33's on the batch of one:
+    the library Cholesky and its NaN passes), cholesky_ex alone (the
+    library yardstick, never called by the port) and its bound (n^3 / 3
+    at the f32 rate)."""
+    from dot_tpu_torch import dim2, scripts
+    from dot_tpu_torch.config import Config
+    from dot_tpu_torch.kernels import dd2d, ops
+    cfg = Config(energy="FCR", time_stepper="Newton", shape="spikes",
+                 resolution=SPIKES_FULL, ym=1e5, pr=0.4, rho=1000.0,
+                 handle_ratio=0.03, dt=0.025, script="stretch")
+    mesh = dim2.Mesh2D.from_config(cfg)
+    sd = scripts.init_script(mesh, cfg.script)
+    mesh.fixed_mask = sd.fixed0.copy()
+    sysm = dim2.System2D(mesh, cfg, dtype=torch.float32, device="cuda",
+                         whole_mesh=True)
+    x = torch.as_tensor(sd.x0, dtype=torch.float32, device="cuda")
+    fixed = torch.as_tensor(sd.fixed0, device="cuda")
+    H, d = ops.dense_assemble2d(sysm.element_hessians(x), sysm._free(fixed),
+                                sysm.mass, sysm.dense_tab)
+    mats = {"whole_chol": ops.dense_scale2d(H, d, sysm.dense_tab)}
+    del H, d
+    w = sysm.scalar(sysm.dt_sq) * sysm.vol_w * (2.0 * sysm.u_e + sysm.lam_e)
+    ptab = dd2d.pd_tables(mesh.conn, mesh.n_vert, "cuda")
+    S, d = ops.pd_assemble2d(sysm.g4, w, sysm._free(fixed), sysm.mass, ptab)
+    mats["whole_chol@pd10171"] = ops.subdomain_scale2d(S[None], d[None],
+                                                       ptab)[0]
+    del S, d, sysm
+    torch.cuda.empty_cache()
+    bad = []
+    for kname, A in mats.items():
+        n = A.shape[0]
+        L, flag = ops.whole_chol(A)
+        lib, _ = dd2d.whole_chol_ref(A)
+        L64, _ = dd2d.whole_chol_ref(A.double())
+        e_k, e_lib = _rel_norm(L.double(), L64), _rel_norm(lib.double(), L64)
+        del L64
+        checks = [
+            ("error vs an f64 factor, over the library's "
+             f"({e_k:.3e} / {e_lib:.3e})", e_k / e_lib, 1.0,
+             float((L - lib).abs().max())),
+            ("run to run (bit for bit)",
+             0.0 if torch.equal(L, ops.whole_chol(A)[0]) else 1.0, 0.0, None),
+            ("|triu(L, 1)|", float(torch.triu(L, 1).abs().max()), 0.0, None),
+            ("flag", 1.0 if bool(flag) else 0.0, 0.0, None)]
+        del L, lib
+        fns = (lambda: ops.whole_chol(A), lambda: dd2d.whole_chol_ref(A),
+               lambda: torch.linalg.cholesky_ex(A))
+        cost = ((n * n + n * (n + 1) / 2) * 4, n ** 3 / 3)
+        n_dev = _work_check("float32", kname, fns[0], 1, ("whole_chol",),
+                            bad)
+        _report(torch, "float32", kname, checks, fns, cost, bad, record,
+                plain_reps=5)
+        _back_to_back(torch, "float32", kname, fns, record)
+        record[kname]["launches_per_call"] = n_dev
+        say(f"kernels: float32 {kname}: n {n}, "
+            f"{100.0 * record[kname]['bound_ms'] / record[kname]['ms']:.1f} "
+            f"% of the f32 peak")
+    del mats, A, fns
+    torch.cuda.empty_cache()
+    if bad:
+        raise Fail("K34 disagrees with its plain version: " + "; ".join(bad))
 
 
 def _dd2d_split(sim, frames):
@@ -4039,6 +4121,7 @@ def main(argv=None):
         if "kernels" in phases or "kernels2d" in phases:
             phase_dim2_kernels(torch, record)
             phase_dd2d_kernels(torch, record)
+            phase_k34_kernel(torch, record)
             phase_admm2d_kernels(torch, record)
         if "golden" in phases:
             phase_golden(torch)

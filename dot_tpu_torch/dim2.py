@@ -320,18 +320,19 @@ class System2D(SystemBase):
     def factorize(self, x, fixed):
         """(L, d): the dense Jacobi-equilibrated Cholesky factor of the
         projected Hessian M + dt^2 sum H_e with unit rows at fixed dofs
-        (K23, K24, then the library Cholesky, NaN where it fails). The
-        assembled matrix is symmetric bit for bit (each slot and its mirror
-        sum the same values in the same order), so the factorization reads
-        its lower triangle and no symmetrized copy is made."""
+        (K23, K24, then K34: the whole-mesh Cholesky in one launch, all NaN
+        where it fails; its flag is not read, the line search rejects a NaN
+        direction). The assembled matrix is symmetric bit for bit (each
+        slot and its mirror sum the same values in the same order), so the
+        factorization reads its lower triangle and no symmetrized copy is
+        made."""
         H36 = self.element_hessians(x)
         H, d = self.k.dense_assemble2d(H36, self._free(fixed), self.mass,
                                        self.dense_tab)
         Hn = self.k.dense_scale2d(H, d, self.dense_tab)
         del H
-        L, info = torch.linalg.cholesky_ex(Hn)
-        nan = torch.where(info != 0, torch.nan, 0.0).to(self.dtype)
-        return L.add_(nan), d
+        L, _ = self.k.whole_chol(Hn)
+        return L, d
 
     @tracing.span("dense_solve")
     def solve(self, L, d, g):

@@ -27,12 +27,12 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # elementwise ops do (K1-K3, K5, K8, K13, K14, K16-K20 then agree bit for bit
 # in most outputs; the 2D kernels K21-K24 and K29 up to the device library's
 # atan2, sin and cos; K25-K28 and K30 on the 2D decomposed and ADMM paths);
-# K6, K7, K9, K15, K31, K32 and K33 are sums of products whose order
+# K6, K7, K9, K15, K31, K32, K33 and K34 are sums of products whose order
 # differs from the plain versions' anyway, so they keep the contraction. K6
 # and K9 are launched cooperatively (cooperative_groups' grid barrier,
-# which needs no -rdc since CUDA 11); K32 and K33 too, for their blocks'
-# co-residence alone. K33's source builds two libraries, f32 and f64 (its
-# longest compile halved).
+# which needs no -rdc since CUDA 11); K32, K33 and K34 too, for their
+# blocks' co-residence alone. K33's source builds two libraries, f32 and
+# f64 (its longest compile halved); K34 (f32) has a library of its own.
 LIBRARIES = {
     "elem": (("elem.cu", "elem.cuh"), ("-fmad=false",)),
     "band_asm": (("band_asm.cu",), ("-fmad=false",)),
@@ -41,6 +41,7 @@ LIBRARIES = {
     "trsolve": (("trsolve.cu",), ()),
     "dense_chol": (("dense_chol.cu",), ()),
     "dense_chol64": (("dense_chol.cu",), ("-DDOT_K33_F64",)),
+    "whole_chol": (("whole_chol.cu",), ()),
     "lbfgs": (("lbfgs.cu",), ()),
     "block_matvec": (("block_matvec.cu",), ()),
     "h0": (("h0.cu",), ("-fmad=false",)),

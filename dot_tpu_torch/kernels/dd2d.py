@@ -1,6 +1,7 @@
-"""The 2D decomposed path's kernels (K25-K28, K32, K33) in plain PyTorch,
-and the host-side tables their CUDA versions (csrc/dd2d.cu,
-csrc/trsolve.cu, csrc/dense_chol.cu) read.
+"""The 2D decomposed path's kernels (K25-K28, K32, K33) and 2D Newton's
+whole-mesh Cholesky (K34) in plain PyTorch, and the host-side tables
+their CUDA versions (csrc/dd2d.cu, csrc/trsolve.cu, csrc/dense_chol.cu,
+csrc/whole_chol.cu) read.
 
 Each `*_ref` function computes what dot_tpu/dim2.py's System2D computes
 (the line references are on each function), in the same operation order,
@@ -401,3 +402,30 @@ def dense_chol_ref(A):
     nan = torch.where(info != 0, torch.nan, 0.0).to(L.dtype)
     L.add_(nan.reshape(info.shape + (1, 1)))
     return L, torch.isnan(L.diagonal(dim1=-2, dim2=-1)).any()
+
+
+def whole_chol_ref(A):
+    """K34's plain version: (L, 0-d bool) for one SPD matrix A (n, n), read
+    from its lower triangle: K33's plain version on the batch of one (the
+    library Cholesky, all NaN if it failed; dot_tpu/dim2.py:496)."""
+    L, bad = dense_chol_ref(A[None])
+    return L[0], bad
+
+
+# K34's tile, and the lead of its dealing order's keys LEAD J + I0
+WHOLE_TILE = 128
+WHOLE_LEAD = 6
+
+
+def whole_chol_order(n):
+    """K34's pair tasks in dealing order, int32 J << 16 | I0: for every
+    column J of the nt = ceil(n / 128) tile columns the pairs of tiles
+    (I0, I0 + 1) with I0 = J, J + 2, ... < nt, by the key LEAD J + I0,
+    then J. A pair reads the tiles (J, K), (I0, K), (I0 + 1, K) for K < J
+    and, below the diagonal, (J, J): each is written by a pair of a
+    smaller key, so a task waits only on tasks dealt before it."""
+    nt = -(-n // WHOLE_TILE)
+    pairs = [(WHOLE_LEAD * J + I0, J, I0) for J in range(nt)
+             for I0 in range(J, nt, 2)]
+    pairs.sort()
+    return np.array([J << 16 | I0 for _, J, I0 in pairs], np.int32)

@@ -1,4 +1,4 @@
-"""Wrappers of the thirty-three hand-written kernels of the steppers' paths.
+"""Wrappers of the thirty-four hand-written kernels of the steppers' paths.
 
 Each wrapper checks device, dtype, shape and contiguity, then
 - takes its plain PyTorch version (kernels/soa.py for K1-K4,
@@ -7,8 +7,9 @@ Each wrapper checks device, dtype, shape and contiguity, then
   kernels/admm.py for K17-K20 and the per-slab / from-F entry points of
   K1 / K2, kernels/soa2d.py for the 2D kernels K21-K24, defgrad2d and the
   check entries of their device functions, kernels/dd2d.py for the 2D
-  decomposed path's K25-K28, K32 and K33, kernels/admm2d.py for K29-K30 and
-  the 2D ADMM-DD entries of K21 / K22 / K26) for CPU tensors;
+  decomposed path's K25-K28, K32, K33 and 2D Newton's K34,
+  kernels/admm2d.py for K29-K30 and the 2D ADMM-DD entries of K21 / K22
+  / K26) for CPU tensors;
 - launches its kernel for CUDA tensors (K1-K3: csrc/elem.cu, K5:
   csrc/band_asm.cu, K6: csrc/chol_inv.cu, K7 (one launch a whole solve,
   K15's pd_solve included): csrc/block_matvec.cu, K8 and K16: csrc/h0.cu,
@@ -17,10 +18,10 @@ Each wrapper checks device, dtype, shape and contiguity, then
   csrc/admm.cu, K19: band_asm.cu, K31: csrc/schur.cu,
   K21-K24: csrc/elem2d.cu (K24's assembly: dd2d.cu's one pass),
   K25-K28: csrc/dd2d.cu, K32: csrc/trsolve.cu, K33: csrc/dense_chol.cu,
-  K29-K30: csrc/admm2d.cu
+  K34: csrc/whole_chol.cu, K29-K30: csrc/admm2d.cu
   (K21 / K22 / K26's 2D ADMM-DD entries in elem2d.cu and dd2d.cu), K9:
-  csrc/lbfgs.cu, all through ctypes (K6, K7's solves, K9, w_quad, K32
-  and K33 launch cooperatively); K4:
+  csrc/lbfgs.cu, all through ctypes (K6, K7's solves, K9, w_quad, K32,
+  K33 and K34 launch cooperatively); K4:
   triton_qf.py),
   checks the launch's cudaGetLastError and adds one to its count in
   `launches`;
@@ -97,7 +98,8 @@ plain = types.SimpleNamespace(
     local_h_assemble2d=admm2d.local_h_assemble2d_ref,
     schur_update=band.schur_update_ref,
     tri_solve=dd2d.tri_solve_ref,
-    dense_chol=dd2d.dense_chol_ref)
+    dense_chol=dd2d.dense_chol_ref,
+    whole_chol=dd2d.whole_chol_ref)
 # w_diag: w_matvec's diagonal-only launch, which has no plain version of
 # its own
 KERNELS = tuple(vars(plain)) + ("w_diag",)
@@ -138,6 +140,8 @@ def _load():
             ("dense_chol64", "dot_dense_chol64"): [P, P, I, I,
                                                    ctypes.c_uint, P, P, P,
                                                    P],
+            ("whole_chol", "dot_whole_chol"): [P, P, P, I, P, I,
+                                               ctypes.c_uint, P, P, P, P],
             ("lbfgs", "dot_lbfgs_first"): [I, I, LL] + [P] * 8 + [LL, P],
             ("lbfgs", "dot_lbfgs_second"): [I, I, LL] + [P] * 9 + [LL, P],
             ("block_matvec", "dot_block_solve"): [I, I, P, I, I, I, LL, P, P,
@@ -1705,8 +1709,8 @@ def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
 # steppers
 # ----------------------------------------------------------------------
 # The hand-off words of K32 (the solved vectors, 32 bits of a value beside
-# the call's epoch in each 64-bit word) and K33 (a word a tile holding the
-# epoch that published it, then the task counter), per kernel and device:
+# the call's epoch in each 64-bit word), K33 and K34 (a word a tile holding
+# the epoch that published it, then the task counter), per kernel and device:
 # [int64 tensor, the last call's epoch]. The words are zeroed once; each
 # call publishes under a new epoch, so no call resets, memsets or reads
 # them. Calls on one device share them: they run in the order of one
@@ -1714,6 +1718,9 @@ def local_scatter_one2d(z, d, l2g, valid, part, n_vert):
 # replayed).
 _tri_words = {}
 _chol_words = {}
+_whole_words = {}
+# K34's dealing order (dd2d.whole_chol_order) on the device, by (n, device)
+_whole_order = {}
 
 
 def _epoch_words(store, dev, n_words):
@@ -1786,6 +1793,53 @@ def dense_chol(A):
     entry = lib.dense_chol if dt == torch.float32 else lib.dense_chol64
     err = entry(_ptr(A), _ptr(U), P, n, epoch, _ptr(words),
                 _ptr(words[-1:]), _ptr(bad), _stream(A))
+    _ok_coop(name, err)
+    return U.mT, bad
+
+
+def whole_chol(A):
+    """K34: (L, bad) for ONE SPD matrix A (n, n), read from its lower
+    triangle, in one launch (2D Newton's whole-mesh factor): L (n, n)
+    lower with exact zeros above the diagonal, column major (L.mT
+    contiguous, as the library Cholesky leaves it), all NaN if a pivot is
+    <= 0 or not finite; bad a 0-d bool on the device, written by the
+    kernel: whether it failed. f32 on the card (f32 FFMA; each call also
+    takes the kernel's scratch, a tile-major copy of L's tiles: n^2 / 2
+    floats, 0.83 GB at n 20,342); f64 there takes K33's f64 entry on the
+    batch of one (ops.dense_chol), K34 being f32 only; other dtypes and
+    shapes raise."""
+    name = "whole_chol"
+    dt = _float(name, A)
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"{name}: A has shape {tuple(A.shape)}, not (n, n)")
+    _need(name, "A", A, A.device, dt)
+    if not _route(name, A):
+        return dd2d.whole_chol_ref(A)
+    if dt == torch.float64:
+        L, bad = dense_chol(A[None])
+        return L[0], bad
+    n = A.shape[0]
+    U = torch.empty_like(A)
+    if n == 0:
+        return U.mT, torch.zeros((), dtype=torch.bool, device=A.device)
+    bad = torch.empty((), dtype=torch.bool, device=A.device)
+    lib = _load()
+    order = _whole_order.get((n, A.device))
+    if order is None:
+        order = _whole_order[n, A.device] = torch.as_tensor(
+            dd2d.whole_chol_order(n), device=A.device)
+    # the kernel's scratch: a tile-major copy of U's upper tiles (128 x 128
+    # each, 16-byte aligned whatever n), which its products read; 32-bit
+    # words: a tile's, then the failure word; the last 64-bit word the
+    # counter
+    nt = -(-n // dd2d.WHOLE_TILE)
+    n_tiles = nt * (nt + 1) // 2
+    T = torch.empty(n_tiles * dd2d.WHOLE_TILE ** 2, dtype=dt, device=A.device)
+    words, epoch = _epoch_words(_whole_words, A.device,
+                                (n_tiles + 2) // 2 + 1)
+    err = lib.whole_chol(_ptr(A), _ptr(U), _ptr(T), n, _ptr(order),
+                         order.numel(), epoch, _ptr(words), _ptr(words[-1:]),
+                         _ptr(bad), _stream(A))
     _ok_coop(name, err)
     return U.mT, bad
 

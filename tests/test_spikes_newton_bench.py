@@ -5,7 +5,8 @@ faults_newton.py fails it; Sim2D's Newton system states its whole-mesh
 factor as its H0 layout while a bare System2D states none; a traced
 Newton frame opens the stepper's and System2D's spans once an iteration
 and is bit for bit the untraced frame; the harness's spans on
-System2D.factorize and solve are entered once an iteration; the cell's
+System2D.factorize and solve are entered once an iteration, and each
+iteration's factorization is one call of K34's wrapper; the cell's
 three metrics read nothing where the program states no layout or the
 span was not entered."""
 
@@ -164,6 +165,21 @@ def test_harness_spans_are_entered_once_an_iteration(tmp_path, monkeypatch):
                               {"frame": 2, "iter": iters})
     assert tracer.calls["newton_factorize"] == iters
     assert tracer.calls["newton_solve"] == iters
+
+
+def test_newton_iteration_calls_k34s_wrapper_once(tmp_path, monkeypatch):
+    """Each Newton iteration's factorization is one ops.whole_chol call
+    (K34 on the card) on the whole-mesh matrix."""
+    from dot_tpu_torch.kernels import ops
+    r = built_run(tmp_path)
+    calls = []
+    real = ops.whole_chol
+    monkeypatch.setattr(ops, "whole_chol",
+                        lambda A: calls.append(tuple(A.shape)) or real(A))
+    r.window(float("inf"), max_frames=2)
+    iters = sum(f["iters"] for f in r.frame_stats)
+    n2 = 2 * r.sim.system.n_vert
+    assert iters > 0 and calls == [(n2, n2)] * iters
 
 
 def _ctx(P, bs, calls, dev_s):

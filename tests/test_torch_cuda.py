@@ -8,7 +8,8 @@ pd_solve), K31 at the scan's shapes and on a chunked band, K17-K20
 from-F entry points on the ADMM plans, K6 at any width, the 2D kernels K21-K24 with
 the check entries of their device functions, K25-K28, K29, K30 and the
 ADMM-DD entries of K21, K22, K26, K32 on random factors and on the
-spikes scene's, K33 on random SPD batches) against its plain PyTorch
+spikes scene's, K33 on random SPD batches, K34 on the spikes Newton
+matrix and random SPD matrices) against its plain PyTorch
 version on CUDA tensors, K6
 at its paths' shapes in one launch a call, and time steps on the card against the same steps on the CPU or on the
 plain versions (DOT on dense, cyclic-reduction and coarse + chunked plans,
@@ -1725,3 +1726,66 @@ def test_dense_chol_matches_the_plain_version(cuda, dtype, case):
     assert bool(bad_i) and bool(torch.isnan(Li[i]).all())
     others = [k for k in range(P) if k != i]
     assert torch.equal(Li[others], L[others])
+
+
+# ----------------------------------------------------------------------
+# K34: 2D Newton's whole-mesh Cholesky
+# ----------------------------------------------------------------------
+def _whole_mesh_matrix(dev):
+    """The scaled whole-mesh Hessian System2D.factorize factors, spikes at
+    resolution 20,000 (n 20,342) at the scene's start, f32."""
+    st = _scene_2d(dev, torch.float32, resolution=20000)
+    sysm = st.system
+    x = torch.as_tensor(st.script_data.x0, dtype=torch.float32, device=dev)
+    fixed = torch.as_tensor(st.script_data.fixed0, device=dev)
+    H, d = ops.dense_assemble2d(sysm.element_hessians(x), sysm._free(fixed),
+                                sysm.mass, sysm.dense_tab)
+    return ops.dense_scale2d(H, d, sysm.dense_tab)
+
+
+# the spikes Newton matrix; random SPD matrices whose rows are 4- and
+# 8-byte aligned (n odd, n = 2 mod 4), off the 128-wide tiles
+K34_CASES = {"spikes_newton": None, "random_1001": 1001,
+             "random_2050": 2050}
+
+
+@pytest.mark.parametrize("case", list(K34_CASES))
+def test_whole_chol_matches_the_plain_version(cuda, case):
+    """K34 against its plain version (K33's on the batch of one: the
+    library Cholesky and its NaN passes) in f32: its error against an f64
+    factor of the same matrix no larger than the library's; bit for bit
+    from run to run; exact zeros above the diagonal, column major; the
+    flag a 0-d bool, clear; one launch a call; a pivot <= 0 makes the
+    factor all NaN and sets the flag."""
+    from dot_tpu_torch.kernels import dd2d
+    n = K34_CASES[case]
+    if n is None:
+        A = _whole_mesh_matrix(cuda)
+        n = A.shape[0]
+        assert n == 20342
+    else:
+        rng = np.random.default_rng(34)
+        a = torch.as_tensor(rng.normal(size=(n, n)), device=cuda)
+        A = a @ a.mT / n + 0.05 * torch.eye(n, dtype=torch.float64,
+                                            device=cuda)
+        del a
+        d = torch.sqrt(A.diagonal())
+        A = (A / d[:, None] / d[None, :]).float()
+        A += torch.triu(torch.full_like(A, 7.0), 1)
+    ops.reset_launches()
+    L, bad = ops.whole_chol(A)
+    L2, _ = ops.whole_chol(A)
+    assert ops.launches["whole_chol"] == 2
+    assert bad.dim() == 0 and bad.dtype == torch.bool and not bool(bad)
+    assert torch.equal(L, L2)
+    del L2
+    assert L.mT.is_contiguous() and tuple(L.shape) == (n, n)
+    assert bool((torch.triu(L, 1) == 0).all())
+    ref, _ = dd2d.whole_chol_ref(A)
+    L64, _ = dd2d.whole_chol_ref(torch.tril(A.double()))
+    assert _rel(L.double(), L64) <= _rel(ref.double(), L64)
+    del L64, ref, L
+    A[n // 3, n // 3] = -1.0
+    Li, bad_i = ops.whole_chol(A)
+    assert ops.launches["whole_chol"] == 3
+    assert bool(bad_i) and bool(torch.isnan(Li).all())

@@ -160,6 +160,80 @@ def test_factorize_failure_is_nan(spikes):
     assert torch.isnan(L).all()
 
 
+def _library_factor(sysm, x, fixed):
+    """System2D.factorize's factor as the library gave it before K34:
+    cholesky_ex on the scaled matrix, NaN added where it failed."""
+    H, d = sysm.k.dense_assemble2d(sysm.element_hessians(x),
+                                   sysm._free(fixed), sysm.mass,
+                                   sysm.dense_tab)
+    Hn = sysm.k.dense_scale2d(H, d, sysm.dense_tab)
+    L, info = torch.linalg.cholesky_ex(Hn)
+    return L.add_(torch.where(info != 0, torch.nan, 0.0).to(L.dtype)), d
+
+
+@pytest.mark.parametrize("case", ["deformed", "failing"])
+def test_whole_mesh_factorize_goes_through_k34s_wrapper(spikes, deformed,
+                                                        monkeypatch, case):
+    """System2D(whole_mesh=True).factorize calls ops.whole_chol once and,
+    on the CPU in f64, gives the library's factor bit for bit (all NaN
+    where the factorization fails)."""
+    (_, st), (x, _, fixed) = spikes, deformed
+    ts = st.system
+    sysm = dim2.System2D(ts.mesh, ts.cfg, device="cpu", whole_mesh=True)
+    tx, tf = torch.as_tensor(x), torch.as_tensor(fixed)
+    if case == "failing":
+        tx = tx.clone()
+        tx[:, :2] = float("nan")
+    calls = []
+    real = ops.whole_chol
+    monkeypatch.setattr(ops, "whole_chol",
+                        lambda A: calls.append(A.shape) or real(A))
+    L, d = sysm.factorize(tx, tf)
+    assert calls == [(sysm.n2, sysm.n2)]
+    L0, d0 = _library_factor(sysm, tx, tf)
+    torch.testing.assert_close(d, d0, rtol=0, atol=0, equal_nan=True)
+    if case == "failing":
+        assert torch.isnan(L).all() and torch.isnan(L0).all()
+    else:
+        assert torch.equal(L, L0)
+
+
+@pytest.mark.parametrize("shape,dtype,error", [
+    ((2, 6, 6), torch.float64, ValueError),
+    ((6, 5), torch.float64, ValueError),
+    ((6,), torch.float32, ValueError),
+    ((6, 6), torch.float16, TypeError),
+    ((6, 6), torch.int32, TypeError)])
+def test_whole_chol_refuses_bad_shapes_and_dtypes(shape, dtype, error):
+    with pytest.raises(error, match="whole_chol"):
+        ops.whole_chol(torch.zeros(shape, dtype=dtype))
+
+
+@pytest.mark.parametrize("n", [7, 128, 129, 640, 1000, 20342])
+def test_whole_chol_order_deals_what_a_pair_reads_first(n):
+    """K34's dealing order: every tile (I, J), J <= I, is written by one
+    pair, and every tile a pair reads ((J, K), (I0, K), (I0 + 1, K) for
+    K < J, and (J, J) below the diagonal) by a pair dealt before it."""
+    from dot_tpu_torch.kernels import dd2d
+    order = dd2d.whole_chol_order(n)
+    nt = -(-n // dd2d.WHOLE_TILE)
+    rank = {}
+    for q, code in enumerate(order.tolist()):
+        J, I0 = code >> 16, code & 0xffff
+        assert J <= I0 < nt and (I0 - J) % 2 == 0
+        for i in range(I0, min(I0 + 2, nt)):
+            assert (i, J) not in rank
+            rank[i, J] = q
+    assert len(rank) == nt * (nt + 1) // 2
+    for q, code in enumerate(order.tolist()):
+        J, I0 = code >> 16, code & 0xffff
+        reads = [(r, K) for K in range(J)
+                 for r in (J, I0, I0 + 1) if r < nt]
+        if I0 != J:
+            reads.append((J, J))
+        assert all(rank[t] < q for t in reads), (J, I0)
+
+
 def test_target_g_res_and_tolerance_pieces(spikes):
     jst, st = spikes
     assert st.system._sqnorm_H_rest == pytest.approx(
