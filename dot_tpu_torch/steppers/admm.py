@@ -75,7 +75,10 @@ class ADMMPDStepper:
         return sys.k.admm_local_step(f9, u9, self.w_e, self.vol_dtsq,
                                      sys.u_e, sys.lam_e, sys.mat)
 
+    @tracing.span("dtw_scatter")
     def _scatter(self, M9, x, **epilogue):
+        """D^T W M9 with the epilogue's terms (K18): the global step's
+        right-hand side and the Dirichlet offsets' operator."""
         sys = self.system
         return sys.k.dtw_scatter(M9, sys.g9, self.w_e, sys.scat_perm,
                                  sys.scat_segids, sys.scat_off, x,
